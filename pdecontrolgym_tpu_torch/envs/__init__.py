@@ -1,0 +1,22 @@
+from pdecontrolgym_tpu_torch.envs.burgers import BurgersConfig, BurgersEnv
+from pdecontrolgym_tpu_torch.envs.common import (
+    Boundary1DConfig,
+    Boundary1DEnv,
+    Boundary1DState,
+)
+from pdecontrolgym_tpu_torch.envs.transport import (
+    TransportConfig,
+    TransportEnv,
+    chebyshev_beta,
+)
+
+__all__ = [
+    "Boundary1DConfig",
+    "Boundary1DEnv",
+    "Boundary1DState",
+    "BurgersConfig",
+    "BurgersEnv",
+    "TransportConfig",
+    "TransportEnv",
+    "chebyshev_beta",
+]

@@ -1,0 +1,4 @@
+from pdecontrolgym_tpu_torch.rewards.base import BaseReward
+from pdecontrolgym_tpu_torch.rewards.tuned import TunedReward1D
+
+__all__ = ["BaseReward", "TunedReward1D"]
