@@ -40,6 +40,11 @@ class RewardCtx:
       ``norms[:, -1]`` is the current row, ``norms[:, -1-k]`` the row k
       sub-steps earlier; ``W = reward.ring_requirement + 1``.
     - ``bsum``: ``(B,)`` running sum of ``|u[t, -1]|`` over all rows written.
+    - ``extras``: ``{"prev_u": (B, state_dim)}``, the row one sub-step before
+      the current one, when the reward declares ``needs_prev_row``; else None.
+    - ``aux_norms``: the trailing window in the reward's ``ring_ord`` (L1 or
+      L∞) when that is not ``"2"``; else None. The L2 window always exists:
+      truncation reads it.
     """
 
     u: torch.Tensor
@@ -51,12 +56,19 @@ class RewardCtx:
     norms: torch.Tensor
     bsum: torch.Tensor
     ring: int = 1
+    extras: Any = None
+    aux_norms: Any = None
 
-    def _at(self, back: int) -> torch.Tensor:
+    def _at(self, back, ring=None) -> torch.Tensor:
+        """The entry ``back`` sub-steps before the current one (an int, or a
+        tensor of lags for a ``(B, len(back))`` result) of ``ring`` (the L2
+        window when None)."""
+        ring = self.norms if ring is None else ring
         # clamp under-declared lags to the window's oldest entry instead of
         # silently wrapping via negative indexing
-        idx = max(self.norms.shape[-1] - 1 - int(back), 0)
-        return self.norms[..., idx]
+        idx = ring.shape[-1] - 1 - back
+        idx = max(idx, 0) if isinstance(back, int) else idx.clamp_min(0)
+        return ring[..., idx]
 
     @property
     def cur_norm(self) -> torch.Tensor:

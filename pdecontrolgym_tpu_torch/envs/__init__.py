@@ -4,6 +4,10 @@ from pdecontrolgym_tpu_torch.envs.common import (
     Boundary1DEnv,
     Boundary1DState,
 )
+from pdecontrolgym_tpu_torch.envs.reaction_diffusion import (
+    ReactionDiffusionConfig,
+    ReactionDiffusionEnv,
+)
 from pdecontrolgym_tpu_torch.envs.transport import (
     TransportConfig,
     TransportEnv,
@@ -16,6 +20,8 @@ __all__ = [
     "Boundary1DState",
     "BurgersConfig",
     "BurgersEnv",
+    "ReactionDiffusionConfig",
+    "ReactionDiffusionEnv",
     "TransportConfig",
     "TransportEnv",
     "chebyshev_beta",

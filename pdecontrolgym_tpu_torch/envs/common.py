@@ -1,4 +1,5 @@
-"""Shared machinery for the 1D boundary-controlled envs (transport, Burgers).
+"""Shared machinery for the 1D boundary-controlled envs (transport, Burgers,
+reaction-diffusion).
 
 Counterpart of ``pdecontrolgym_tpu/envs/common.py``, batch-first: a state holds
 ``(B, ...)`` tensors and every method steps the whole batch. Each agent action
@@ -12,7 +13,9 @@ Two paths advance a control interval:
   the env's ``_advance`` (the counterpart of ``jax.vmap(env.step)``).
 - :meth:`Boundary1DEnv.step_batch`, the interval path: one call of
   ``ops.interval1d.interval`` per control interval (the CUDA kernel for tensors
-  on the card), when the env has a spec for it.
+  on the card), when the env has a spec for it and the reward reads nothing
+  the interval does not produce (the previous row, a norm ring in another ord
+  than L2).
 """
 
 from __future__ import annotations
@@ -83,8 +86,8 @@ class Boundary1DState:
     time_index: torch.Tensor  # (B,) int32, current row index
     norm_ring: torch.Tensor  # (B, W) trailing per-row L2 norms
     bsum: torch.Tensor  # (B,) running sum of |u[t, -1]|
-    prev_u: Optional[torch.Tensor] = None  # not carried in this port yet (A5)
-    aux_ring: Optional[torch.Tensor] = None  # not carried in this port yet (A5)
+    prev_u: Optional[torch.Tensor] = None  # (B, state_dim) previous row, if the reward needs it
+    aux_ring: Optional[torch.Tensor] = None  # (B, W) norms in reward.ring_ord
 
 
 def _scalar(x: float, dtype: torch.dtype) -> float:
@@ -101,30 +104,36 @@ class Boundary1DEnv(FunctionalEnv):
     generator) -> (u0, beta)`` and, for the interval path, ``_interval_spec``.
 
     ``ic_sampler(num_envs, generator) -> (u0, beta)``, when given, replaces
-    ``default_ic``.
+    ``default_ic``. ``noise_fn(obs, generator) -> obs``, when given, is applied
+    to the observation of every step that is handed a generator (never to the
+    initial observation, and never with the global generator).
     """
+
+    # the parabolic system pins u(0, t) = 0, so Dirichlet sensing there is refused
+    left_dirichlet_fixed_zero: bool = False
 
     def __init__(
         self,
         config: Boundary1DConfig,
         reward,
         ic_sampler: Optional[Callable] = None,
+        noise_fn: Optional[Callable] = None,
         device="cuda",
     ):
-        if bool(getattr(reward, "needs_prev_row", False)) or str(
-            getattr(reward, "ring_ord", "2")
-        ) != "2":
-            raise NotImplementedError(
-                "rewards that need the previous row or a norm ring in an ord "
-                "other than L2 are not ported yet (ROADMAP A5)"
-            )
         self.config = config
         self.reward = reward
         self.ic_sampler = ic_sampler
+        self.noise_fn = noise_fn
         self.device = torch.device(device)
         # trailing-norm window: the largest lag the reward reads, +1 for the
         # current row
         self.window = max(int(getattr(reward, "ring_requirement", 1)), 1) + 1
+        self._needs_prev = bool(getattr(reward, "needs_prev_row", False))
+        # a reward may read lags in another norm than L2 (NormReward t-horizon
+        # with norm "1" or "inf"); the env then carries a second trailing
+        # window in that ord beside the L2 one, which truncation always reads
+        self._aux_ord = str(getattr(reward, "ring_ord", "2"))
+        self._needs_aux = self._aux_ord != "2"
         self._control_fn = make_control_fn(
             config.control_type, config.normalize, config.max_control_value, config.dx
         )
@@ -133,6 +142,7 @@ class Boundary1DEnv(FunctionalEnv):
             config.control_type,
             config.sensing_type,
             config.dx,
+            left_dirichlet_fixed_zero=self.left_dirichlet_fixed_zero,
         )
         self._spec = None
 
@@ -186,31 +196,55 @@ class Boundary1DEnv(FunctionalEnv):
             time_index=torch.zeros((B,), dtype=torch.int32, device=self.device),
             norm_ring=ring,
             bsum=u0[:, -1].abs(),
+            prev_u=u0 if self._needs_prev else None,
         )
-        return state, self._observe(state)
+        if self._needs_aux:
+            state.aux_ring = torch.zeros_like(ring)
+            state.aux_ring[:, -1] = self._aux_norm(u0)
+        return state, self._observe(state, None)
 
-    def _observe(self, state):
-        return self._sensing_fn(state.u)
+    def _aux_norm(self, u):
+        if self._aux_ord == "1":
+            return u.abs().sum(dim=-1)
+        return u.abs().amax(dim=-1)  # "inf"
 
-    def step(self, state, actions):
+    def _observe(self, state, generator):
+        obs = self._sensing_fn(state.u)
+        if self.noise_fn is not None and generator is not None:
+            obs = self.noise_fn(obs, generator)
+        return obs
+
+    def step(self, state, actions, generator=None):
         """Eager path: every sub-step of the interval as separate tensor ops."""
         c = self.config
         S, W, nt = c.sample_rate, self.window, c.nt
         control = torch.as_tensor(actions, dtype=c.dtype, device=self.device).reshape(-1, 1)
         u, t, bsum = state.u, state.time_index, state.bsum
+        # the row one SUB-step before the final row, not one interval before
+        prev_u = state.prev_u
         B = u.shape[0]
         positions = self._norm_offsets()
         norms = torch.zeros((B, S), dtype=c.dtype, device=self.device)
+        aux = torch.zeros_like(norms) if self._needs_aux else None
         for j in range(S):
             active = t < nt - 1
             u_new, boundary = self._advance(u, state.beta, control)
+            if self._needs_prev:
+                prev_u = torch.where(active[:, None], u, prev_u)
             u = torch.where(active[:, None], u_new, u)
             t = torch.where(active, t + 1, t)
             bsum = torch.where(active, bsum + boundary[:, 0].abs(), bsum)
             if j in positions:
                 norms[:, j] = torch.linalg.vector_norm(u, dim=-1)
+                if self._needs_aux:
+                    aux[:, j] = self._aux_norm(u)
         trailing = self._trailing(state.norm_ring, norms[:, -min(W, S):])
-        return self._finish(state, u, t, bsum, trailing)
+        aux_trailing = (
+            self._trailing(state.aux_ring, aux[:, -min(W, S):])
+            if self._needs_aux else None
+        )
+        return self._finish(state, u, prev_u, t, bsum, trailing, generator,
+                            aux_trailing)
 
     def _trailing(self, ring, norms):
         """Advance the trailing-norm window by one full interval: a static
@@ -261,13 +295,15 @@ class Boundary1DEnv(FunctionalEnv):
                 )
         return self._spec or None
 
-    def step_batch(self, state, actions):
+    def step_batch(self, state, actions, generator=None):
         """Step the batch through the interval path when ``backend`` is
-        ``"kernel"`` or ``"auto"`` and the env has a spec, else through
-        :meth:`step`."""
-        spec = None if self.config.backend == "eager" else self.interval_spec()
+        ``"kernel"`` or ``"auto"``, the env has a spec and the reward needs
+        neither the previous row nor an auxiliary norm ring (the interval
+        computes L2 norms only); else through :meth:`step`."""
+        eager = self.config.backend == "eager" or self._needs_prev or self._needs_aux
+        spec = None if eager else self.interval_spec()
         if spec is None:
-            return self.step(state, actions)
+            return self.step(state, actions, generator)
         spec, ctrl_transform = spec
         c = self.config
         S, W = c.sample_rate, self.window
@@ -285,13 +321,15 @@ class Boundary1DEnv(FunctionalEnv):
             # slot (S - W + i) % Wp holds the norm i rows into the window
             Wp = norms_win.shape[1]
             trailing = torch.roll(norms_win, -((S - W) % Wp), dims=1)[:, :W]
-        return self._finish(state, u, t, bsum, trailing)
+        return self._finish(state, u, None, t, bsum, trailing, generator)
 
     # -- shared step tail ----------------------------------------------------
 
-    def _finish(self, state, u, t, bsum, trailing):
+    def _finish(self, state, u, prev_u, t, bsum, trailing, generator,
+                aux_trailing=None):
         """Shared step tail. ``trailing[:, -1]`` is the current row's L2 norm,
-        ``trailing[:, -1-k]`` the norm k sub-steps earlier."""
+        ``trailing[:, -1-k]`` the norm k sub-steps earlier; ``aux_trailing`` is
+        the same window in the reward's ``ring_ord`` when that is not L2."""
         c = self.config
         nt = c.nt
         cur_norm = trailing[:, -1]
@@ -313,13 +351,16 @@ class Boundary1DEnv(FunctionalEnv):
             norms=trailing,
             bsum=bsum,
             ring=self.window,
+            extras={"prev_u": prev_u} if self._needs_prev else None,
+            aux_norms=aux_trailing,
         )
         reward = self.reward(ctx)
         new_state = dataclasses.replace(
-            state, u=u, time_index=t, norm_ring=trailing, bsum=bsum
+            state, u=u, time_index=t, norm_ring=trailing, bsum=bsum,
+            prev_u=prev_u if self._needs_prev else None, aux_ring=aux_trailing,
         )
         out = StepOut(
-            obs=self._observe(new_state),
+            obs=self._observe(new_state, generator),
             reward=reward,
             terminated=terminated,
             truncated=truncated,

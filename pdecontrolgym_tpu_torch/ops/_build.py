@@ -1,15 +1,17 @@
 """Build and load the package's CUDA kernels at first use.
 
-The sources under ``csrc/`` are compiled with ``nvcc`` into one shared library
-with a plain C interface, loaded with ``ctypes``. The library is cached in
-``pdecontrolgym_tpu_torch/_build/`` under a name keyed by a hash of the sources
-and the flags, written to a temporary name and renamed into place, so
-concurrent first uses do not see a half-written file and a changed source is
-never served a stale build.
+The sources under ``csrc/`` are compiled with ``nvcc``, one process for each
+source and all started together, and linked into one shared library with a
+plain C interface, loaded with ``ctypes``. The library is cached in
+``pdecontrolgym_tpu_torch/_build/`` under a name keyed by a hash of the
+sources, the headers and the flags, written to a temporary name and renamed
+into place, so concurrent first uses do not see a half-written file and a
+changed source is never served a stale build.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -19,13 +21,18 @@ import tempfile
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "interval1d.cu",)
+SOURCES = (
+    _PKG / "csrc" / "interval1d.cu",
+    _PKG / "csrc" / "interval1d_pcr.cu",
+)
+HEADERS = (_PKG / "csrc" / "interval1d_common.cuh",)
 BUILD_DIR = _PKG / "_build"
-# -fmad=false: no FMA contraction, so the kernel rounds as the plain PyTorch
-# version does (see csrc/interval1d.cu, point 4)
+# -fmad=false: no FMA contraction, so the kernels round as the plain PyTorch
+# version does (see csrc/interval1d.cu, point 4). Division and square root stay
+# IEEE (no -use_fast_math).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xcompiler", "-fPIC",
 )
 
 _lib = None
@@ -46,7 +53,7 @@ def nvcc_path() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libpdecg_kernels-{h.hexdigest()[:16]}.so"
@@ -55,28 +62,45 @@ def library_path() -> Path:
 def build(verbose: bool = False) -> Path:
     """Compile the kernels if no build of the current sources exists; return
     the library's path. ``verbose`` adds ``-Xptxas -v`` to a fresh build and
-    prints the compiler's report (registers, spills)."""
+    prints the compiler's report (registers, shared memory, spills)."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *map(str, SOURCES)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-            )
-        if verbose:
-            print(proc.stderr, end="")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    nvcc = nvcc_path()
+    report = ["-Xptxas", "-v"] if verbose else []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp, contextlib.ExitStack() as logs:
+        # one compiler process for each source, all started together; each
+        # writes its messages to a file, so none waits on a full pipe
+        jobs = []
+        for src in SOURCES:
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, *report, "-c", "-o", obj, str(src)]
+            log = logs.enter_context(open(obj + ".log", "w+"))
+            jobs.append((cmd, obj, log, subprocess.Popen(
+                cmd, stdout=log, stderr=subprocess.STDOUT)))
+        failures = []
+        for cmd, _obj, log, proc in jobs:
+            returncode = proc.wait()
+            log.seek(0)
+            messages = log.read()
+            if returncode != 0:
+                failures.append((cmd, returncode, messages))
+            elif verbose:
+                print(messages, end="")
+        for failure in failures:
+            _raise_if_failed(*failure)
+        lib = os.path.join(tmp, "lib.so")
+        link = [nvcc, "-shared", "-o", lib, *(obj for _, obj, _, _ in jobs)]
+        linked = subprocess.run(link, capture_output=True, text=True)
+        _raise_if_failed(link, linked.returncode, linked.stdout + linked.stderr)
+        os.replace(lib, out)
     return out
+
+
+def _raise_if_failed(cmd, returncode, messages):
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}): {' '.join(cmd)}\n{messages}")
 
 
 def load() -> ctypes.CDLL:
@@ -85,16 +109,19 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.interval1d_launch.argtypes = [
-            i, i,  # body, neumann
+        common = [
             p, p, p, p,  # u, beta, ctrl, t0
             p, p, p, p,  # u_out, norms, bsum, t_out
             i, i, i, i, i,  # B, nx, S, nt, Wp
             ctypes.POINTER(ctypes.c_int), i,  # positions, n_pos
-            f, f, f, f,  # c0..c3
-            i, p,  # device, stream
         ]
+        tail = [i, p]  # device, stream
+        # body, neumann, c0..c3
+        lib.interval1d_launch.argtypes = common + [i, i, f, f, f, f] + tail
         lib.interval1d_launch.restype = ctypes.c_int
+        # neumann, has_eb, dt, 2F, th, -th*F, 1-th, (1-th)*F, dx
+        lib.interval1d_pcr_launch.argtypes = common + [i, i] + [f] * 7 + tail
+        lib.interval1d_pcr_launch.restype = ctypes.c_int
         lib.interval1d_error_string.argtypes = [ctypes.c_int]
         lib.interval1d_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -31,11 +31,14 @@ def config_from_fields(cls, fields: dict):
 
 def state_from_numpy(leaves: dict, device) -> Boundary1DState:
     """Build a :class:`Boundary1DState` from numpy arrays ``u``, ``beta``,
-    ``time_index``, ``norm_ring`` and ``bsum``."""
+    ``time_index``, ``norm_ring`` and ``bsum``, and ``prev_u`` and ``aux_ring``
+    where the JAX state carries them."""
     u = np.asarray(leaves["u"])
     batched = u.ndim == 2
 
     def t(name, dtype=None):
+        if leaves.get(name) is None:
+            return None
         a = np.array(leaves[name])  # a copy: arrays from JAX are read-only
         return torch.as_tensor(a if batched else a[None], dtype=dtype, device=device)
 
@@ -45,4 +48,6 @@ def state_from_numpy(leaves: dict, device) -> Boundary1DState:
         time_index=t("time_index", torch.int32),
         norm_ring=t("norm_ring"),
         bsum=t("bsum"),
+        prev_u=t("prev_u"),
+        aux_ring=t("aux_ring"),
     )

@@ -8,6 +8,12 @@ reset from the same deterministic IC sampler (flat u0, Chebyshev β), so the
 fresh episodes agree whatever the random streams; the policy scales the
 backstepping gain per env so that the envs differ. Bands (tests/torch_parity.py):
 obs rtol/atol 1e-6, rewards 1e-3, flags exactly.
+
+The reaction-diffusion path runs the same way: 8 envs, implicit θ-scheme
+(θ=0.5, nx=64, 5 sub-steps per action, the PCR interval body) against the JAX
+rollout on its Pallas kernel in interpret mode, obs rtol/atol 2e-5 (the
+implicit band); and the explicit scheme under the parabolic backstepping
+policy against the JAX rollout on its XLA path, obs 1e-6.
 """
 
 import numpy as np
@@ -18,12 +24,21 @@ import jax.numpy as jnp
 
 from pdecontrolgym_tpu.agents.backstepping import transport_kernel as jax_transport_kernel
 from pdecontrolgym_tpu.envs.common import Boundary1DConfig as JaxConfig
+from pdecontrolgym_tpu.envs.reaction_diffusion import (
+    ReactionDiffusionConfig as JaxRDConfig,
+    ReactionDiffusionEnv as JaxRDEnv,
+)
 from pdecontrolgym_tpu.envs.transport import TransportEnv as JaxTransportEnv
 from pdecontrolgym_tpu.parallel.rollout import rollout as jax_rollout
 from pdecontrolgym_tpu.rewards.tuned import TunedReward1D as JaxTunedReward1D
 
 from pdecontrolgym_tpu_torch.agents.backstepping import transport_kernel
 from pdecontrolgym_tpu_torch.envs.common import Boundary1DConfig
+from pdecontrolgym_tpu_torch.agents.backstepping import parabolic_control, parabolic_kernel
+from pdecontrolgym_tpu_torch.envs.reaction_diffusion import (
+    ReactionDiffusionConfig,
+    ReactionDiffusionEnv,
+)
 from pdecontrolgym_tpu_torch.envs.transport import TransportEnv
 from pdecontrolgym_tpu_torch.ops import interval1d
 from pdecontrolgym_tpu_torch.parallel.rollout import batch_step, rollout
@@ -101,3 +116,63 @@ def test_batch_step_resets_only_finished_envs():
 
     state, out = batch_step(penv, autoreset=False)(state, torch.zeros(B))
     assert bool(state.time_index[B // 2:].eq(2 * penv.config.sample_rate).all())
+
+
+def _rd_envs(jax_backend, **fields):
+    cfg = JaxRDConfig(X=1.0, dx=1.0 / 64, backend=jax_backend, **fields)
+    n, nt = cfg.nx + 1, int(round(cfg.T / cfg.dt))
+    beta = (50 * np.cos(8 * np.arccos(np.linspace(0, 1, n)))).astype(np.float32)
+    jenv = JaxRDEnv(
+        cfg, JaxTunedReward1D(nt, -1e3, 3e2),
+        ic_sampler=lambda key: (jnp.full((n,), U0, jnp.float32), jnp.asarray(beta)),
+    )
+    penv = ReactionDiffusionEnv(
+        port_config(ReactionDiffusionConfig, cfg, backend="auto"),
+        TunedReward1D(nt, -1e3, 3e2),
+        ic_sampler=lambda m, gen: (torch.full((m, n), U0),
+                                   torch.from_numpy(beta).expand(m, n).contiguous()),
+        device="cpu",
+    )
+    return jenv, penv, n
+
+
+def _assert_rollouts_match(jouts, pouts, end, obs_tol):
+    term = pouts.terminated.numpy()
+    assert term[end].all() and not term[:end].any() and not term[end + 1:].any()
+    np.testing.assert_array_equal(term, np.asarray(jouts.terminated))
+    np.testing.assert_array_equal(pouts.truncated.numpy(), np.asarray(jouts.truncated))
+    np.testing.assert_allclose(pouts.reward.numpy(), np.asarray(jouts.reward),
+                               rtol=REWARD_TOL, atol=REWARD_TOL)
+    np.testing.assert_allclose(pouts.obs.numpy(), np.asarray(jouts.obs),
+                               rtol=obs_tol, atol=obs_tol)
+
+
+def test_implicit_reaction_diffusion_rollout_matches_jax():
+    jenv, penv, n = _rd_envs("pallas", T=0.02, dt=4e-4, control_sample_rate=2e-3,
+                             scheme="implicit", theta=0.5)
+    assert penv.interval_spec() is not None and jenv._pallas_spec() is not None
+    gains = np.linspace(-0.2, 0.2, 8, dtype=np.float32)  # the envs differ
+    jgains, pgains = jnp.asarray(gains), torch.from_numpy(gains)
+    (_, _), jouts = jax.jit(
+        lambda key: jax_rollout(jenv, lambda o, k: jgains * o[..., -2], 8, 13, key)
+    )(jax.random.key(0))
+    (_, _), pouts = rollout(penv, lambda o, g: pgains * o[..., -2], 8, 13,
+                            torch.Generator().manual_seed(0))
+    assert pouts.obs.shape == (13, 8, n)
+    _assert_rollouts_match(jouts, pouts, end=9, obs_tol=2e-5)  # 10 actions an episode
+    np.testing.assert_array_equal(pouts.obs[9].numpy(), np.full((8, n), U0, np.float32))
+
+
+def test_explicit_reaction_diffusion_backstepping_rollout_matches_jax():
+    jenv, penv, n = _rd_envs("xla", T=0.004, dt=5e-5, control_sample_rate=5e-4)
+    dx = 1.0 / 64
+    theta = 50 * np.cos(8 * np.arccos(np.linspace(dx, 1.0, n)))
+    krow = parabolic_kernel(torch.from_numpy(theta), dx).float()
+    scales = np.linspace(0.5, 1.5, 8, dtype=np.float32)
+    jk, jscales, pscales = jnp.asarray(krow.numpy()), jnp.asarray(scales), torch.from_numpy(scales)
+    (_, _), jouts = jax.jit(lambda key: jax_rollout(
+        jenv, lambda o, k: jscales * (o[..., :-1] @ jk[:-1]) * dx, 8, 10, key)
+    )(jax.random.key(0))
+    (_, _), pouts = rollout(penv, lambda o, g: pscales * parabolic_control(krow, o, dx),
+                            8, 10, torch.Generator().manual_seed(0))
+    _assert_rollouts_match(jouts, pouts, end=7, obs_tol=OBS_TOL)  # 8 actions an episode

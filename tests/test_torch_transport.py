@@ -255,15 +255,34 @@ def test_roll_ring_and_reward_ctx_match_jax():
 
 
 def test_rewards_outside_the_slice_raise():
+    """Rewards that read the previous row or a norm ring in another ord than
+    L2 used to raise NotImplementedError. The env now carries ``prev_u`` and
+    the auxiliary ring for them, and ``step_batch`` gives way to ``step``
+    (tests/test_torch_norm_reward.py holds the values against the JAX env)."""
+
     @dataclasses.dataclass(frozen=True)
     class PrevRowReward:
         needs_prev_row: bool = True
+
+        def __call__(self, ctx):
+            return (ctx.u - ctx.extras["prev_u"]).abs().sum(dim=-1)
 
     @dataclasses.dataclass(frozen=True)
     class L1RingReward:
         ring_ord: str = "1"
 
-    cfg = Boundary1DConfig()
-    for reward in (PrevRowReward(), L1RingReward()):
-        with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-            TransportEnv(cfg, reward, device="cpu")
+        def __call__(self, ctx):
+            return ctx.aux_norms[:, -1]
+
+    cfg = Boundary1DConfig(T=0.01, dt=1e-4, dx=1.0 / 16, control_sample_rate=1e-3)
+    u0 = np.linspace(1.0, 2.0, 16, dtype=np.float32)[None]
+    for reward, field in ((PrevRowReward(), "prev_u"), (L1RingReward(), "aux_ring")):
+        env = TransportEnv(cfg, reward, device="cpu")
+        assert env.interval_spec() is not None
+        state, _ = env.init_from(u0, np.zeros_like(u0))
+        assert getattr(state, field) is not None
+        eager_state, eager_out = env.step(state, torch.tensor([0.5]))
+        batch_state, batch_out = env.step_batch(state, torch.tensor([0.5]))
+        assert torch.equal(batch_out.reward, eager_out.reward)
+        assert torch.equal(getattr(batch_state, field), getattr(eager_state, field))
+        assert bool(torch.isfinite(eager_out.reward).all())
