@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py
 
 It imports ``pdecontrolgym_tpu_torch`` from the checkout (never JAX, never the
-JAX package), builds the CUDA interval kernels from ``csrc/`` and runs:
+JAX package), builds the CUDA kernels from ``csrc/`` and runs:
 
 1. device    -- require CUDA; print the card's name and power limit.
 2. build     -- compile ``csrc/*.cu`` with nvcc (one process for each source,
@@ -31,11 +31,29 @@ JAX package), builds the CUDA interval kernels from ``csrc/`` and runs:
                 at the published notebook's size (dx=5e-3, dt=1e-5, T=1): 4096
                 envs, one episode of 1000 actions x 100 sub-steps under the
                 parabolic backstepping policy.
-8. times     -- CUDA events, median of 3 after a warm-up: one interval,
-                kernel (per call, 20 back to back) against plain version,
-                and the kernel's device time by torch.profiler; full
-                episodes, interval path against the eager path, in PDE
-                sub-steps/s, with the device's busy time and idle share.
+8. ns_kernel -- the fused Navier-Stokes projection step against its plain
+                PyTorch version on the card: lid-driven cavity at B=4096,
+                64x64; mixed boundary conditions; 16x16, 21x21, 24x40; 128x128
+                at B=1024; with and without the tracking sum; the three
+                spectral precisions; the autograd function's gradients.
+9. ns        -- the bench_families.py ``ns_fast`` workload through the port's
+                rollout: 4096 envs, 64x64, float32, direct pressure solve,
+                lid-driven cavity, NSReward(0.1), constant policy 2.0, one
+                episode of 249 steps; at B=8 the kernel path against the eager
+                path over the whole episode; two episodes back to back at
+                B=256 across a boundary reset.
+10. times    -- CUDA events, median of 3 after a warm-up: one projection step
+                or one interval, kernel (per call, 20 back to back) against
+                plain version, and the kernel's device time by
+                torch.profiler; full episodes, kernel path against the eager
+                path, in env-steps/s for Navier-Stokes and PDE sub-steps/s
+                for the 1D workloads, with the device's busy time and idle
+                share; the ``ns_matpow`` parity row (21x21, float64, eager)
+                for the record. Navier-Stokes first: the longest trace (the
+                explicit reaction-diffusion episode's) must be the last.
+
+Float32 matrix products of the plain versions must run in full float32: the
+script sets ``torch.backends.cuda.matmul.allow_tf32 = False`` itself.
 
 Every phase raises on failure, so the script exits non-zero. The last three
 lines of standard output are the card's name and power limit, the per-kernel
@@ -67,6 +85,40 @@ U_TOL = 1e-6
 U_TOL_IMPLICIT = 2e-5
 BSUM_RTOL = 1e-4
 NORM_RTOL = 1e-5
+
+# The projection step against its plain version. Its four products need not
+# sum in torch.matmul's order (where cuBLAS walks the contraction index as the
+# kernel's fmaf chain does, the two come out equal to the bit), so the
+# band is the JAX package's own between its kernel and its XLA path
+# (tests/test_ns_fused.py: atol 2e-5 on fields of order 1), scaled by the
+# field's largest magnitude where that exceeds 1 (the pressure of a cavity
+# started from U(-5, 5) constants reaches thousands) and, for u' and v', by
+# the size of the pressure term the corrector subtracts. The tracking sum is held
+# to the same sum taken by PyTorch over the kernel's own u', v' (rtol 1e-5:
+# 8192 float32 squares in another order) and to the plain version's (rtol
+# 1e-4, the JAX package's band on the reward). Gradients flow back through the
+# plain version from the kernel's outputs: rtol 1e-4 of the largest gradient.
+NS_FIELD_ATOL = 2e-5
+# In the reduced precisions kernel and plain version round the same operands
+# to bf16, but an intermediate that differs in its last float32 bits can round
+# to the other bf16 neighbour: one such flip moves a value by 2^-8 of itself
+# ("default"), or by the rounding of the tail, 2^-16 ("high"). The band widens
+# by these factors.
+NS_PRECISION_BAND = {"highest": 1.0, "high": 8.0, "default": 400.0}
+NS_TSUM_RTOL = 1e-5
+NS_TSUM_PLAIN_RTOL = 1e-4
+NS_GRAD_RTOL = 1e-4
+# the kernel path against the eager path after a whole episode (248 steps of
+# float32 rounding apart: the kernel multiplies by 0.5/dx where the eager path
+# divides by 2*dx), relative to the largest magnitude of the frame
+NS_EPISODE_RTOL = 1e-3
+
+LID_BC = (("Dirchilet", "Dirchilet"), ("Controllable", "Dirchilet"),
+          ("Dirchilet", "Dirchilet"), ("Dirchilet", "Dirchilet"))
+# Neumann inner-neighbour reads and a controllable v-component: corner
+# overwrite chains that differ from the lid's (lower, upper, left, right)
+MIXED_BC = (("Neumann", "Dirchilet"), ("Controllable", "Neumann"),
+            ("Dirchilet", "Controllable"), ("Neumann", "Neumann"))
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside the
 # tensor cores, and device memory. A kernel's bound is the larger of its
@@ -537,7 +589,238 @@ def phase_burgers(torch, device):
     return launches
 
 
-# -- phase 8 -----------------------------------------------------------------------
+# -- phases 8 and 9: Navier-Stokes ---------------------------------------------------
+
+
+def ns_setup(torch, device, **overrides):
+    """bench_families.py's ``ns_fast`` row: a 64x64 lid-driven cavity, float32,
+    direct pressure solve, zero tracking target, constant lid policy 2.0.
+    Returns (env, policy, steps an episode)."""
+    from pdecontrolgym_tpu_torch.envs.navier_stokes import (
+        NavierStokesConfig,
+        NavierStokesEnv,
+    )
+    from pdecontrolgym_tpu_torch.rewards.ns import NSReward
+
+    fields = dict(T=0.05, dt=2e-4, X=1.0, dx=1.0 / 63, Y=1.0, dy=1.0 / 63,
+                  viscosity=0.05, dtype=torch.float32, boundary_condition=LID_BC,
+                  pressure_solver="direct")
+    fields.update(overrides)
+    cfg = NavierStokesConfig(**fields)
+    nt = cfg.nt
+    env = NavierStokesEnv(
+        cfg, NSReward(0.1), torch.zeros((nt, cfg.ny, cfg.nx, 2), dtype=cfg.dtype),
+        2.0 * torch.ones(nt, dtype=cfg.dtype), device=device)
+
+    def policy(obs, _generator):
+        return torch.full((obs.shape[0], 1), 2.0, dtype=cfg.dtype, device=device)
+
+    return env, policy, nt - 1
+
+
+def _ns_spec(ny, nx, bc=LID_BC, precision="highest"):
+    from pdecontrolgym_tpu_torch.ops.ns_fused import NSStepSpec
+
+    # the ns_fast row's constants on a unit square of ny x nx points
+    return NSStepSpec(ny, nx, 1.0 / (nx - 1), 1.0 / (ny - 1), 2e-4, 0.05, 1.0, bc,
+                      precision)
+
+
+def _ns_inputs(torch, spec, B, gen, device, track, level=0.0):
+    """Fields of noise of order 0.2 (the JAX package's test fields) around a
+    U(-level, level) constant an env (level=5: a fresh episode of the main
+    path, whose jump to the zero walls drives the pressure into the
+    thousands); lid velocities U(-2, 2); a target of order 0.1."""
+    shape = (B, spec.ny, spec.nx)
+
+    def field():
+        base = level * (2 * torch.rand(B, 1, 1, generator=gen, device=device) - 1)
+        return (base + 0.2 * torch.randn(shape, generator=gen, device=device)).contiguous()
+
+    action = 4 * torch.rand(B, 1, generator=gen, device=device) - 2
+    refs = ()
+    if track:
+        refs = tuple(0.1 * torch.randn(shape[1:], generator=gen, device=device)
+                     for _ in range(2))
+    return (field(), field(), action) + refs
+
+
+def ns_kernel_case(torch, label, spec, B, gen, device, track, level=0.0):
+    """One projection step through the kernel and through the plain version on
+    the same inputs on the card. Returns (max abs err over u', v', inputs)."""
+    from pdecontrolgym_tpu_torch.ops import ns_fused
+
+    inputs = _ns_inputs(torch, spec, B, gen, device, track, level)
+    before = ns_fused.LAUNCHES
+    k_out = ns_fused.ns_step(spec, *inputs)
+    torch.cuda.synchronize()
+    if ns_fused.LAUNCHES != before + 1:
+        raise AssertionError(f"{label}: the wrapper did not count its launch")
+    p_out = ns_fused.ns_step_plain(spec, *inputs)
+    torch.cuda.synchronize()
+    ns_fused.LAUNCHES = before  # comparison launches do not count
+
+    # the corrector subtracts (dt/rho) * (0.5/dx) * (a difference of p), so u'
+    # and v' inherit the float32 rounding of a term of that size
+    chdx, chdy, _, _, _, _, ccorr = spec.scalars()
+    p_max = float(p_out[2].abs().max())
+    scales = (max(1.0, float(p_out[0].abs().max()), ccorr * chdx * p_max),
+              max(1.0, float(p_out[1].abs().max()), ccorr * chdy * p_max),
+              max(1.0, p_max))
+    atol = NS_FIELD_ATOL * NS_PRECISION_BAND[spec.spectral_precision]
+    errs = [_max_err(f"{label} {name}", k, p, 0.0, atol * scale)
+            for name, k, p, scale in zip(("u'", "v'", "p"), k_out, p_out, scales)]
+    note = ""
+    if track:
+        ku, kv, _, ktsum = k_out
+        uref, vref = inputs[3], inputs[4]
+        own = ((ku - uref) ** 2 + (kv - vref) ** 2).sum(dim=(1, 2))[:, None]
+        e_own = _max_err(f"{label} tsum (its own fields)", ktsum, own, NS_TSUM_RTOL, 0.0)
+        _max_err(f"{label} tsum (plain)", ktsum, p_out[3],
+                 NS_TSUM_PLAIN_RTOL * NS_PRECISION_BAND[spec.spectral_precision], 0.0)
+        note = f" tsum={e_own:.3e} (of {float(own.abs().max()):.3e})"
+    log(f"[ns_kernel] {label}: B={B} {spec.ny}x{spec.nx} {spec.spectral_precision} "
+        f"max_abs_err u'={errs[0]:.3e} v'={errs[1]:.3e} p={errs[2]:.3e} "
+        f"(bands {', '.join(f'{atol * x:.1e}' for x in scales)}){note}")
+    return max(errs[:2]), (spec,) + inputs
+
+
+def ns_gradient_case(torch, spec, B, gen, device):
+    """The autograd function (forward: the kernel) against autograd through
+    the plain version, under a loss that is not linear in the outputs."""
+    from pdecontrolgym_tpu_torch.ops import ns_fused
+
+    inputs = _ns_inputs(torch, spec, B, gen, device, track=True)
+
+    def grads(fn):
+        leaves = [t.detach().clone().requires_grad_(True) for t in inputs[:3]]
+        u, v, p, tsum = fn(spec, *leaves, *inputs[3:])
+        loss = (u * u).sum() + (v * v).sum() + 1e-4 * (p * p).sum() + tsum.sum()
+        return torch.autograd.grad(loss, leaves)
+
+    before = ns_fused.LAUNCHES
+    got = grads(ns_fused.ns_step)
+    if ns_fused.LAUNCHES != before + 1:
+        raise AssertionError("ns gradient: the forward did not launch the kernel")
+    ns_fused.LAUNCHES = before
+    want = grads(ns_fused.ns_step_plain)
+    torch.cuda.synchronize()
+    errs = []
+    for name, g, w in zip(("u", "v", "action"), got, want):
+        errs.append(_max_err(f"ns gradient d/d{name}", g, w, 0.0,
+                             NS_GRAD_RTOL * float(w.abs().max())))
+    log(f"[ns_kernel] gradients B={B} {spec.ny}x{spec.nx}: max_abs_err du={errs[0]:.3e} "
+        f"dv={errs[1]:.3e} daction={errs[2]:.3e} (largest gradients "
+        f"{', '.join(f'{float(w.abs().max()):.3e}' for w in want)})")
+
+
+def phase_ns_kernel(torch, device):
+    from pdecontrolgym_tpu_torch.ops import ns_fused
+
+    gen = torch.Generator(device=device).manual_seed(6)
+    inputs = {}
+    err, inputs["ns 64x64"] = ns_kernel_case(
+        torch, "lid, a fresh episode's fields", _ns_spec(64, 64), NUM_ENVS, gen, device,
+        track=True, level=5.0)
+    e, _ = ns_kernel_case(torch, "lid, no tracking sum", _ns_spec(64, 64), NUM_ENVS, gen,
+                          device, track=False)
+    err = max(err, e)
+    e, _ = ns_kernel_case(torch, "mixed", _ns_spec(64, 64, MIXED_BC), NUM_ENVS, gen,
+                          device, track=True)
+    err = max(err, e)
+    for ny, nx in ((16, 16), (21, 21), (24, 40), (3, 5)):
+        for bc, name in ((LID_BC, "lid"), (MIXED_BC, "mixed")):
+            ns_kernel_case(torch, name, _ns_spec(ny, nx, bc), 257, gen, device, track=True)
+    _, inputs["ns 128x128"] = ns_kernel_case(
+        torch, "lid", _ns_spec(128, 128), 1024, gen, device, track=True)
+    ns_kernel_case(torch, "mixed", _ns_spec(128, 128, MIXED_BC), 1024, gen, device,
+                   track=False)
+    ns_kernel_case(torch, "mixed", _ns_spec(100, 72, MIXED_BC), 64, gen, device, track=True)
+    for precision in ("high", "default"):
+        ns_kernel_case(torch, "lid", _ns_spec(64, 64, precision=precision), NUM_ENVS, gen,
+                       device, track=True)
+        ns_kernel_case(torch, "mixed", _ns_spec(128, 128, MIXED_BC, precision), 64, gen,
+                       device, track=True)
+    ns_gradient_case(torch, _ns_spec(64, 64, MIXED_BC), 64, gen, device)
+
+    # above its cap the wrapper raises; it never serves a CUDA tensor with the
+    # plain version
+    spec = _ns_spec(ns_fused.MAX_N + 1, 16)
+    big = _ns_inputs(torch, spec, 2, gen, device, track=False)
+    try:
+        ns_fused.ns_step(spec, *big)
+    except ValueError as exc:
+        log(f"[ns_kernel] {spec.ny}x{spec.nx} raises ValueError: {exc}")
+    else:
+        raise AssertionError(f"ns_step took a {spec.ny}x{spec.nx} grid on the card")
+    return err, inputs
+
+
+def run_ns_episode(torch, workload, num_envs, episodes, seed, keep_obs=False):
+    """``episodes`` full episodes of the NS workload through the port's
+    rollout. Returns (final obs, outs, kernel launches)."""
+    from pdecontrolgym_tpu_torch.ops import ns_fused
+    from pdecontrolgym_tpu_torch.parallel.rollout import rollout
+
+    env, policy, steps = workload
+    gen = torch.Generator(device=env.device).manual_seed(seed)
+    ns_fused.LAUNCHES = 0
+    (_state, obs), outs = rollout(env, policy, num_envs, episodes * steps, gen,
+                                  keep_obs=keep_obs)
+    torch.cuda.synchronize()
+    return obs, outs, ns_fused.LAUNCHES
+
+
+def phase_ns(torch, device):
+    workload = ns_setup(torch, device)
+    steps = workload[2]
+    obs, outs, launches = run_ns_episode(torch, workload, NUM_ENVS, 1, seed=7)
+    if launches != steps or steps != 249:
+        raise AssertionError(f"ns: {launches} kernel launches, expected 249")
+    if outs.obs is not None or tuple(outs.reward.shape) != (steps, NUM_ENVS):
+        raise AssertionError("ns: the stacked result has the wrong shape")
+    if not (bool(torch.isfinite(outs.reward).all()) and bool(torch.isfinite(obs).all())):
+        raise AssertionError("ns: non-finite rewards or observations")
+    term = outs.terminated
+    if bool(term[:-1].any()) or not bool(term[-1].all()) or bool(outs.truncated.any()):
+        raise AssertionError(f"ns: episodes did not all end at step {steps}")
+    log(f"[ns] {NUM_ENVS} envs x {steps} steps, 64x64: {launches} launches, mean return "
+        f"{outs.reward.sum(0).mean().item():.4f}, mean last reward "
+        f"{outs.reward[-1].mean().item():.6f}")
+
+    # the kernel path against the eager path over a whole episode at B=8: the
+    # same seed gives both the same initial fields
+    _, k_outs, _ = run_ns_episode(torch, workload, 8, 1, seed=8, keep_obs=True)
+    eager = ns_setup(torch, device, step_backend="eager")
+    _, e_outs, e_launches = run_ns_episode(torch, eager, 8, 1, seed=8, keep_obs=True)
+    if e_launches != 0:
+        raise AssertionError("ns: the eager path launched the kernel")
+    last = e_outs.obs[-2]  # the last step's obs is the fresh one
+    scale = max(1.0, float(last.abs().max()))
+    err = _max_err("ns episode, kernel against eager, frame 248", k_outs.obs[-2], last,
+                   0.0, NS_EPISODE_RTOL * scale)
+    err_r = _max_err("ns episode, kernel against eager, rewards", k_outs.reward,
+                     e_outs.reward, 1e-3, 1e-5)
+    log(f"[ns] kernel path against eager path, B=8, after 248 steps: max_abs_err "
+        f"frame={err:.3e} (max |frame| {scale:.3e}) rewards={err_r:.3e}")
+
+    # two episodes back to back: a boundary reset in the middle
+    obs, outs, two = run_ns_episode(torch, workload, 256, 2, seed=9)
+    term = outs.terminated
+    ends = term.all(dim=1).nonzero().flatten().tolist()
+    if two != 2 * steps or ends != [steps - 1, 2 * steps - 1] or \
+            int(term.any(dim=1).sum()) != 2:
+        raise AssertionError(f"ns: two episodes gave {two} launches, ends at {ends}")
+    if not bool(torch.isfinite(outs.reward).all()):
+        raise AssertionError("ns: non-finite rewards across the boundary reset")
+    log(f"[ns] 256 envs x 2 episodes: {two} launches, episodes end at steps "
+        f"{[e + 1 for e in ends]}, mean returns "
+        f"{outs.reward[:steps].sum(0).mean().item():.4f} and "
+        f"{outs.reward[steps:].sum(0).mean().item():.4f}")
+    return launches
+
+
+# -- phase 10 ----------------------------------------------------------------------
 
 
 def cuda_ms(torch, fn, runs=3, calls=1):
@@ -559,9 +842,12 @@ def cuda_ms(torch, fn, runs=3, calls=1):
     return statistics.median(times)
 
 
-def device_ms(torch, fn, name_part=None):
-    """Device time of one ``fn()`` by torch.profiler: of the kernels whose name
-    holds ``name_part`` (per launch), or of every kernel (the busy time)."""
+def device_rows(torch, fn, name_part=None):
+    """torch.profiler's rows for the device kernels of one ``fn()`` (those whose
+    name holds ``name_part``, or all). After a trace of some 40,000 kernels the
+    traces that follow come back without device kernels, so main() takes the
+    longest trace (the explicit reaction-diffusion episode's) last, and the
+    eager Navier-Stokes episode is timed without one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -574,6 +860,13 @@ def device_ms(torch, fn, name_part=None):
             and (name_part is None or name_part in e.key)]
     if not rows:
         raise AssertionError(f"torch.profiler recorded no device kernel {name_part or ''}")
+    return rows
+
+
+def device_ms(torch, fn, name_part=None):
+    """Device time of one ``fn()`` by torch.profiler: of the kernels whose name
+    holds ``name_part`` (per launch), or of every kernel (the busy time)."""
+    rows = device_rows(torch, fn, name_part)
     total_ms = sum(e.self_device_time_total for e in rows) / 1e3
     count = sum(e.count for e in rows)
     return (total_ms / count if name_part else total_ms), count
@@ -680,6 +973,91 @@ def phase_times(torch, device, inputs, card):
     return interval_ms
 
 
+def ns_bound(spec, num_envs, track):
+    """The least time the card could take for one projection step: the bytes
+    it must move (u, v, action in; u', v', p out; the target once and a sum an
+    env with the tracking sum) over the memory rate, against its float32
+    operations over the float32 peak. Operations, counted from the formulae in
+    ops/ns_fused.py: the four products, 2*ny*nx*(ny + nx) twice over; a cell,
+    18 for each predictor (two differences 2 each, the Laplacian 6, the
+    combination 8), 6 for g, 1 for the mode scale, 8 for the corrector, 6 for
+    the tracking sum. Returns (bound_ms, "bytes" or "operations", bytes,
+    operations)."""
+    ny, nx = spec.ny, spec.nx
+    cells = ny * nx
+    nbytes = 4 * (num_envs * (5 * cells + 1 + int(track)) + 2 * cells * int(track))
+    flops = num_envs * (4 * cells * (ny + nx) + cells * (36 + 6 + 1 + 8 + 6 * int(track)))
+    by_bytes = nbytes / PEAK_MEMORY_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations"), \
+        nbytes, flops
+
+
+def phase_ns_times(torch, device, inputs, card):
+    from pdecontrolgym_tpu_torch.ops import ns_fused
+
+    step_ms = {}
+    for name, (spec, *tensors) in inputs.items():
+        call = lambda: ns_fused.ns_step(spec, *tensors)  # noqa: E731
+        k = cuda_ms(torch, call, calls=20)
+        dev, _ = device_ms(torch, call, "ns_step_kernel")
+        p = cuda_ms(torch, lambda: ns_fused.ns_step_plain(spec, *tensors))
+        bound, bound_by, nbytes, flops = ns_bound(spec, tensors[0].shape[0], True)
+        step_ms[name] = {"ms": k, "plain_ms": p, "bound_ms": bound,
+                         "bound_by": bound_by, "library_ms": None}
+        log(f"[times] one {name} projection step B={tensors[0].shape[0]}: kernel {k:.4f} "
+            f"ms per call (20 back to back), {dev:.4f} ms on the device "
+            f"(torch.profiler); plain {p:.4f} ms; bound {bound:.5f} ms by {bound_by} "
+            f"({nbytes} bytes, {flops} operations), share of the bound reached "
+            f"{bound / dev:.3f}; no single PyTorch call computes the step ({card})")
+
+    # the four products of the plain spectral solve alone, as torch.matmul
+    spec, u = inputs["ns 64x64"][0], inputs["ns 64x64"][1]
+    basis = spec.basis(device)
+
+    def four_products():
+        t = basis["qyT"] @ u
+        t = (t @ basis["qx"]) * basis["inv"]
+        return basis["qy"] @ (t @ basis["qxT"])
+
+    mm = cuda_ms(torch, four_products)
+    log(f"[times] the four torch.matmul products of the plain spectral solve alone, "
+        f"B={u.shape[0]} 64x64, float32 without TF32: {mm:.4f} ms ({card})")
+
+    workload = ns_setup(torch, device)
+    env_steps = NUM_ENVS * workload[2]
+    episode = lambda: run_ns_episode(torch, workload, NUM_ENVS, 1, seed=3)  # noqa: E731
+    ms = cuda_ms(torch, episode)
+    rows = sorted(device_rows(torch, episode), key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    log(f"[times] ns 64x64 full episode (kernel path): {ms:.3f} ms, "
+        f"{env_steps / (ms / 1e3):.0f} env-steps/s at {NUM_ENVS} envs; device busy "
+        f"{busy_ms:.3f} ms in {sum(e.count for e in rows)} kernels (torch.profiler), "
+        f"idle share {1 - busy_ms / ms:.3f} ({card})")
+    for e in rows[:5]:
+        log(f"[times]   {e.self_device_time_total / 1e3:9.3f} ms in {e.count:5d} launches "
+            f"of {e.key[:70]}")
+    eager = ns_setup(torch, device, step_backend="eager")
+    ms = cuda_ms(torch, lambda: run_ns_episode(torch, eager, NUM_ENVS, 1, seed=3), runs=1)
+    log(f"[times] ns 64x64 full episode (eager path): {ms:.3f} ms, "
+        f"{env_steps / (ms / 1e3):.0f} env-steps/s at {NUM_ENVS} envs ({card})")
+
+    # the parity row ns_matpow of bench_families.py: the reference's 21x21
+    # grid, float64, 2000 sweeps collapsed into two products; eager, no kernel
+    from pdecontrolgym_tpu_torch.envs.navier_stokes import NavierStokesConfig
+
+    defaults = NavierStokesConfig()
+    workload = ns_setup(
+        torch, device, T=defaults.T, dt=defaults.dt, dx=defaults.dx, dy=defaults.dy,
+        viscosity=defaults.viscosity, dtype=torch.float64, pressure_solver="matpow")
+    ms = cuda_ms(torch, lambda: run_ns_episode(torch, workload, NUM_ENVS, 1, seed=3), runs=1)
+    log(f"[times] ns_matpow 21x21 float64 full episode of {workload[2]} steps (eager, no "
+        f"kernel): {ms:.3f} ms, {NUM_ENVS * workload[2] / (ms / 1e3):.0f} env-steps/s at "
+        f"{NUM_ENVS} envs ({card})")
+    ns_fused.LAUNCHES = 0  # timing launches do not count
+    return step_ms
+
+
 def main():
     modules_at_start = set(sys.modules)
     import torch
@@ -688,6 +1066,9 @@ def main():
     import_port()
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
+    # the plain versions' float32 products in full float32 (PyTorch's default,
+    # stated here because the comparisons below depend on it)
+    torch.backends.cuda.matmul.allow_tf32 = False
     phase_build()
     errs, inputs = phase_kernel(torch, device)
     transport_launches = phase_transport(torch, device)
@@ -695,6 +1076,9 @@ def main():
     phase_goldens_parabolic(torch, device)
     burgers_launches = phase_burgers(torch, device)
     explicit_launches, implicit_launches = phase_rd(torch, device)
+    ns_err, ns_inputs = phase_ns_kernel(torch, device)
+    ns_launches = phase_ns(torch, device)
+    ns_ms = phase_ns_times(torch, device, ns_inputs, card)
     interval_ms = phase_times(torch, device, inputs, card)
 
     foreign = sorted(m for m in set(sys.modules) - modules_at_start
@@ -717,6 +1101,10 @@ def main():
          "launches": launches, "max_abs_err": errs[key], **interval_ms[key]}
         for key, name, source, line, launches in rows
     ]
+    kernels.append(
+        {"name": "ns_step", "route": "cuda", "source": f"{PKG}/csrc/ns_fused.cu",
+         "replaces": "pdecontrolgym_tpu/ops/ns_fused.py:743",
+         "launches": ns_launches, "max_abs_err": ns_err, **ns_ms["ns 64x64"]})
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']}: its main path never launched it")

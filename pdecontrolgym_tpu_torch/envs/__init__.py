@@ -4,6 +4,13 @@ from pdecontrolgym_tpu_torch.envs.common import (
     Boundary1DEnv,
     Boundary1DState,
 )
+from pdecontrolgym_tpu_torch.envs.navier_stokes import (
+    NavierStokesConfig,
+    NavierStokesEnv,
+    NavierStokesState,
+    freeze_boundary_condition,
+    make_lid_target,
+)
 from pdecontrolgym_tpu_torch.envs.reaction_diffusion import (
     ReactionDiffusionConfig,
     ReactionDiffusionEnv,
@@ -20,9 +27,14 @@ __all__ = [
     "Boundary1DState",
     "BurgersConfig",
     "BurgersEnv",
+    "NavierStokesConfig",
+    "NavierStokesEnv",
+    "NavierStokesState",
     "ReactionDiffusionConfig",
     "ReactionDiffusionEnv",
     "TransportConfig",
     "TransportEnv",
     "chebyshev_beta",
+    "freeze_boundary_condition",
+    "make_lid_target",
 ]

@@ -24,12 +24,14 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (
     _PKG / "csrc" / "interval1d.cu",
     _PKG / "csrc" / "interval1d_pcr.cu",
+    _PKG / "csrc" / "ns_fused.cu",
 )
 HEADERS = (_PKG / "csrc" / "interval1d_common.cuh",)
 BUILD_DIR = _PKG / "_build"
 # -fmad=false: no FMA contraction, so the kernels round as the plain PyTorch
 # version does (see csrc/interval1d.cu, point 4). Division and square root stay
-# IEEE (no -use_fast_math).
+# IEEE (no -use_fast_math). One flag set serves every source: csrc/ns_fused.cu
+# keeps it for its stencil passes and calls fmaf by name in its products.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xcompiler", "-fPIC",
@@ -122,6 +124,11 @@ def load() -> ctypes.CDLL:
         # neumann, has_eb, dt, 2F, th, -th*F, 1-th, (1-th)*F, dx
         lib.interval1d_pcr_launch.argtypes = common + [i, i] + [f] * 7 + tail
         lib.interval1d_pcr_launch.restype = ctypes.c_int
+        # u, v, act, consts, uref, vref, u_out, v_out, p_out, tsum; B, ny, nx,
+        # np, ld, prec; bc; 0.5/dx, 0.5/dy, 1/(dx*dy), dt, nu, -dx*dy*rho/dt, dt/rho
+        lib.ns_fused_launch.argtypes = (
+            [p] * 10 + [i] * 6 + [ctypes.POINTER(ctypes.c_int)] + [f] * 7 + tail)
+        lib.ns_fused_launch.restype = ctypes.c_int
         lib.interval1d_error_string.argtypes = [ctypes.c_int]
         lib.interval1d_error_string.restype = ctypes.c_char_p
         _lib = lib
