@@ -42,15 +42,41 @@ JAX package), builds the CUDA kernels from ``csrc/`` and runs:
                 episode of 249 steps; at B=8 the kernel path against the eager
                 path over the whole episode; two episodes back to back at
                 B=256 across a boundary reset.
-10. times    -- CUDA events, median of 3 after a warm-up: one projection step
+10. neuron_kernel -- the neuron K-step block against its plain PyTorch version
+                on the card: K = 1, 7, 100; reward-free; norm windows W = 1
+                and 5 in the L2, L1 and max norms; the previous row; B = 5 and
+                4096; per-env perturbed rows, cone states and boundary indices
+                (the lowest stable one, mid-row, M-1; every other env's index
+                moves inside the block); clocks just below ``nt`` so that the
+                time reset fires inside the block; M = 25, 4 and 501.
+11. brain_kernel -- the brain-tumor day's field pass against its plain version:
+                the default 201-point domain and the 61-point one of the
+                tests at B = 4 and 4096; doses zero and non-zero; ``can``
+                mixed; rows below one or both detection thresholds; nx = 3
+                and 512.
+12. neuron   -- the bench_families.py ``neuron_fused`` and
+                ``neuron_fused_reward`` workloads through the port's rollout:
+                4096 envs, float32, 10 calls of 100 dt-steps; at B=8 the
+                kernel path against the eager path over the same 1000 dt-steps.
+13. brain    -- the bench_families.py ``brain_tumor`` workload: 4096 envs, the
+                default config, constant policy 0.5, 365 days; at B=8 the
+                kernel path against the eager path, day by day, until every
+                env has ended; the ``therapy`` workload (TherapyEnv,
+                t_benchmark=300, dose fraction 0.03, until every env ends) at
+                4096 envs, and at B=8 on both paths.
+14. times    -- CUDA events, median of 3 after a warm-up (eager episodes: one
+                run after a warm-up): one projection step
                 or one interval, kernel (per call, 20 back to back) against
                 plain version, and the kernel's device time by
                 torch.profiler; full episodes, kernel path against the eager
-                path, in env-steps/s for Navier-Stokes and PDE sub-steps/s
-                for the 1D workloads, with the device's busy time and idle
-                share; the ``ns_matpow`` parity row (21x21, float64, eager)
-                for the record. Navier-Stokes first: the longest trace (the
-                explicit reaction-diffusion episode's) must be the last.
+                path, in env-steps/s for Navier-Stokes and the brain tumor,
+                dt-steps/s for the neuron, simulated days/s for the therapy
+                and PDE sub-steps/s for the 1D workloads, with the device's
+                busy time and idle share; the ``ns_matpow`` parity row (21x21,
+                float64, eager) for the record. The kernels alone first, then
+                the episodes that are traced, the longest trace (the explicit
+                reaction-diffusion episode's) last, then the eager episodes,
+                which are not traced.
 
 Float32 matrix products of the plain versions must run in full float32: the
 script sets ``torch.backends.cuda.matmul.allow_tf32 = False`` itself.
@@ -112,6 +138,30 @@ NS_GRAD_RTOL = 1e-4
 # float32 rounding apart: the kernel multiplies by 0.5/dx where the eager path
 # divides by 2*dx), relative to the largest magnitude of the frame
 NS_EPISODE_RTOL = 1e-3
+
+# The neuron K-step block against its plain version. L, the clock and the
+# terminated flag must be equal: every read at the boundary index has one term,
+# and both divide by IEEE division. The control integral is a sum over the row
+# taken in another order, and it drives u[:, 0]: the band on u and the previous
+# row is the JAX package's own between its kernel and its XLA path
+# (tests/test_neuron.py: rtol 1e-5, atol 1e-7, on tubulin of order 1e-2); Z
+# rtol 1e-6 (atol 1e-11: Z1 is a difference of lengths of order 1e-5); norms
+# rtol 1e-5. After a whole episode of 1000 dt-steps the kernel path against the
+# eager path: rtol 1e-4 on u, Z and the rewards.
+NEURON_U_RTOL = 1e-5
+NEURON_U_ATOL = 1e-7
+NEURON_Z_RTOL = 1e-6
+NEURON_Z_ATOL = 1e-11
+NEURON_NORM_RTOL = 1e-5
+NEURON_EPISODE_RTOL = 1e-4
+# The brain-tumor field pass against its plain version: the radii and has_t1
+# equal (integer max-scans against one float32 threshold); densities of order
+# 1e5 within rtol 1e-6, atol 1e-3 (the band of tests/test_brain_tumor.py).
+BRAIN_U_RTOL = 1e-6
+BRAIN_U_ATOL = 1e-3
+# the small domain of tests/test_brain_tumor.py: 61 points
+BRAIN_FAST = dict(T=80.0, dt=1.0, X=60.0, dx=1.0, t1_detection_radius=5.0,
+                  t1_death_radius=20.0, total_dosage=30.0)
 
 LID_BC = (("Dirchilet", "Dirchilet"), ("Controllable", "Dirchilet"),
           ("Dirchilet", "Dirchilet"), ("Dirchilet", "Dirchilet"))
@@ -756,17 +806,19 @@ def phase_ns_kernel(torch, device):
     return err, inputs
 
 
-def run_ns_episode(torch, workload, num_envs, episodes, seed, keep_obs=False):
-    """``episodes`` full episodes of the NS workload through the port's
-    rollout. Returns (final obs, outs, kernel launches)."""
+def run_ns_episode(torch, workload, num_envs, episodes, seed, keep_obs=False,
+                   num_steps=None):
+    """``episodes`` full episodes of the NS workload (or the first ``num_steps``
+    steps of one) through the port's rollout. Returns (final obs, outs, kernel
+    launches)."""
     from pdecontrolgym_tpu_torch.ops import ns_fused
     from pdecontrolgym_tpu_torch.parallel.rollout import rollout
 
     env, policy, steps = workload
     gen = torch.Generator(device=env.device).manual_seed(seed)
     ns_fused.LAUNCHES = 0
-    (_state, obs), outs = rollout(env, policy, num_envs, episodes * steps, gen,
-                                  keep_obs=keep_obs)
+    (_state, obs), outs = rollout(env, policy, num_envs, num_steps or episodes * steps,
+                                  gen, keep_obs=keep_obs)
     torch.cuda.synchronize()
     return obs, outs, ns_fused.LAUNCHES
 
@@ -820,7 +872,564 @@ def phase_ns(torch, device):
     return launches
 
 
-# -- phase 10 ----------------------------------------------------------------------
+# -- phases 10 to 13: neuron growth and brain tumor --------------------------------
+
+
+def neuron_setup(torch, device, reward=False, **overrides):
+    """bench_families.py's ``neuron_fused`` row (and, with ``reward``, its
+    ``neuron_fused_reward`` row): float32, 100 dt-steps a call, 10 calls = 1000
+    dt-steps an episode. Returns (env, policy, calls, K)."""
+    from pdecontrolgym_tpu_torch.envs.neuron import NeuronConfig, NeuronEnv
+    from pdecontrolgym_tpu_torch.rewards.norm import NormReward
+
+    fields = dict(dtype=torch.float32, steps_per_call=100)
+    fields.update(overrides)
+    cfg = NeuronConfig(**fields)
+    env = NeuronEnv(cfg, reward=NormReward(nt=cfg.nt, norm_coeff=10.0) if reward else None,
+                    device=device)
+
+    def policy(obs, _generator):  # the controller is embedded: the action is ignored
+        return torch.zeros(obs.shape[:-1], dtype=cfg.dtype, device=device)
+
+    return env, policy, 10, cfg.steps_per_call
+
+
+def neuron_state(torch, env, B, lo, seed):
+    """Perturbed rows (N(0, 1e-3) on tubulin of order 1e-2), per-env cone
+    states, and boundary indices from ``lo`` up with ``lo``, mid-row and M-1
+    among them. Every other env's cone length stands 2.5 dt-steps of growth
+    below a rounding boundary of the grid index, so that its ``L`` moves inside
+    a block. At the default dx and dt the explicit scheme is stable from
+    L = 10 up (D dt / dxreal^2 = 0.5 there)."""
+    import dataclasses
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    state, _ = env.init_batch(B)
+    M, c = env.M, env.config
+    L = rng.integers(lo, M, size=B)
+    L[:3] = [lo, M // 2, M - 1][: min(3, B)]
+    inc = c.RSubG * c.cInfty * c.dt / (env.scale * c.dx)  # index units a dt-step
+    frac = np.where(np.arange(B) % 2 == 1, 0.5 - 2.5 * inc, 0.0)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(env.device)
+
+    Z = state.Z.clone()
+    Z[:, 1] = dev(((L + frac) * c.dx * env.scale - c.LSubS).astype(np.float32))
+    Z[:, 0] *= dev(1 + 0.1 * rng.normal(size=B).astype(np.float32))
+    u = state.u + dev(1e-3 * rng.normal(size=tuple(state.u.shape)).astype(np.float32))
+    return dataclasses.replace(state, u=u.contiguous(), Z=Z.contiguous(),
+                               L=dev(L.astype(np.int32)))
+
+
+def neuron_kernel_case(torch, label, env, state, K, window=0, ring_ord="2",
+                       need_prev=False):
+    """One K-step block through the kernel and through the plain version on the
+    same inputs on the card. Returns (max abs err of u', inputs)."""
+    from pdecontrolgym_tpu_torch.ops import neuron_interval as ni
+
+    args = (env.spec, state.u, state.Z, state.L, state.time_index)
+    kw = dict(steps=K, window=window, ring_ord=ring_ord, need_prev=need_prev)
+    before = ni.LAUNCHES
+    k_out = ni.neuron_interval(*args, **kw)
+    torch.cuda.synchronize()
+    if ni.LAUNCHES != before + 1:
+        raise AssertionError(f"{label}: the wrapper did not count its launch")
+    p_out = ni.neuron_interval_plain(*args, **kw)
+    torch.cuda.synchronize()
+    ni.LAUNCHES = before  # comparison launches do not count
+
+    if len(k_out) != len(p_out):
+        raise AssertionError(f"{label}: {len(k_out)} outputs, the plain version {len(p_out)}")
+    for name, i in (("L", 2), ("t", 3), ("terminated", 4)):
+        if not torch.equal(k_out[i], p_out[i]):
+            raise AssertionError(f"{label}: {name} differs")
+    err_u = _max_err(f"{label} u'", k_out[0], p_out[0], NEURON_U_RTOL, NEURON_U_ATOL)
+    err_z = _max_err(f"{label} Z'", k_out[1], p_out[1], NEURON_Z_RTOL, NEURON_Z_ATOL)
+    note = ""
+    if window:
+        err_n = _max_err(f"{label} norms", k_out[5], p_out[5], NEURON_NORM_RTOL, 0.0)
+        note += f" norms={err_n:.3e}"
+    if need_prev:
+        err_p = _max_err(f"{label} prev_u", k_out[-1], p_out[-1], NEURON_U_RTOL,
+                         NEURON_U_ATOL)
+        note += f" prev_u={err_p:.3e}"
+    moved = int((k_out[2] != state.L).sum())
+    log(f"[neuron_kernel] {label}: B={state.u.shape[0]} M={env.M} K={K} W={window} "
+        f"ord={ring_ord} prev={need_prev} L_moved={moved} "
+        f"terminated={int(k_out[4].sum())} max_abs_err u'={err_u:.3e} Z'={err_z:.3e}{note}")
+    return err_u, args + (kw,)
+
+
+def phase_neuron_kernel(torch, device):
+    from pdecontrolgym_tpu_torch.ops import neuron_interval as ni
+
+    env = neuron_setup(torch, device)[0]
+    big = neuron_state(torch, env, NUM_ENVS, 10, seed=10)
+    small = neuron_state(torch, env, 5, 10, seed=11)
+    err, inputs = neuron_kernel_case(torch, "the bench row's block", env, big, 100)
+    cases = (
+        ("one dt-step", small, 1, {}),
+        ("K=7", big, 7, {}),
+        ("the reward row's block", big, 100, dict(window=1)),
+        ("L2 window", small, 100, dict(window=5, need_prev=True)),
+        ("L1 window", small, 7, dict(window=5, ring_ord="1")),
+        ("max-norm window, previous row", big, 7,
+         dict(window=5, ring_ord="inf", need_prev=True)),
+    )
+    for label, state, K, kw in cases:
+        e, _ = neuron_kernel_case(torch, label, env, state, K, **kw)
+        err = max(err, e)
+
+    # dt a power of two keeps the float32 clock exact: nt = 11 rows, and clocks
+    # spread over the last 20 dt-steps before it, so that the per-dt time reset
+    # fires inside the block for some envs and on its last dt-step for others
+    dt = 2.0 ** -18
+    short = neuron_setup(torch, device, T=10 * dt, dt=dt)[0]
+    state = neuron_state(torch, short, NUM_ENVS, 10, seed=12)
+    steps_left = torch.arange(NUM_ENVS, device=device) % 20
+    state.time_index = 11.0 - (steps_left.float() + 0.5) * dt
+    e, _ = neuron_kernel_case(torch, "time reset inside the block", short, state, 7)
+    err = max(err, e)
+
+    # other row widths: M=25 with L from 2 up, M=4 (one point a lane, most
+    # lanes padding), M=501 (sixteen points a lane)
+    for fields, lo, B in ((dict(dx=0.05), 2, 37), (dict(dx=0.5), 2, 33),
+                          (dict(X=50e-6, LSubS=50e-6), 10, 9)):
+        other = neuron_setup(torch, device, **fields)[0]
+        state = neuron_state(torch, other, B, lo, seed=13)
+        neuron_kernel_case(torch, "another width", other, state, 100, window=2,
+                           need_prev=True)
+
+    # above its cap the wrapper raises; it never serves a CUDA tensor with the
+    # plain version
+    wide = neuron_setup(torch, device, X=60e-6, LSubS=60e-6)[0]
+    s, _ = wide.init_batch(2)
+    try:
+        ni.neuron_interval(wide.spec, s.u, s.Z, s.L, s.time_index, steps=1)
+    except ValueError as exc:
+        log(f"[neuron_kernel] M={wide.M} raises ValueError: {exc}")
+    else:
+        raise AssertionError(f"neuron_interval took M={wide.M} on the card")
+    return err, inputs
+
+
+def brain_setup(torch, device, ic=None, **overrides):
+    """bench_families.py's ``brain_tumor`` row: the default 201-point domain,
+    float32, the stock reward, constant policy 0.5, 365 days. ``ic``, a
+    ``(B, nx)`` tensor, replaces the default seed tumour. Returns (env, policy,
+    days)."""
+    from pdecontrolgym_tpu_torch.envs.brain_tumor import BrainTumorConfig, BrainTumorEnv
+    from pdecontrolgym_tpu_torch.rewards.brain_tumor import BrainTumorReward
+
+    cfg = BrainTumorConfig(**overrides)
+    sampler = None if ic is None else (lambda n, _generator: ic[:n].to(device))
+    env = BrainTumorEnv(cfg, BrainTumorReward(), ic_sampler=sampler, device=device)
+
+    def policy(obs, _generator):
+        return torch.full(obs.shape[:-1], 0.5, dtype=cfg.dtype, device=device)
+
+    return env, policy, 365
+
+
+def brain_rows(torch, cfg, B, seed):
+    """Plateau tumours ``peak * exp(-(x/r)^4)`` of per-env width, with 1% noise:
+    peaks above the T1 threshold, above the T2 threshold only, and below
+    both (no radius at all)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    xs = np.linspace(0.0, cfg.X, cfg.nx)
+    r = rng.uniform(0.05 * cfg.X, 0.4 * cfg.X, size=(B, 1))
+    peak = rng.choice([0.9, 0.4, 0.1], size=(B, 1)) * cfg.k
+    u = peak * np.exp(-((xs[None] / r) ** 4)) * (1 + 0.01 * rng.normal(size=(B, cfg.nx)))
+    return torch.from_numpy(np.clip(u, 0, cfg.k).astype(np.float32))
+
+
+def brain_widths(torch, cfg, B, lo, hi):
+    """Plateau tumours ``0.9 k exp(-(x/r)^4)`` with r from ``lo`` to ``hi`` mm
+    (a T1 radius of about 0.59 r): the envs cross stages on different days."""
+    import numpy as np
+
+    xs = np.linspace(0.0, cfg.X, cfg.nx)
+    r = np.linspace(lo, hi, B)[:, None]
+    return torch.from_numpy((0.9 * cfg.k * np.exp(-((xs[None] / r) ** 4))).astype(np.float32))
+
+
+def brain_kernel_case(torch, label, env, B, seed, dosed=True):
+    """One day's field pass through the kernel and through the plain version
+    on the same inputs on the card. Returns (max abs err of u', inputs)."""
+    import numpy as np
+
+    from pdecontrolgym_tpu_torch.ops import brain_tumor_interval as bt
+
+    rng = np.random.default_rng(seed + 100)
+    u = brain_rows(torch, env.config, B, seed).to(env.device)
+    doses = [0.0, 1.8, 15.0] if dosed else [0.0]
+    applied = torch.from_numpy(rng.choice(doses, size=B).astype(np.float32)).to(env.device)
+    can = torch.from_numpy(rng.random(B) < 0.8).to(env.device)
+    before = bt.LAUNCHES
+    k_out = bt.brain_tumor_field(env._spec, u, applied, can)
+    torch.cuda.synchronize()
+    if bt.LAUNCHES != before + 1:
+        raise AssertionError(f"{label}: the wrapper did not count its launch")
+    p_out = bt.brain_tumor_field_plain(env._spec, u, applied, can)
+    torch.cuda.synchronize()
+    bt.LAUNCHES = before  # comparison launches do not count
+    for name, k, p in zip(("treatment_radius", "t1", "has_t1"), k_out[1:], p_out[1:]):
+        if k.dtype != p.dtype or not torch.equal(k, p):
+            raise AssertionError(f"{label}: {name} differs")
+    if not torch.equal(k_out[0][~can], u[~can]):
+        raise AssertionError(f"{label}: a row with can=False changed")
+    err = _max_err(f"{label} u'", k_out[0], p_out[0], BRAIN_U_RTOL, BRAIN_U_ATOL)
+    log(f"[brain_kernel] {label}: B={B} nx={env.config.nx} dosed={int((applied > 0).sum())} "
+        f"can={int(can.sum())} has_t1={int(k_out[3].sum())} "
+        f"no_radius={int((k_out[1] == 0).sum())} max_abs_err u'={err:.3e} "
+        f"(max |u'| {float(p_out[0].abs().max()):.3e})")
+    return err, (env._spec, u, applied, can)
+
+
+def phase_brain_kernel(torch, device):
+    from pdecontrolgym_tpu_torch.ops import brain_tumor_interval as bt
+
+    env = brain_setup(torch, device)[0]
+    err, inputs = brain_kernel_case(torch, "the bench row's day", env, NUM_ENVS, seed=20)
+    fast = brain_setup(torch, device, **BRAIN_FAST)[0]
+    for label, e, B, seed, dosed in (
+            ("default domain", env, 4, 21, True),
+            ("no dose", env, NUM_ENVS, 22, False),
+            ("small domain", fast, 4, 23, True),
+            ("small domain", fast, NUM_ENVS, 24, True),
+            ("nx=512", brain_setup(torch, device, X=511.0)[0], 33, 25, True),
+            ("nx=3", brain_setup(torch, device, X=2.0)[0], 7, 26, True)):
+        err = max(err, brain_kernel_case(torch, label, e, B, seed, dosed)[0])
+    wide = brain_setup(torch, device, X=600.0)[0]
+    try:
+        bt.brain_tumor_field(wide._spec, torch.zeros((2, 601), device=device),
+                             torch.zeros(2, device=device),
+                             torch.ones(2, dtype=torch.bool, device=device))
+    except ValueError as exc:
+        log(f"[brain_kernel] nx=601 raises ValueError: {exc}")
+    else:
+        raise AssertionError("brain_tumor_field took nx=601 on the card")
+    return err, inputs
+
+
+def run_neuron_episode(torch, workload, num_envs, seed):
+    """One episode of a neuron workload through the port's rollout. Returns
+    (final state, outs, kernel launches)."""
+    from pdecontrolgym_tpu_torch.ops import neuron_interval as ni
+    from pdecontrolgym_tpu_torch.parallel.rollout import rollout
+
+    env, policy, calls, _ = workload
+    gen = torch.Generator(device=env.device).manual_seed(seed)
+    ni.LAUNCHES = 0
+    (state, _obs), outs = rollout(env, policy, num_envs, calls, gen)
+    torch.cuda.synchronize()
+    return state, outs, ni.LAUNCHES
+
+
+def phase_neuron(torch, device):
+    import dataclasses
+
+    launches = {}
+    for reward in (False, True):
+        workload = neuron_setup(torch, device, reward=reward)
+        env, _, calls, K = workload
+        name = "neuron_fused_reward" if reward else "neuron_fused"
+        L0 = env.init_batch(1)[0].L[0]
+        state, outs, launches[name] = run_neuron_episode(torch, workload, NUM_ENVS, seed=14)
+        if launches[name] != calls:
+            raise AssertionError(f"{name}: {launches[name]} kernel launches, expected {calls}")
+        for field in dataclasses.fields(state):
+            if not bool(torch.isfinite(getattr(state, field.name)).all()):
+                raise AssertionError(f"{name}: non-finite {field.name}")
+        if not (bool(torch.isfinite(outs.reward).all()) and bool(torch.isfinite(outs.obs).all())):
+            raise AssertionError(f"{name}: non-finite rewards or observations")
+        if bool((state.L < L0).any()) or bool(outs.terminated.any()):
+            raise AssertionError(f"{name}: the domain shrank or an episode ended")
+        if reward and not bool((outs.reward < 0).all()):
+            raise AssertionError(f"{name}: the norm reward is not negative")
+        log(f"[neuron] {name}: {NUM_ENVS} envs x {calls} calls x {K} dt-steps: "
+            f"{launches[name]} launches, L {int(L0)} -> {int(state.L.min())}..{int(state.L.max())}, "
+            f"mean return {outs.reward.sum(0).mean().item():.6f}, "
+            f"|u| <= {float(state.u.abs().max()):.6f}")
+
+    # the kernel path against the eager path at B=8 over the same 1000
+    # dt-steps, from perturbed rows and per-env L, with the reward row's reward
+    kernel_env = neuron_setup(torch, device, reward=True)[0]
+    eager_env = neuron_setup(torch, device, reward=True, backend="eager")[0]
+    sk = se = neuron_state(torch, kernel_env, 8, 10, seed=15)
+    rk, re_ = [], []
+    for _ in range(10):
+        sk, ok = kernel_env.step_batch(sk)
+        se, oe = eager_env.step_batch(se)
+        rk.append(ok.reward)
+        re_.append(oe.reward)
+    torch.cuda.synchronize()
+    if not (torch.equal(sk.L, se.L) and torch.equal(sk.time_index, se.time_index)):
+        raise AssertionError("neuron: L or the clock differs between kernel and eager path")
+    err_u = _max_err("neuron, kernel against eager, u", sk.u, se.u, NEURON_EPISODE_RTOL,
+                     NEURON_U_ATOL)
+    err_z = _max_err("neuron, kernel against eager, Z", sk.Z, se.Z, NEURON_EPISODE_RTOL,
+                     NEURON_Z_ATOL)
+    err_r = _max_err("neuron, kernel against eager, rewards", torch.stack(rk),
+                     torch.stack(re_), NEURON_EPISODE_RTOL, NEURON_U_ATOL)
+    log(f"[neuron] kernel path against eager path, B=8, after 1000 dt-steps: L equal "
+        f"({sk.L.tolist()}), max_abs_err u={err_u:.3e} Z={err_z:.3e} rewards={err_r:.3e}")
+    return launches["neuron_fused"]
+
+
+def run_brain_episode(torch, workload, num_envs, seed, days=None):
+    """One episode of the brain-tumor workload through the port's rollout.
+    Returns (final state, outs, kernel launches)."""
+    from pdecontrolgym_tpu_torch.ops import brain_tumor_interval as bt
+    from pdecontrolgym_tpu_torch.parallel.rollout import rollout
+
+    env, policy, steps = workload
+    gen = torch.Generator(device=env.device).manual_seed(seed)
+    bt.LAUNCHES = 0
+    (state, _obs), outs = rollout(env, policy, num_envs, days or steps, gen, keep_obs=False)
+    torch.cuda.synchronize()
+    return state, outs, bt.LAUNCHES
+
+
+def run_therapy_episode(torch, tenv, num_envs):
+    """bench_families.py's ``therapy`` row: batched init (Growth fast-forwarded),
+    therapy days at dose fraction 0.03, the Post-Therapy sweep, until every env
+    has ended. Returns (final state, step_batch calls)."""
+    state, _ = tenv.init_batch(num_envs)
+    dose = torch.full((num_envs,), 0.03, dtype=tenv.config.dtype, device=tenv.device)
+    done = torch.zeros((num_envs,), dtype=torch.bool, device=tenv.device)
+    calls = 0
+    while not bool(done.all()):
+        state, out = tenv.step_batch(state, dose)
+        done |= out.terminated | out.truncated
+        calls += 1
+    torch.cuda.synchronize()
+    return state, calls
+
+
+def phase_brain(torch, device):
+    import dataclasses
+
+    from pdecontrolgym_tpu_torch.envs.brain_tumor import POST_THERAPY, TherapyEnv
+    from pdecontrolgym_tpu_torch.ops import brain_tumor_interval as bt
+
+    workload = brain_setup(torch, device)
+    state, outs, launches = run_brain_episode(torch, workload, NUM_ENVS, seed=16)
+    if launches != 365 or tuple(outs.reward.shape) != (365, NUM_ENVS):
+        raise AssertionError(f"brain_tumor: {launches} kernel launches, expected 365")
+    if not (bool(torch.isfinite(state.u).all()) and bool(torch.isfinite(outs.reward).all())):
+        raise AssertionError("brain_tumor: non-finite densities or rewards")
+    # every env starts from the same seed tumour: one staged course for all
+    for field in dataclasses.fields(state):
+        value = getattr(state, field.name)
+        if not bool((value == value[:1]).all()):
+            raise AssertionError(f"brain_tumor: {field.name} differs across identical envs")
+    if int(state.stage[0]) != POST_THERAPY or bool(outs.truncated.any()) or \
+            int(state.time_index[0]) != 365:
+        raise AssertionError("brain_tumor: the course did not reach Post-Therapy by day 365")
+    log(f"[brain] {NUM_ENVS} envs x 365 days: {launches} launches, Growth {int(state.growth_days[0])} "
+        f"days, Therapy from day {int(state.first_therapy_day[0])}, Post-Therapy from day "
+        f"{int(state.first_post_therapy_day[0])}, remaining dosage "
+        f"{float(state.remaining_dosage[0]):.4f}, max density {float(state.u.max()):.1f}")
+
+    # the kernel path against the eager path at B=8 over a whole staged
+    # episode: per-env widths, per-env doses, a set benchmark so that rewards
+    # are not all zero; every day's integer fields, flags and rewards
+    cfg = workload[0].config
+    ic = brain_widths(torch, cfg, 8, 10.0, 50.0)
+    envs = [brain_setup(torch, device, ic=ic, backend=b)[0] for b in ("auto", "eager")]
+    states = [e.init_batch(8, None, t_benchmark=300)[0] for e in envs]
+    dose = torch.linspace(0.02, 1.0, 8, device=device)
+    int_fields = [f.name for f in dataclasses.fields(states[0])
+                  if getattr(states[0], f.name).dtype == torch.int32]
+    bt.LAUNCHES = 0
+    days, rewards = 0, ([], [])
+    alive = torch.ones(8, dtype=torch.bool, device=device)
+    while bool(alive.any()) and days < cfg.nt:
+        outs_ = []
+        for i, e in enumerate(envs):
+            states[i], out = e.step_batch(states[i], dose)
+            outs_.append(out)
+            rewards[i].append(out.reward)
+        days += 1
+        for name in int_fields:
+            if not torch.equal(getattr(states[0], name), getattr(states[1], name)):
+                raise AssertionError(f"brain_tumor day {days}: {name} differs between paths")
+        if not (torch.equal(outs_[0].terminated, outs_[1].terminated)
+                and torch.equal(outs_[0].truncated, outs_[1].truncated)):
+            raise AssertionError(f"brain_tumor day {days}: flags differ between paths")
+        alive &= ~(outs_[0].terminated | outs_[0].truncated)
+    if bt.LAUNCHES != days:
+        raise AssertionError(f"brain_tumor: {bt.LAUNCHES} launches in {days} days at B=8")
+    err_u = _max_err("brain_tumor, kernel against eager, u", states[0].u, states[1].u,
+                     BRAIN_U_RTOL, BRAIN_U_ATOL)
+    err_r = _max_err("brain_tumor, kernel against eager, rewards", torch.stack(rewards[0]),
+                     torch.stack(rewards[1]), 1e-5, 1e-4)
+    log(f"[brain] kernel path against eager path, B=8, {days} days until every env ended: "
+        f"integer fields and flags equal every day, death days "
+        f"{states[0].death_day.tolist()}, max_abs_err u={err_u:.3e} rewards={err_r:.3e} "
+        f"(largest |reward| {float(torch.stack(rewards[1]).abs().max()):.3f})")
+
+    # the therapy row: 4096 envs through TherapyEnv until every env ends; at
+    # B=8 the simulated days of kernel and eager path
+    bt.LAUNCHES = 0
+    tenv = TherapyEnv(workload[0], t_benchmark=300)
+    state, calls = run_therapy_episode(torch, tenv, NUM_ENVS)
+    total = int(state.simulation_days.sum())
+    if bt.LAUNCHES < calls or total <= 0:
+        raise AssertionError("therapy: the episode did not run every env to its end")
+    log(f"[therapy] {NUM_ENVS} envs, dose fraction 0.03: {calls} step_batch calls, "
+        f"{bt.LAUNCHES} launches, {total} simulated days ({total // NUM_ENVS} an env), "
+        f"death on day {int(state.death_day[0])}")
+    sums = [int(run_therapy_episode(torch, TherapyEnv(e, t_benchmark=300), 8)[0]
+                .simulation_days.sum()) for e in envs]
+    if sums[0] != sums[1] or sums[0] <= 0:
+        raise AssertionError(f"therapy: simulated days {sums[0]} (kernel) vs {sums[1]} (eager)")
+    log(f"[therapy] B=8, per-env widths: {sums[0]} simulated days on both paths")
+    bt.LAUNCHES = 0
+    return launches
+
+
+def neuron_bound(spec, num_envs, K, window, need_prev):
+    """The least time the card could take for one K-step block: bytes (u, Z, L,
+    t in; the same and the flag out; the window and the previous row where
+    asked for; the tables once) over the memory rate, against its float32
+    operations over the float32 peak. Operations, counted from the formulae in
+    ops/neuron_interval.py: a point and dt-step, 21 (the product with pB and
+    its masked add 2, uxx 4, the difference 1, advection 4, the combination
+    10); an env and dt-step, about 40 for the cone ODE, the index, the
+    control and the fictitious point; a point and window slot, 2."""
+    B, M = num_envs, spec.M
+    nbytes = 4 * (B * (2 * M + 2 * 2 + 2 + 2 + window + M * int(need_prev)) + 3 * M) + B
+    flops = B * (K * (21 * M + 40) + window * 2 * M)
+    by_bytes = nbytes / PEAK_MEMORY_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations"), \
+        nbytes, flops
+
+
+def brain_bound(spec, num_envs):
+    """The least time the card could take for one day's field pass: bytes (u,
+    applied, can in; u', two radii and a flag out) over the memory rate,
+    against its float32 operations over the float32 peak: a point, 2 compares
+    for the scans, 3 for the radiation select, 4 for the logistic term, 6 for
+    the diffusion term, 4 for the update, 2 for the clip."""
+    B, nx = num_envs, spec.nx
+    nbytes = B * (4 * (2 * nx + 1 + 2) + 2)
+    flops = B * nx * 21
+    by_bytes = nbytes / PEAK_MEMORY_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations"), \
+        nbytes, flops
+
+
+def _episode_line(torch, name, path, episode, units, unit, card, trace=None):
+    """Time one episode (after a warm-up: the median of 3 with ``trace``, else
+    once) and print its rate; ``trace = (window, steps)`` is a run of the same
+    loop, maybe shorter, for torch.profiler's busy time."""
+    ms = cuda_ms(torch, episode, runs=3 if trace else 1)
+    busy = ""
+    if trace is not None:
+        window, steps = trace
+        window_ms = cuda_ms(torch, window, runs=1)
+        busy_ms, kernels = device_ms(torch, window)
+        busy = (f"; over {steps} steps of it: {window_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+                f"in {kernels} kernels ({kernels / steps:.1f} a step, torch.profiler), "
+                f"idle share {1 - busy_ms / window_ms:.3f}")
+    log(f"[times] {name} full episode ({path}): {ms:.3f} ms, {units / (ms / 1e3):.0f} "
+        f"{unit} at {NUM_ENVS} envs{busy} ({card})")
+    return ms
+
+
+def family_kernel_times(torch, device, neuron_inputs, brain_inputs, card):
+    """The K-step block and the field pass alone, at their main paths' shapes."""
+    from pdecontrolgym_tpu_torch.ops import brain_tumor_interval as bt
+    from pdecontrolgym_tpu_torch.ops import neuron_interval as ni
+
+    times = {}
+    spec, u, Z, L, t, kw = neuron_inputs
+    call = lambda: ni.neuron_interval(spec, u, Z, L, t, **kw)  # noqa: E731
+    k = cuda_ms(torch, call, calls=20)
+    dev, _ = device_ms(torch, call, "neuron_interval_kernel")
+    p = cuda_ms(torch, lambda: ni.neuron_interval_plain(spec, u, Z, L, t, **kw))
+    bound, bound_by, nbytes, flops = neuron_bound(
+        spec, u.shape[0], kw["steps"], kw["window"], kw["need_prev"])
+    times["neuron"] = {"ms": k, "plain_ms": p, "bound_ms": bound, "bound_by": bound_by,
+                       "library_ms": None}
+    log(f"[times] one neuron block B={u.shape[0]} M={spec.M} K={kw['steps']}: kernel "
+        f"{k:.4f} ms per call (20 back to back), {dev:.4f} ms on the device "
+        f"(torch.profiler); plain {p:.4f} ms; bound {bound:.5f} ms by {bound_by} "
+        f"({nbytes} bytes, {flops} operations), share of the bound reached "
+        f"{bound / dev:.3f}; no single PyTorch call computes a K-step block ({card})")
+
+    fspec, fu, applied, can = brain_inputs
+    call = lambda: bt.brain_tumor_field(fspec, fu, applied, can)  # noqa: E731
+    k = cuda_ms(torch, call, calls=20)
+    dev, _ = device_ms(torch, call, "brain_tumor_field_kernel")
+    p = cuda_ms(torch, lambda: bt.brain_tumor_field_plain(fspec, fu, applied, can))
+    bound, bound_by, nbytes, flops = brain_bound(fspec, fu.shape[0])
+    times["brain"] = {"ms": k, "plain_ms": p, "bound_ms": bound, "bound_by": bound_by,
+                      "library_ms": None}
+    log(f"[times] one brain-tumor field pass B={fu.shape[0]} nx={fspec.nx}: kernel "
+        f"{k:.4f} ms per call (20 back to back), {dev:.4f} ms on the device "
+        f"(torch.profiler); plain {p:.4f} ms; bound {bound:.5f} ms by {bound_by} "
+        f"({nbytes} bytes, {flops} operations), share of the bound reached "
+        f"{bound / dev:.3f}; no single PyTorch call computes the pass ({card})")
+    ni.LAUNCHES = 0  # timing launches do not count
+    bt.LAUNCHES = 0
+    return times
+
+
+def family_episode_times(torch, device, card, traced):
+    """The neuron, brain-tumor and therapy episodes. ``traced``: the episodes
+    that get a torch.profiler trace (the kernel paths, and the eager
+    brain-tumor days for their kernel count); else the others."""
+    from pdecontrolgym_tpu_torch.envs.brain_tumor import TherapyEnv
+    from pdecontrolgym_tpu_torch.ops import brain_tumor_interval as bt
+    from pdecontrolgym_tpu_torch.ops import neuron_interval as ni
+
+    backend, neuron_path = ("auto", "K-step kernel") if traced else ("eager", "eager")
+    for reward in (False, True):
+        name = "neuron_fused_reward" if reward else "neuron_fused"
+        workload = neuron_setup(torch, device, reward=reward, backend=backend)
+        episode = lambda: run_neuron_episode(torch, workload, NUM_ENVS, seed=3)  # noqa: E731
+        units = NUM_ENVS * workload[2] * workload[3]
+        _episode_line(torch, name, neuron_path, episode, units, "dt-steps/s", card,
+                      (episode, workload[2]) if traced else None)
+
+    if traced:
+        for backend, path in (("auto", "field-pass kernel"), ("eager", "eager")):
+            workload = brain_setup(torch, device, backend=backend)
+            episode = lambda: run_brain_episode(torch, workload, NUM_ENVS, seed=3)  # noqa: E731
+            # the trace covers 20 days of the same loop, to keep it short
+            window = lambda: run_brain_episode(  # noqa: E731
+                torch, workload, NUM_ENVS, seed=3, days=20)
+            _episode_line(torch, "brain_tumor", path, episode, NUM_ENVS * 365,
+                          "env-steps/s", card, (window, 20))
+    else:
+        for backend, path in (("auto", "field-pass kernel"), ("eager", "eager")):
+            tenv = TherapyEnv(brain_setup(torch, device, backend=backend)[0],
+                              t_benchmark=300)
+            result = {}
+
+            def episode():
+                result["state"], result["calls"] = run_therapy_episode(torch, tenv, NUM_ENVS)
+
+            ms = cuda_ms(torch, episode, runs=1)
+            days = int(result["state"].simulation_days.sum())
+            log(f"[times] therapy full episode ({path}): {ms:.3f} ms for {result['calls']} "
+                f"step_batch calls after the batched init, {days / (ms / 1e3):.0f} simulated "
+                f"days/s at {NUM_ENVS} envs ({days} days) ({card})")
+    ni.LAUNCHES = 0  # timing launches do not count
+    bt.LAUNCHES = 0
+
+
+# -- the times phases ----------------------------------------------------------------
 
 
 def cuda_ms(torch, fn, runs=3, calls=1):
@@ -842,19 +1451,23 @@ def cuda_ms(torch, fn, runs=3, calls=1):
     return statistics.median(times)
 
 
-def device_rows(torch, fn, name_part=None):
-    """torch.profiler's rows for the device kernels of one ``fn()`` (those whose
-    name holds ``name_part``, or all). After a trace of some 40,000 kernels the
-    traces that follow come back without device kernels, so main() takes the
-    longest trace (the explicit reaction-diffusion episode's) last, and the
-    eager Navier-Stokes episode is timed without one."""
+def device_rows(torch, fn, name_part=None, repeat=1):
+    """torch.profiler's rows for the device kernels of ``repeat`` calls of
+    ``fn()`` (those whose name holds ``name_part``, or all). On this machine a
+    trace taken late in the process can come back without device kernels (seen
+    for traces of a single launch taken some seconds after an earlier trace,
+    and for the first trace after the explicit reaction-diffusion episode's
+    42,000 kernels), so main() takes the single-kernel traces first and close
+    together, then the episodes' traces with the longest last, and every
+    episode that needs no trace after those."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(repeat):
+            fn()
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
             and (name_part is None or name_part in e.key)]
@@ -864,9 +1477,10 @@ def device_rows(torch, fn, name_part=None):
 
 
 def device_ms(torch, fn, name_part=None):
-    """Device time of one ``fn()`` by torch.profiler: of the kernels whose name
-    holds ``name_part`` (per launch), or of every kernel (the busy time)."""
-    rows = device_rows(torch, fn, name_part)
+    """Device time by torch.profiler: of the kernels whose name holds
+    ``name_part``, per launch over 10 calls of ``fn()``; or, without a name, of
+    every kernel of one call (the busy time)."""
+    rows = device_rows(torch, fn, name_part, repeat=10 if name_part else 1)
     total_ms = sum(e.self_device_time_total for e in rows) / 1e3
     count = sum(e.count for e in rows)
     return (total_ms / count if name_part else total_ms), count
@@ -916,7 +1530,8 @@ def body_operations(spec):
     return True, (4 if body.has_eb else 0) + 4 * steps + 1, 8 * steps + 8 + 1
 
 
-def phase_times(torch, device, inputs, card):
+def interval_kernel_times(torch, device, inputs, card):
+    """One interval of each 1D body alone, at its main path's shape."""
     from pdecontrolgym_tpu_torch.ops import interval1d
 
     launches_before = interval1d.LAUNCHES
@@ -936,41 +1551,47 @@ def phase_times(torch, device, inputs, card):
             f"{bound:.5f} ms by {bound_by} ({nbytes} bytes, {flops} operations), "
             f"share of the bound reached {bound / dev:.3f}; no single PyTorch call "
             f"computes an S-sub-step interval ({card})")
+    interval1d.LAUNCHES = launches_before  # timing launches do not count
+    return interval_ms
 
+
+def interval_episode_times(torch, device, card, backend):
+    """Full episodes of the four 1D workloads on the interval kernels
+    (``backend="auto"``, each with a trace, the explicit reaction-diffusion
+    one last) or on the eager path (no trace), and bench.py's aggregate."""
+    from pdecontrolgym_tpu_torch.ops import interval1d
+
+    launches_before = interval1d.LAUNCHES
     rates = {}
-    # the eager path runs every sub-step as separate PyTorch operations: for
-    # reaction-diffusion it is timed once, on an episode cut to 10 actions
+    # the eager path runs every sub-step as separate PyTorch operations: it is
+    # timed once, and for reaction-diffusion on an episode cut to 10 actions
     workloads = (("transport", transport_setup, None), ("burgers", burgers_setup, None),
                  ("rd implicit", rd_implicit_setup, 0.1),
                  ("rd explicit", rd_explicit_setup, 0.01))
+    path = "interval kernel" if backend == "auto" else "eager"
     for name, setup, eager_T in workloads:
-        for backend in ("auto", "eager"):
-            kw, note, runs = {"backend": backend}, "", 3
-            if backend == "eager" and eager_T is not None:
-                kw["T"], runs = eager_T, 1
-                note = f" (a shorter run: 10 actions, T={eager_T})"
-            workload = setup(torch, device, **kw)
-            episode = lambda: run_episode(torch, workload, seed=3)  # noqa: E731
-            ms = cuda_ms(torch, episode, runs=runs)
-            substeps = NUM_ENVS * workload[2] * workload[3]
-            rates[(name, backend)] = (substeps, ms)
-            path = "interval kernel" if backend == "auto" else "eager"
-            busy = ""
-            if backend == "auto":
-                busy_ms, kernels = device_ms(torch, episode)
-                busy = (f"; device busy {busy_ms:.3f} ms in {kernels} kernels "
-                        f"(torch.profiler), idle share {1 - busy_ms / ms:.3f}")
-            log(f"[times] {name} full episode{note} ({path}): {ms:.3f} ms, "
-                f"{substeps / (ms / 1e3):.0f} PDE sub-steps/s at {NUM_ENVS} envs"
-                f"{busy} ({card})")
-    for backend in ("auto", "eager"):
-        steps = sum(rates[(n, backend)][0] for n in ("transport", "burgers"))
-        secs = sum(rates[(n, backend)][1] for n in ("transport", "burgers")) / 1e3
-        path = "interval kernel" if backend == "auto" else "eager"
-        log(f"[times] aggregate transport nx=128 + Burgers nx=256 ({path}): "
-            f"{steps / secs:.0f} PDE sub-steps/s at {NUM_ENVS} envs ({card})")
+        kw, note, runs = {"backend": backend}, "", 3 if backend == "auto" else 1
+        if backend == "eager" and eager_T is not None:
+            kw["T"] = eager_T
+            note = f" (a shorter run: 10 actions, T={eager_T})"
+        workload = setup(torch, device, **kw)
+        episode = lambda: run_episode(torch, workload, seed=3)  # noqa: E731
+        ms = cuda_ms(torch, episode, runs=runs)
+        substeps = NUM_ENVS * workload[2] * workload[3]
+        rates[name] = (substeps, ms)
+        busy = ""
+        if backend == "auto":
+            busy_ms, kernels = device_ms(torch, episode)
+            busy = (f"; device busy {busy_ms:.3f} ms in {kernels} kernels "
+                    f"(torch.profiler), idle share {1 - busy_ms / ms:.3f}")
+        log(f"[times] {name} full episode{note} ({path}): {ms:.3f} ms, "
+            f"{substeps / (ms / 1e3):.0f} PDE sub-steps/s at {NUM_ENVS} envs"
+            f"{busy} ({card})")
+    steps = sum(rates[n][0] for n in ("transport", "burgers"))
+    secs = sum(rates[n][1] for n in ("transport", "burgers")) / 1e3
+    log(f"[times] aggregate transport nx=128 + Burgers nx=256 ({path}): "
+        f"{steps / secs:.0f} PDE sub-steps/s at {NUM_ENVS} envs ({card})")
     interval1d.LAUNCHES = launches_before  # timing launches do not count
-    return interval_ms
 
 
 def ns_bound(spec, num_envs, track):
@@ -993,7 +1614,8 @@ def ns_bound(spec, num_envs, track):
         nbytes, flops
 
 
-def phase_ns_times(torch, device, inputs, card):
+def ns_kernel_times(torch, device, inputs, card):
+    """One projection step alone, at 4096 x 64x64 and at 1024 x 128x128."""
     from pdecontrolgym_tpu_torch.ops import ns_fused
 
     step_ms = {}
@@ -1023,20 +1645,43 @@ def phase_ns_times(torch, device, inputs, card):
     mm = cuda_ms(torch, four_products)
     log(f"[times] the four torch.matmul products of the plain spectral solve alone, "
         f"B={u.shape[0]} 64x64, float32 without TF32: {mm:.4f} ms ({card})")
+    ns_fused.LAUNCHES = 0  # timing launches do not count
+    return step_ms
+
+
+def ns_episode_times(torch, device, card):
+    """The ``ns_fast`` episode on the kernel path, with a trace of its first
+    100 steps and the breakdown by kernel."""
+    from pdecontrolgym_tpu_torch.ops import ns_fused
 
     workload = ns_setup(torch, device)
     env_steps = NUM_ENVS * workload[2]
     episode = lambda: run_ns_episode(torch, workload, NUM_ENVS, 1, seed=3)  # noqa: E731
     ms = cuda_ms(torch, episode)
-    rows = sorted(device_rows(torch, episode), key=lambda e: -e.self_device_time_total)
+    # the trace covers the first 100 steps of the same loop, to keep it short
+    # (see device_rows)
+    window = lambda: run_ns_episode(  # noqa: E731
+        torch, workload, NUM_ENVS, 1, seed=3, num_steps=100)
+    window_ms = cuda_ms(torch, window, runs=1)
+    rows = sorted(device_rows(torch, window), key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
     log(f"[times] ns 64x64 full episode (kernel path): {ms:.3f} ms, "
-        f"{env_steps / (ms / 1e3):.0f} env-steps/s at {NUM_ENVS} envs; device busy "
-        f"{busy_ms:.3f} ms in {sum(e.count for e in rows)} kernels (torch.profiler), "
-        f"idle share {1 - busy_ms / ms:.3f} ({card})")
+        f"{env_steps / (ms / 1e3):.0f} env-steps/s at {NUM_ENVS} envs; over 100 steps of "
+        f"it: {window_ms:.3f} ms, device busy {busy_ms:.3f} ms in "
+        f"{sum(e.count for e in rows)} kernels (torch.profiler), "
+        f"idle share {1 - busy_ms / window_ms:.3f} ({card})")
     for e in rows[:5]:
         log(f"[times]   {e.self_device_time_total / 1e3:9.3f} ms in {e.count:5d} launches "
             f"of {e.key[:70]}")
+    ns_fused.LAUNCHES = 0  # timing launches do not count
+
+
+def ns_eager_times(torch, device, card):
+    """The ``ns_fast`` episode on the eager path and the ``ns_matpow`` parity
+    row; no trace."""
+    from pdecontrolgym_tpu_torch.envs.navier_stokes import NavierStokesConfig
+
+    env_steps = NUM_ENVS * ns_setup(torch, device)[2]
     eager = ns_setup(torch, device, step_backend="eager")
     ms = cuda_ms(torch, lambda: run_ns_episode(torch, eager, NUM_ENVS, 1, seed=3), runs=1)
     log(f"[times] ns 64x64 full episode (eager path): {ms:.3f} ms, "
@@ -1044,8 +1689,6 @@ def phase_ns_times(torch, device, inputs, card):
 
     # the parity row ns_matpow of bench_families.py: the reference's 21x21
     # grid, float64, 2000 sweeps collapsed into two products; eager, no kernel
-    from pdecontrolgym_tpu_torch.envs.navier_stokes import NavierStokesConfig
-
     defaults = NavierStokesConfig()
     workload = ns_setup(
         torch, device, T=defaults.T, dt=defaults.dt, dx=defaults.dx, dy=defaults.dy,
@@ -1054,8 +1697,6 @@ def phase_ns_times(torch, device, inputs, card):
     log(f"[times] ns_matpow 21x21 float64 full episode of {workload[2]} steps (eager, no "
         f"kernel): {ms:.3f} ms, {NUM_ENVS * workload[2] / (ms / 1e3):.0f} env-steps/s at "
         f"{NUM_ENVS} envs ({card})")
-    ns_fused.LAUNCHES = 0  # timing launches do not count
-    return step_ms
 
 
 def main():
@@ -1078,8 +1719,22 @@ def main():
     explicit_launches, implicit_launches = phase_rd(torch, device)
     ns_err, ns_inputs = phase_ns_kernel(torch, device)
     ns_launches = phase_ns(torch, device)
-    ns_ms = phase_ns_times(torch, device, ns_inputs, card)
-    interval_ms = phase_times(torch, device, inputs, card)
+    neuron_err, neuron_inputs = phase_neuron_kernel(torch, device)
+    brain_err, brain_inputs = phase_brain_kernel(torch, device)
+    neuron_launches = phase_neuron(torch, device)
+    brain_launches = phase_brain(torch, device)
+    # times: the kernels alone first (their traces hold a few launches each),
+    # then the episodes that are traced, the longest trace last, then the
+    # episodes that are not (see device_rows)
+    ns_ms = ns_kernel_times(torch, device, ns_inputs, card)
+    family_ms = family_kernel_times(torch, device, neuron_inputs, brain_inputs, card)
+    interval_ms = interval_kernel_times(torch, device, inputs, card)
+    ns_episode_times(torch, device, card)
+    family_episode_times(torch, device, card, traced=True)
+    interval_episode_times(torch, device, card, "auto")
+    ns_eager_times(torch, device, card)
+    family_episode_times(torch, device, card, traced=False)
+    interval_episode_times(torch, device, card, "eager")
 
     foreign = sorted(m for m in set(sys.modules) - modules_at_start
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
@@ -1105,6 +1760,16 @@ def main():
         {"name": "ns_step", "route": "cuda", "source": f"{PKG}/csrc/ns_fused.cu",
          "replaces": "pdecontrolgym_tpu/ops/ns_fused.py:743",
          "launches": ns_launches, "max_abs_err": ns_err, **ns_ms["ns 64x64"]})
+    kernels.append(
+        {"name": "neuron_interval", "route": "cuda",
+         "source": f"{PKG}/csrc/neuron_interval.cu",
+         "replaces": "pdecontrolgym_tpu/ops/neuron_interval.py:235",
+         "launches": neuron_launches, "max_abs_err": neuron_err, **family_ms["neuron"]})
+    kernels.append(
+        {"name": "brain_tumor_field", "route": "cuda",
+         "source": f"{PKG}/csrc/brain_tumor_field.cu",
+         "replaces": "pdecontrolgym_tpu/ops/brain_tumor_interval.py:115",
+         "launches": brain_launches, "max_abs_err": brain_err, **family_ms["brain"]})
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']}: its main path never launched it")

@@ -3,18 +3,22 @@
 The JAX package ``pdecontrolgym_tpu`` is the reference this package is tested
 against. Ported so far: the 1D transport, Burgers and reaction-diffusion envs
 with TunedReward1D and NormReward, the 2D Navier-Stokes env with NSReward and
-its pressure solvers, the transport and parabolic backstepping controllers,
-the batched rollout, the tridiagonal solvers, and the kernels
-(``csrc/interval1d.cu`` for the explicit 1D sub-steps, ``csrc/interval1d_pcr.cu``
-for the implicit θ-scheme, ``csrc/ns_fused.cu`` for the Navier-Stokes projection
-step; CUDA C++ for the H100, built from source at first use). This package
-never imports JAX.
+its pressure solvers, the neuron-growth env, the brain-tumor env with
+BrainTumorReward and its therapy wrappers, the transport and parabolic
+backstepping controllers, the batched rollout, the tridiagonal solvers, and
+the kernels (``csrc/interval1d.cu`` for the explicit 1D sub-steps,
+``csrc/interval1d_pcr.cu`` for the implicit θ-scheme, ``csrc/ns_fused.cu`` for
+the Navier-Stokes projection step, ``csrc/neuron_interval.cu`` for K neuron
+dt-steps, ``csrc/brain_tumor_field.cu`` for the brain-tumor day's field pass;
+CUDA C++ for the H100, built from source at first use). This package never
+imports JAX.
 
 Layers:
     ops/       the kernels' wrappers and their plain PyTorch versions,
                tridiagonal solvers, 2D field ops and pressure solvers
     core/      batch-first env protocol, sensing/actuation dispatch
-    envs/      transport, Burgers, reaction-diffusion and Navier-Stokes
+    envs/      transport, Burgers, reaction-diffusion, Navier-Stokes, neuron
+               growth and brain tumor
     rewards/   plug-in reward functions
     parallel/  batched lockstep rollout with autoreset
     agents/    backstepping controllers

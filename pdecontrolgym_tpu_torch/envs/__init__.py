@@ -1,3 +1,10 @@
+from pdecontrolgym_tpu_torch.envs.brain_tumor import (
+    BrainTumorConfig,
+    BrainTumorEnv,
+    BrainTumorState,
+    DoseTherapyEnv,
+    TherapyEnv,
+)
 from pdecontrolgym_tpu_torch.envs.burgers import BurgersConfig, BurgersEnv
 from pdecontrolgym_tpu_torch.envs.common import (
     Boundary1DConfig,
@@ -11,6 +18,7 @@ from pdecontrolgym_tpu_torch.envs.navier_stokes import (
     freeze_boundary_condition,
     make_lid_target,
 )
+from pdecontrolgym_tpu_torch.envs.neuron import NeuronConfig, NeuronEnv, NeuronState
 from pdecontrolgym_tpu_torch.envs.reaction_diffusion import (
     ReactionDiffusionConfig,
     ReactionDiffusionEnv,
@@ -25,13 +33,21 @@ __all__ = [
     "Boundary1DConfig",
     "Boundary1DEnv",
     "Boundary1DState",
+    "BrainTumorConfig",
+    "BrainTumorEnv",
+    "BrainTumorState",
     "BurgersConfig",
     "BurgersEnv",
+    "DoseTherapyEnv",
     "NavierStokesConfig",
     "NavierStokesEnv",
     "NavierStokesState",
+    "NeuronConfig",
+    "NeuronEnv",
+    "NeuronState",
     "ReactionDiffusionConfig",
     "ReactionDiffusionEnv",
+    "TherapyEnv",
     "TransportConfig",
     "TransportEnv",
     "chebyshev_beta",

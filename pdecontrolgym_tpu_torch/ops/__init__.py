@@ -1,3 +1,8 @@
+from pdecontrolgym_tpu_torch.ops.brain_tumor_interval import (
+    BrainTumorFieldSpec,
+    brain_tumor_field,
+    brain_tumor_field_plain,
+)
 from pdecontrolgym_tpu_torch.ops.interval1d import (
     BurgersBody,
     IntervalSpec,
@@ -6,6 +11,13 @@ from pdecontrolgym_tpu_torch.ops.interval1d import (
     TransportBody,
     interval,
     interval_plain,
+)
+# the wrapper neuron_interval.neuron_interval is not re-exported: under its own
+# name it would shadow its module as an attribute of this package
+from pdecontrolgym_tpu_torch.ops.neuron_interval import (
+    NeuronSpec,
+    neuron_advance,
+    neuron_interval_plain,
 )
 from pdecontrolgym_tpu_torch.ops.ns_fused import (
     NSStepSpec,
@@ -16,15 +28,21 @@ from pdecontrolgym_tpu_torch.ops.ns_fused import (
 from pdecontrolgym_tpu_torch.ops.tridiag import pcr, thomas
 
 __all__ = [
+    "BrainTumorFieldSpec",
     "BurgersBody",
     "IntervalSpec",
     "NSStepSpec",
+    "NeuronSpec",
     "ReactionDiffusionBody",
     "ReactionDiffusionImplicitBody",
     "TransportBody",
+    "brain_tumor_field",
+    "brain_tumor_field_plain",
     "fused_basis",
     "interval",
     "interval_plain",
+    "neuron_advance",
+    "neuron_interval_plain",
     "ns_step",
     "ns_step_plain",
     "pcr",

@@ -25,6 +25,8 @@ SOURCES = (
     _PKG / "csrc" / "interval1d.cu",
     _PKG / "csrc" / "interval1d_pcr.cu",
     _PKG / "csrc" / "ns_fused.cu",
+    _PKG / "csrc" / "neuron_interval.cu",
+    _PKG / "csrc" / "brain_tumor_field.cu",
 )
 HEADERS = (_PKG / "csrc" / "interval1d_common.cuh",)
 BUILD_DIR = _PKG / "_build"
@@ -129,6 +131,15 @@ def load() -> ctypes.CDLL:
         lib.ns_fused_launch.argtypes = (
             [p] * 10 + [i] * 6 + [ctypes.POINTER(ctypes.c_int)] + [f] * 7 + tail)
         lib.ns_fused_launch.restype = ctypes.c_int
+        # u, Z, L, t, pB, p, u_out, Z_out, L_out, t_out, done, norms, prev; B, M,
+        # K, W, ord; dt, dx, D, a, g, LSubS, scale, RSubG, aT1, beta_c, nt, coeff,
+        # H0, H1
+        lib.neuron_interval_launch.argtypes = [p] * 13 + [i] * 5 + [f] * 14 + tail
+        lib.neuron_interval_launch.restype = ctypes.c_int
+        # u, applied, can, u_out, treatment_radius, t1, has_t1; B, nx; dt, dx,
+        # dx*dx, D, rho, k, -alpha, alpha/beta, thr_t1, thr_t2
+        lib.brain_tumor_field_launch.argtypes = [p] * 7 + [i] * 2 + [f] * 10 + tail
+        lib.brain_tumor_field_launch.restype = ctypes.c_int
         lib.interval1d_error_string.argtypes = [ctypes.c_int]
         lib.interval1d_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,0 +1,185 @@
+"""One day's field pass of the brain-tumor env for a batch of envs.
+
+Replaces the TPU kernel
+``pdecontrolgym_tpu/ops/brain_tumor_interval.py::make_brain_tumor_field_fn``.
+The contract is the JAX function's::
+
+    brain_tumor_field(spec, u, applied, can) -> (u_new, treatment_radius, t1, has_t1)
+
+``u``: ``(B, nx)`` float32 density rows; ``applied``: ``(B,)`` float32, the
+day's dose in Gy, already therapy-gated (zero outside Therapy, so that the
+radiation term vanishes exactly: ``d == 0`` gives ``R == 0``); ``can``:
+``(B,)`` bool, the pre-step ``time_index < nt - 1`` mask. In one pass over the
+row: the T2 radius scan of ``u`` (rightmost point at or above ``thr_t2``), the
+treatment radius (T2 + 25 mm, or 0), the BED radiation field
+``R = 1 - exp(-alpha (d + d^2 / abr))`` on the points within it, the
+diffusion-proliferation-radiation update with the Neumann mirror and the clip
+to ``[0, k]``, and the T1 radius scan of the NEW row. ``u_new`` is a fresh
+tensor (the JAX call aliases its input; this one does not); the radii are
+``(B,)`` float32, ``has_t1`` ``(B,)`` bool. The stage machine and the reward
+stay in the env (``BrainTumorEnv._day_scalars``).
+
+Two implementations, one contract:
+
+- :func:`brain_tumor_field_plain`, PyTorch on ``(B, nx)`` tensors: the CPU
+  path, and the oracle for the kernel.
+- ``csrc/brain_tumor_field.cu``, CUDA C++ for ``sm_90a``: one warp per env, the
+  row in registers between its one read and its one write.
+
+:func:`brain_tumor_field` dispatches on the tensors' device: the plain version
+for CPU tensors, the kernel for CUDA tensors. It never falls back from one to
+the other.
+
+The JAX package keeps its kernel behind ``backend="pallas"`` because every
+variant lost to its XLA path when measured on a TPU. That finding is the
+TPU's: here the plain path is some thirty separate launches a day, and which
+of the two wins on the card is measured by ``chip_smoke.py``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+# Launches of the CUDA kernel since import (or since a caller reset it).
+LAUNCHES = 0
+
+MAX_NX = 512  # one warp holds a row of at most 32 * 16 points
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+@dataclasses.dataclass(frozen=True)
+class BrainTumorFieldSpec:
+    """Everything static about the field pass, as the env's config gives it.
+    The thresholds are ``ratio * k`` in double, rounded once to float32: the
+    number both implementations compare against."""
+
+    nx: int
+    dt: float
+    dx: float
+    D: float
+    rho: float
+    k: float
+    alpha: float
+    alpha_beta_ratio: float
+    t1_detection_threshold: float
+    t2_detection_threshold: float
+
+    def scalars(self):
+        """The kernel's float arguments, in its order, each rounded once:
+        dt, dx, dx*dx, D, rho, k, -alpha, alpha/beta, thr_t1, thr_t2."""
+        return tuple(_f32(x) for x in (
+            self.dt, self.dx, self.dx * self.dx, self.D, self.rho, self.k, -self.alpha,
+            self.alpha_beta_ratio, self.t1_detection_threshold * self.k,
+            self.t2_detection_threshold * self.k))
+
+
+@functools.lru_cache(maxsize=None)
+def _divisors(spec: BrainTumorFieldSpec, device):
+    """``(dx*dx, k, alpha/beta)`` as float32 tensors on ``device``. PyTorch
+    turns a division by a Python scalar into a product with its reciprocal on
+    the card, which rounds otherwise than the IEEE division of the kernel and
+    of the JAX package; one ulp in ``u`` can flip a radius scan's ``>=``."""
+    _, _, dx2, _, _, k, _, abr, _, _ = spec.scalars()
+    return torch.tensor([dx2, k, abr], dtype=torch.float32, device=device).unbind()
+
+
+def brain_tumor_field(spec: BrainTumorFieldSpec, u, applied, can):
+    """Run one day's field pass; the plain version for CPU tensors, the CUDA
+    kernel for CUDA tensors."""
+    _check(spec, u, applied, can)
+    if u.device.type == "cpu":
+        return brain_tumor_field_plain(spec, u, applied, can)
+    if u.device.type == "cuda":
+        return _brain_tumor_field_cuda(spec, u, applied, can)
+    raise ValueError(f"brain_tumor_field: no implementation for device {u.device}")
+
+
+def _check(spec, u, applied, can):
+    B = u.shape[0]
+    want = {"u": (u, (B, spec.nx), torch.float32), "applied": (applied, (B,), torch.float32),
+            "can": (can, (B,), torch.bool)}
+    for name, (x, shape, dtype) in want.items():
+        if tuple(x.shape) != shape or x.dtype != dtype:
+            raise ValueError(
+                f"brain_tumor_field: {name} must be {dtype} of shape {shape}, "
+                f"got {x.dtype} {tuple(x.shape)}"
+            )
+        if x.device != u.device:
+            raise ValueError(f"brain_tumor_field: {name} is on {x.device}, u on {u.device}")
+    if spec.nx < 3:
+        raise ValueError(f"brain_tumor_field: nx must be >= 3, got {spec.nx}")
+
+
+def brain_tumor_field_plain(spec: BrainTumorFieldSpec, u, applied, can):
+    """PyTorch version of the field pass, the TPU kernel's body op for op."""
+    dt, dx, _, D, rho, k, neg_alpha, _, thr_t1, thr_t2 = spec.scalars()
+    div_dx2, div_k, div_abr = _divisors(spec, u.device)
+    nx = spec.nx
+    col = torch.arange(nx, device=u.device, dtype=torch.int32)
+    x_scale = col.to(u.dtype) * dx
+    zero = torch.zeros((), dtype=u.dtype, device=u.device)
+
+    def radius(uu, thr):
+        idx = torch.where(uu >= thr, col, -1).amax(dim=1)
+        has = idx >= 0
+        return torch.where(has, idx.to(u.dtype) * dx, zero), has
+
+    t2, has_t2 = radius(u, thr_t2)
+    treatment_radius = torch.where(has_t2, t2 + 25.0, zero)
+    d = torch.where(x_scale <= treatment_radius[:, None], applied[:, None], zero)
+    bed = d + d * d / div_abr
+    R = 1.0 - torch.exp(neg_alpha * bed)
+
+    pad = torch.zeros_like(u[:, :1])
+    u_l = torch.cat([pad, u[:, :-1]], dim=1)
+    u_r = torch.cat([u[:, 1:], pad], dim=1)
+    logistic = u * (1.0 - u / div_k)
+    growth = D * (u_r - 2.0 * u + u_l) / div_dx2 + rho * logistic
+    upd = u + dt * (growth - R * logistic)
+    # the Neumann mirror takes the UPDATED columns 1 and nx-2, then the clip
+    nxt = torch.cat([upd[:, 1:2], upd[:, 1:-1], upd[:, -2:-1]], dim=1).clamp(0.0, k)
+    u_new = torch.where(can[:, None], nxt, u)
+
+    t1, has_t1 = radius(u_new, thr_t1)
+    return u_new, treatment_radius, t1, has_t1
+
+
+def _brain_tumor_field_cuda(spec, u, applied, can):
+    """Launch the CUDA kernel on the tensors' stream. Raises on anything the
+    kernel does not take; allocates the outputs; does not synchronise."""
+    global LAUNCHES
+    from pdecontrolgym_tpu_torch.ops import _build
+
+    B, nx = u.shape
+    if nx > MAX_NX:
+        raise ValueError(
+            f"brain_tumor_field kernel: nx {nx} > {MAX_NX} (one warp per env holds "
+            "at most 16 points a lane)"
+        )
+    if not all(x.is_contiguous() for x in (u, applied, can)):
+        raise ValueError("brain_tumor_field kernel: inputs must be contiguous")
+    u_out = torch.empty_like(u)
+    radius = torch.empty((B,), dtype=u.dtype, device=u.device)
+    t1 = torch.empty_like(radius)
+    has_t1 = torch.empty((B,), dtype=torch.bool, device=u.device)
+    lib = _build.load()
+    err = lib.brain_tumor_field_launch(
+        u.data_ptr(), applied.data_ptr(), can.data_ptr(),
+        u_out.data_ptr(), radius.data_ptr(), t1.data_ptr(), has_t1.data_ptr(),
+        B, nx, *spec.scalars(),
+        u.device.index if u.device.index is not None else torch.cuda.current_device(),
+        torch.cuda.current_stream(u.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"brain_tumor_field_launch failed: {lib.interval1d_error_string(err).decode()}"
+        )
+    LAUNCHES += 1
+    return u_out, radius, t1, has_t1

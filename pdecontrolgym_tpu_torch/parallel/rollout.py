@@ -4,9 +4,11 @@ Counterpart of ``pdecontrolgym_tpu/parallel/rollout.py``. ``lax.scan`` over
 time becomes a Python loop; the env batch is the leading tensor dimension.
 Finished envs are re-initialised from the IC sampler by a masked select, so
 the batch never stalls. The reset work runs every step, ungated (the JAX
-package's size gate was tuned to XLA and is not carried over; ROADMAP A0).
-An env that declares ``fixed_episode_length`` (Navier-Stokes) is stepped
-without that work and re-initialised whole at each episode boundary.
+package's size gate was tuned to XLA and is not carried over; ROADMAP A0),
+unless the env declares ``autoreset_gate = True``: then it runs only on steps
+where an env actually ended. An env that declares ``fixed_episode_length``
+(Navier-Stokes) is stepped without that work and re-initialised whole at each
+episode boundary.
 """
 
 from __future__ import annotations
@@ -31,8 +33,16 @@ def batch_step(env, autoreset: bool = True):
     ``step``. With ``autoreset``, envs whose episode ended are replaced by
     fresh ones drawn with ``generator``; the returned ``StepOut`` reports the
     finishing transition but carries the fresh obs.
+
+    When the env, or an env it wraps (``env.env``), declares
+    ``autoreset_gate = True`` (an env whose ``init_batch`` is expensive, as
+    ``TherapyEnv``'s, which fast-forwards a whole stage), the reset work runs
+    only ``if bool(done.any())``: one host read per step, which waits for the
+    device. Envs that declare nothing keep the ungated path and read nothing.
     """
     raw_step = getattr(env, "step_batch", env.step)
+    gate = bool(getattr(env, "autoreset_gate", False)
+                or getattr(getattr(env, "env", None), "autoreset_gate", False))
 
     if not autoreset:
         return lambda state, actions, generator=None: raw_step(state, actions)
@@ -40,6 +50,8 @@ def batch_step(env, autoreset: bool = True):
     def step(state, actions, generator):
         next_state, out = raw_step(state, actions)
         done = out.terminated | out.truncated
+        if gate and not bool(done.any()):
+            return next_state, out
         fresh_state, fresh_obs = env.init_batch(done.shape[0], generator)
 
         def sel(a, b):

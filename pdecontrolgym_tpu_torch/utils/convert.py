@@ -11,8 +11,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pdecontrolgym_tpu_torch.envs.brain_tumor import BrainTumorState
 from pdecontrolgym_tpu_torch.envs.common import Boundary1DState
 from pdecontrolgym_tpu_torch.envs.navier_stokes import NavierStokesState
+from pdecontrolgym_tpu_torch.envs.neuron import NeuronEnv, NeuronState
 
 # the JAX package's backend names and the port's
 _BACKENDS = {"pallas": "kernel", "xla": "eager"}
@@ -25,7 +27,7 @@ def config_from_fields(cls, fields: dict):
     package's names (``"pallas"`` → ``"kernel"``, ``"xla"`` → ``"eager"``), and
     so may ``step_backend`` (``"fused"`` → ``"kernel"``, ``"xla"`` → ``"eager"``)."""
     f = dict(fields)
-    if "dtype" in f:
+    if "dtype" in f and not isinstance(f["dtype"], torch.dtype):
         f["dtype"] = getattr(torch, np.dtype(f["dtype"]).name)
     if "backend" in f:
         f["backend"] = _BACKENDS.get(f["backend"], f["backend"])
@@ -70,3 +72,45 @@ def ns_state_from_numpy(leaves: dict, device) -> NavierStokesState:
 
     return NavierStokesState(u=t("u"), v=t("v"), p=t("p"),
                              time_index=t("time_index", torch.int32))
+
+
+def _leaves(leaves: dict, batched: bool, device, int_fields=()):
+    """Each numpy leaf as a tensor with the env axis first (added when the JAX
+    state is a single env's); the fields named in ``int_fields`` as int32."""
+    out = {}
+    for name, value in leaves.items():
+        if value is None:
+            out[name] = None
+            continue
+        a = np.array(value)  # a copy: arrays from JAX are read-only
+        dtype = torch.int32 if name in int_fields else None
+        out[name] = torch.as_tensor(a if batched else a[None], dtype=dtype, device=device)
+    return out
+
+
+def neuron_state_from_numpy(leaves: dict, device) -> NeuronState:
+    """Build a :class:`NeuronState` from numpy arrays ``u``, ``Z``, ``L`` and
+    ``time_index``."""
+    batched = np.asarray(leaves["u"]).ndim == 2
+    return NeuronState(**_leaves(leaves, batched, device, int_fields=("L",)))
+
+
+def brain_tumor_state_from_numpy(leaves: dict, device) -> BrainTumorState:
+    """Build a :class:`BrainTumorState` from numpy arrays of its thirteen
+    fields; all but ``u`` and ``remaining_dosage`` are int32."""
+    batched = np.asarray(leaves["u"]).ndim == 2
+    ints = tuple(name for name in leaves if name not in ("u", "remaining_dosage"))
+    return BrainTumorState(**_leaves(leaves, batched, device, int_fields=ints))
+
+
+def neuron_tables_from_numpy(env: NeuronEnv, tables: dict) -> NeuronEnv:
+    """Overwrite a port :class:`NeuronEnv`'s gain and constant tables
+    (``phi``, ``phi_prime``, ``p``, ``pB``, ``H``, ``c_eq``, ``coefficient``)
+    with the JAX env's arrays, so that a step-by-step comparison of the two
+    does not inherit the last-bit difference between two matrix-exponential
+    implementations. Returns ``env``."""
+    missing = [name for name in NeuronEnv.TABLES if name not in tables]
+    if missing:
+        raise ValueError(f"neuron_tables_from_numpy: missing tables {missing}")
+    env._store_tables({name: np.asarray(tables[name]) for name in NeuronEnv.TABLES})
+    return env

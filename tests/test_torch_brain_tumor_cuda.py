@@ -1,0 +1,125 @@
+"""The CUDA kernel of the brain-tumor day's field pass
+(``pdecontrolgym_tpu_torch/csrc/brain_tumor_field.cu``) against its plain
+PyTorch version on the card.
+
+Every test here is marked ``cuda`` and skips where there is no card. The file
+imports nothing of the JAX package, so that it runs on a machine that has
+PyTorch for CUDA and ``nvcc`` and no flax::
+
+    python -m pytest tests/test_torch_brain_tumor_cuda.py -m cuda
+
+``chip_smoke.py`` makes the same comparison at the main path's shapes. Bands:
+the radii and ``has_t1`` equal; ``u`` rtol 1e-6 atol 1e-3 (densities of order
+1e5).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from pdecontrolgym_tpu_torch.envs.brain_tumor import (
+    BrainTumorConfig,
+    BrainTumorEnv,
+    TherapyEnv,
+)
+from pdecontrolgym_tpu_torch.ops import brain_tumor_interval as tbt
+from pdecontrolgym_tpu_torch.rewards.brain_tumor import BrainTumorReward
+
+FAST = dict(T=80.0, dt=1.0, X=60.0, dx=1.0, t1_detection_radius=5.0,
+            t1_death_radius=20.0, total_dosage=30.0)
+
+
+def _rows(B, X, nx, seed=0):
+    """Plateau tumours of per-env width, some below the T1 threshold, some
+    below both, with noise."""
+    rng = np.random.default_rng(seed)
+    xs = np.linspace(0.0, X, nx)
+    r = rng.uniform(0.05 * X, 0.4 * X, size=(B, 1))
+    peak = rng.choice([0.9e5, 0.4e5, 0.1e5], size=(B, 1))
+    u = peak * np.exp(-((xs[None] / r) ** 4)) * (1 + 0.01 * rng.normal(size=(B, nx)))
+    return torch.from_numpy(np.clip(u, 0, 1e5).astype(np.float32)).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fields,B", [(FAST, 4), (FAST, 4096), ({}, 4), ({}, 4096),
+                                      (dict(X=511.0), 33), (dict(X=2.0), 7)])
+def test_cuda_kernel_matches_plain_version(fields, B):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    cfg = BrainTumorConfig(**fields)
+    env = BrainTumorEnv(cfg, BrainTumorReward())
+    u = _rows(B, cfg.X, cfg.nx)
+    rng = np.random.default_rng(1)
+    applied = torch.from_numpy(
+        rng.choice([0.0, 1.8, 15.0], size=B).astype(np.float32)).cuda()
+    can = torch.from_numpy(rng.random(B) < 0.8).cuda()
+    before = tbt.LAUNCHES
+    got = tbt.brain_tumor_field(env._spec, u, applied, can)
+    torch.cuda.synchronize()
+    assert tbt.LAUNCHES == before + 1
+    want = tbt.brain_tumor_field_plain(env._spec, u, applied, can)
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                               rtol=1e-6, atol=1e-3)
+    assert torch.equal(got[0][~can], u[~can])
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_raises_above_its_cap():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    env = BrainTumorEnv(BrainTumorConfig(X=600.0), BrainTumorReward())
+    u = torch.zeros((2, 601), device="cuda")
+    with pytest.raises(ValueError, match="512"):
+        tbt.brain_tumor_field(env._spec, u, torch.zeros(2, device="cuda"),
+                              torch.ones(2, dtype=torch.bool, device="cuda"))
+
+
+@pytest.mark.cuda
+def test_cuda_env_kernel_path_matches_eager_path_over_an_episode():
+    """The env on the card: ``step_batch`` under ``"auto"`` launches the kernel
+    once a day and agrees with the eager path over a staged episode of 80 days:
+    integer fields and flags equal, ``u`` rtol 1e-6 atol 1e-3, rewards rtol
+    1e-5 atol 1e-4. The therapy wrapper on top simulates the same days."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    cfg = BrainTumorConfig(**FAST)
+    xs = np.linspace(0.0, cfg.X, cfg.nx)
+    r = np.linspace(6.0, 30.0, 8)[:, None]
+    ic = torch.from_numpy((0.9e5 * np.exp(-((xs[None] / r) ** 4))).astype(np.float32))
+    sampler = lambda n, gen: ic[:n].cuda()  # noqa: E731
+    auto = BrainTumorEnv(cfg, BrainTumorReward(), ic_sampler=sampler)
+    eager = BrainTumorEnv(dataclasses.replace(cfg, backend="eager"), BrainTumorReward(),
+                          ic_sampler=sampler)
+    sa, _ = auto.init_batch(8, None, t_benchmark=40)
+    se, _ = eager.init_batch(8, None, t_benchmark=40)
+    dose = torch.linspace(0.02, 1.0, 8, device="cuda")
+    before = tbt.LAUNCHES
+    for _ in range(80):
+        sa, oa = auto.step_batch(sa, dose)
+        se, oe = eager.step_batch(se, dose)
+        for f in dataclasses.fields(sa):
+            a, e = getattr(sa, f.name), getattr(se, f.name)
+            if a.dtype == torch.int32:
+                assert torch.equal(a, e), f.name
+            else:
+                np.testing.assert_allclose(a.cpu().numpy(), e.cpu().numpy(),
+                                           rtol=1e-6, atol=1e-3, err_msg=f.name)
+        assert torch.equal(oa.terminated, oe.terminated)
+        assert torch.equal(oa.truncated, oe.truncated)
+        np.testing.assert_allclose(oa.reward.cpu().numpy(), oe.reward.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-4)
+    assert tbt.LAUNCHES == before + 80
+    assert 2 in sa.stage.tolist() and 0 not in sa.stage.tolist()
+    assert bool((sa.death_day >= 0).any())
+
+    ta, te = TherapyEnv(auto, t_benchmark=40), TherapyEnv(eager, t_benchmark=40)
+    (sa, _), (se, _) = ta.init_batch(8), te.init_batch(8)
+    for _ in range(30):
+        sa, oa = ta.step_batch(sa, dose)
+        se, oe = te.step_batch(se, dose)
+    assert torch.equal(sa.simulation_days, se.simulation_days)
+    assert torch.equal(sa.time_index, se.time_index)

@@ -21,7 +21,16 @@ It is held against the port's generic autoreset step and against the JAX
 rollout (fused kernel in interpret mode), 16x16 float32, two and a half
 episodes of 19 steps, under a deterministic IC sampler: obs atol 2e-5, rewards
 rtol 1e-4 (the JAX package's bands between its kernel and its XLA path).
+
+An env that declares ``autoreset_gate = True`` (``TherapyEnv``, whose
+``init_batch`` fast-forwards a whole stage) gets its reset work only on steps
+where an env ended: a test counts the ``init_batch`` calls. The neuron path
+(K=7 a call, the K-step block's plain version) and the brain-tumor path (the
+field pass's plain version, 61 points, a tumour that dies inside the horizon,
+so that autoreset swaps in a fresh env) run against the JAX rollout too.
 """
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -45,6 +54,7 @@ from pdecontrolgym_tpu.rewards.ns import NSReward as JaxNSReward
 from pdecontrolgym_tpu.rewards.tuned import TunedReward1D as JaxTunedReward1D
 
 from pdecontrolgym_tpu_torch.agents.backstepping import transport_kernel
+from pdecontrolgym_tpu_torch.envs.brain_tumor import TherapyEnv
 from pdecontrolgym_tpu_torch.envs.common import Boundary1DConfig
 from pdecontrolgym_tpu_torch.agents.backstepping import parabolic_control, parabolic_kernel
 from pdecontrolgym_tpu_torch.envs.reaction_diffusion import (
@@ -58,7 +68,15 @@ from pdecontrolgym_tpu_torch.parallel.rollout import batch_step, rollout
 from pdecontrolgym_tpu_torch.rewards.ns import NSReward
 from pdecontrolgym_tpu_torch.rewards.tuned import TunedReward1D
 
-from torch_parity import OBS_TOL, REWARD_TOL, chebyshev_beta_np, port_config
+from torch_parity import (
+    OBS_TOL,
+    REWARD_TOL,
+    brain_ic,
+    brain_pair,
+    chebyshev_beta_np,
+    neuron_pair,
+    port_config,
+)
 
 B, NX, STEPS, U0 = 16, 128, 25, 3.0
 
@@ -286,3 +304,129 @@ def test_rollout_can_leave_the_obs_out_of_the_stack():
     (state, _), outs = rollout(penv, policy, NS_B, 25, torch.Generator().manual_seed(0),
                                autoreset=False)
     assert bool(state.time_index.eq(25).all()) and bool(outs.terminated[18:].all())
+
+
+def _count_init_batch(env):
+    calls = []
+    inner = env.init_batch
+    env.init_batch = lambda *a, **kw: (calls.append(1), inner(*a, **kw))[1]
+    return calls
+
+
+def test_autoreset_gate_runs_the_reset_work_only_when_an_env_ended():
+    """``TherapyEnv`` declares ``autoreset_gate``: over 30 steps ``init_batch``
+    is called once per step on which an env ended, and the envs that ended are
+    fresh ones (in Therapy again, their dosage whole). A wrapper that holds
+    such an env as ``.env`` is gated too; an env that declares nothing is
+    re-initialised on every step."""
+    ic = np.repeat(brain_ic(1, lo=24.0, hi=24.0), 3, axis=0)
+    _, penv = brain_pair("xla", "kernel", ic=ic)
+    tenv = TherapyEnv(penv, t_benchmark=40)
+    gen = torch.Generator().manual_seed(0)
+    state, _ = tenv.init_batch(3, gen)
+    calls = _count_init_batch(tenv)
+    step = batch_step(tenv)
+    dose = torch.tensor([0.05, 0.3, 1.0])  # the envs end on different steps
+    ended_steps = 0
+    for _ in range(30):
+        before = state
+        state, out = step(state, dose, gen)
+        done = out.terminated | out.truncated
+        ended_steps += int(done.any())
+        assert len(calls) == ended_steps
+        if bool(done.any()):
+            assert bool((state.stage[done] == 1).all())
+            assert bool((state.remaining_dosage[done] == 30.0).all())
+            assert bool((state.death_day[done] == -1).all())
+        else:
+            assert state.time_index.dtype == torch.int32
+            assert bool((state.time_index > before.time_index).all())
+    assert 2 <= ended_steps < 30
+
+    class Wrapper:  # forwards everything but the declaration itself
+        def __init__(self, env):
+            self.env = env
+            self.init_batch, self.step_batch = env.init_batch, env.step_batch
+            self.step = env.step
+
+    wrapped = Wrapper(TherapyEnv(penv, t_benchmark=40))
+    calls = _count_init_batch(wrapped)
+    state, _ = wrapped.init_batch(3, gen)
+    step = batch_step(wrapped)
+    state, out = step(state, torch.full((3,), 0.01), gen)
+    assert len(calls) == 1 and not bool((out.terminated | out.truncated).any())
+
+    _, transport = _envs()
+    calls = _count_init_batch(transport)
+    step = batch_step(transport)
+    state, _ = transport.init_batch(B, gen)
+    for _ in range(3):
+        state, _ = step(state, torch.zeros(B), gen)
+    assert len(calls) == 1 + 3
+
+
+def test_neuron_rollout_matches_jax_and_autoreset_keeps_integer_fields():
+    """Five calls of K=7 dt-steps through ``rollout`` against the JAX rollout
+    (its Pallas kernel in interpret mode): obs rtol 1e-5 atol 1e-7. Then a
+    hand-made batch whose clocks stand just below ``nt``: the envs that end are
+    replaced by fresh ones, and ``L`` stays int32 through the masked select."""
+    jenv, penv = neuron_pair(dtype=jnp.float32, steps_per_call=7, backend="pallas")
+    (_, jobs), jouts = jax.jit(lambda key: jax_rollout(
+        jenv, lambda o, k: jnp.zeros(o.shape[:-1]), 4, 5, key))(jax.random.key(0))
+    (pstate, pobs), pouts = rollout(penv, lambda o, g: torch.zeros(o.shape[0]), 4, 5,
+                                    torch.Generator().manual_seed(0))
+    assert pouts.obs.shape == (5, 4, 121) and not bool(pouts.terminated.any())
+    np.testing.assert_allclose(pouts.obs.numpy(), np.asarray(jouts.obs), rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(pobs.numpy(), np.asarray(jobs), rtol=1e-5, atol=1e-7)
+    np.testing.assert_array_equal(pouts.reward.numpy(), np.asarray(jouts.reward))
+
+    # dt a power of two, so that the float32 clock is exact: nt = 11, and from
+    # 11 - 6.5 dt the reset fires on the seventh dt-step, the call's last
+    dt = 2.0 ** -18
+    _, short = neuron_pair(dtype=jnp.float32, steps_per_call=7, backend="pallas",
+                           T=10 * dt, dt=dt)
+    assert short.config.nt == 11
+    fresh, fresh_obs = short.init_batch(3)
+    late = dataclasses.replace(
+        pstate, u=pstate.u[:3], Z=pstate.Z[:3], L=pstate.L[:3] + 2,
+        time_index=torch.tensor([11.0 - 6.5 * dt, 1e-3, 11.0 - 6.5 * dt]))
+    state, out = batch_step(short)(late, None, torch.Generator().manual_seed(0))
+    assert out.terminated.tolist() == [True, False, True]
+    assert state.L.dtype == torch.int32
+    assert state.L.tolist()[0] == state.L.tolist()[2] == int(fresh.L[0])
+    assert torch.equal(out.obs[0], fresh_obs[0]) and torch.equal(state.u[2], fresh.u[2])
+    assert float(state.time_index[0]) == 0.0 and float(state.time_index[1]) > 1e-3
+
+
+def test_brain_tumor_rollout_matches_jax_across_a_death():
+    """85 days through ``rollout`` (the field pass's plain version) against the
+    JAX rollout on its XLA path: one wide tumour for every env, per-env doses,
+    so that the envs end (the untreated one dies, the treated ones reach the
+    horizon of 80 days) and are replaced. Flags exactly, rewards rtol 1e-5
+    atol 1e-4, obs rtol 1e-6 atol 1e-3."""
+    n = 4
+    ic = np.repeat(brain_ic(1, lo=24.0, hi=24.0), n, axis=0)
+    jenv, penv = brain_pair("xla", "kernel", ic=ic)
+    doses = np.array([0.0, 0.05, 0.3, 1.0], np.float32)
+    jdoses, pdoses = jnp.asarray(doses), torch.from_numpy(doses)
+    (jstate, jobs), jouts = jax.jit(lambda key: jax_rollout(
+        jenv, lambda o, k: jdoses, n, 85, key))(jax.random.key(0))
+    (pstate, pobs), pouts = rollout(penv, lambda o, g: pdoses, n, 85,
+                                    torch.Generator().manual_seed(0))
+    assert pouts.obs.shape == (85, n, 61)
+    died = pouts.truncated.numpy()
+    assert died[:60].any() and pouts.terminated.numpy()[79].any()
+    np.testing.assert_array_equal(died, np.asarray(jouts.truncated))
+    np.testing.assert_array_equal(pouts.terminated.numpy(), np.asarray(jouts.terminated))
+    np.testing.assert_allclose(pouts.reward.numpy(), np.asarray(jouts.reward),
+                               rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(pouts.obs.numpy(), np.asarray(jouts.obs), rtol=1e-6, atol=1e-3)
+    # the day an env died carries the fresh obs, and its state is a fresh one
+    day, env = np.argwhere(died)[0]
+    np.testing.assert_array_equal(pouts.obs[day, env].numpy(), ic[0])
+    for f in dataclasses.fields(pstate):
+        got = getattr(pstate, f.name)
+        assert got.dtype == (torch.float32 if f.name in ("u", "remaining_dosage")
+                             else torch.int32), f.name
+        np.testing.assert_allclose(got.numpy(), np.asarray(getattr(jstate, f.name)),
+                                   rtol=1e-6, atol=1e-3, err_msg=f.name)
