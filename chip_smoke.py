@@ -35,13 +35,16 @@ JAX package), builds the CUDA kernels from ``csrc/`` and runs:
                 PyTorch version on the card: lid-driven cavity at B=4096,
                 64x64; mixed boundary conditions; 16x16, 21x21, 24x40; 128x128
                 at B=1024; with and without the tracking sum; the three
-                spectral precisions; the autograd function's gradients.
+                spectral precisions, each also on a fresh episode's fields at
+                B=4096, 64x64; the autograd function's gradients.
 9. ns        -- the bench_families.py ``ns_fast`` workload through the port's
                 rollout: 4096 envs, 64x64, float32, direct pressure solve,
                 lid-driven cavity, NSReward(0.1), constant policy 2.0, one
                 episode of 249 steps; at B=8 the kernel path against the eager
                 path over the whole episode; two episodes back to back at
-                B=256 across a boundary reset.
+                B=256 across a boundary reset; the drift of the "high" and
+                "default" precisions against "highest" over an episode at
+                B=256 (reported, not gated).
 10. neuron_kernel -- the neuron K-step block against its plain PyTorch version
                 on the card: K = 1, 7, 100; reward-free; norm windows W = 1
                 and 5 in the L2, L1 and max norms; the previous row; B = 5 and
@@ -78,6 +81,10 @@ JAX package), builds the CUDA kernels from ``csrc/`` and runs:
                 reaction-diffusion episode's) last, then the eager episodes,
                 which are not traced.
 
+``python3 chip_smoke.py --compare ROOT [ROOT ...]`` times the implicit
+reaction-diffusion interval kernel and the projection-step kernel of several
+copies of the port in one run instead (see :func:`compare`).
+
 Float32 matrix products of the plain versions must run in full float32: the
 script sets ``torch.backends.cuda.matmul.allow_tf32 = False`` itself.
 
@@ -112,10 +119,11 @@ U_TOL_IMPLICIT = 2e-5
 BSUM_RTOL = 1e-4
 NORM_RTOL = 1e-5
 
-# The projection step against its plain version. Its four products need not
-# sum in torch.matmul's order (where cuBLAS walks the contraction index as the
-# kernel's fmaf chain does, the two come out equal to the bit), so the
-# band is the JAX package's own between its kernel and its XLA path
+# The projection step against its plain version. The kernel's products run on
+# the tensor cores (3xTF32 at "highest": within a few float32 ulps of
+# torch.matmul's float32 product, not equal to it, and summed in another
+# order), so the band is the JAX package's own between its kernel and its XLA
+# path
 # (tests/test_ns_fused.py: atol 2e-5 on fields of order 1), scaled by the
 # field's largest magnitude where that exceeds 1 (the pressure of a cavity
 # started from U(-5, 5) constants reaches thousands) and, for u' and v', by
@@ -170,11 +178,18 @@ LID_BC = (("Dirchilet", "Dirchilet"), ("Controllable", "Dirchilet"),
 MIXED_BC = (("Neumann", "Dirchilet"), ("Controllable", "Neumann"),
             ("Dirchilet", "Controllable"), ("Neumann", "Neumann"))
 
-# Published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside the
-# tensor cores, and device memory. A kernel's bound is the larger of its
-# operations over the first and its bytes over the second.
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense): float32 outside
+# the tensor cores, TF32 and bf16 on them, and device memory. A kernel's bound
+# is the larger of its operations over the rates of the units that run them and
+# its bytes over the memory rate.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_MEMORY_BYTES_PER_S = 3.35e12
+# the tensor-core products of one spectral product in each precision, and
+# their rate: 3xTF32, three bf16 (head and tail), one bf16
+NS_PRODUCTS = {"highest": (3, PEAK_TF32_FLOPS), "high": (3, PEAK_BF16_FLOPS),
+               "default": (1, PEAK_BF16_FLOPS)}
 
 
 def log(*args):
@@ -356,13 +371,18 @@ def _max_err(name, got, want, rtol, atol):
     return float(err.max())
 
 
-def interval_case(torch, label, env, t0_range, gen, u_fn, act_scale,
-                  beta_spread=0.0, u_tol=U_TOL):
-    """One interval through the kernel and through the plain version, on the
-    same inputs on the card. ``beta_spread`` adds a per-env U(-spread, spread)
-    part to the env's plant parameter. Returns (max abs err of u_out, inputs)."""
-    from pdecontrolgym_tpu_torch.ops import interval1d
+def flat_noisy(B, nx, gen):
+    """Rows of noise of order 0.1 around a U(1, 10) level an env."""
+    import torch
 
+    h = 1 + 9 * torch.rand(B, 1, generator=gen, device=gen.device)
+    return (h + 0.1 * torch.randn(B, nx, generator=gen, device=gen.device)).contiguous()
+
+
+def _interval_inputs(torch, env, t0_range, gen, u_fn, act_scale, beta_spread):
+    """The arguments of one interval of ``env`` for NUM_ENVS envs: rows from
+    ``u_fn``, the env's plant parameter plus a per-env U(-spread, spread)
+    part, U(-act_scale, act_scale) actions, clocks drawn from ``t0_range``."""
     spec, ctrl_transform = env.interval_spec()
     B, nx, dev = NUM_ENVS, env.state_dim, env.device
     u = u_fn(B, nx, gen)
@@ -374,7 +394,19 @@ def interval_case(torch, label, env, t0_range, gen, u_fn, act_scale,
     ctrl = ctrl_transform(actions)[:, None].contiguous()
     lo, hi = t0_range
     t0 = torch.randint(lo, hi + 1, (B, 1), generator=gen, device=dev, dtype=torch.int32)
+    return spec, u, beta, ctrl, t0
 
+
+def interval_case(torch, label, env, t0_range, gen, u_fn, act_scale,
+                  beta_spread=0.0, u_tol=U_TOL):
+    """One interval through the kernel and through the plain version, on the
+    same inputs on the card. ``beta_spread`` adds a per-env U(-spread, spread)
+    part to the env's plant parameter. Returns (max abs err of u_out, inputs)."""
+    from pdecontrolgym_tpu_torch.ops import interval1d
+
+    spec, u, beta, ctrl, t0 = _interval_inputs(torch, env, t0_range, gen, u_fn, act_scale,
+                                               beta_spread)
+    B, nx = u.shape
     before = interval1d.LAUNCHES
     k_out = interval1d.interval(spec, u, beta, ctrl, t0)
     torch.cuda.synchronize()
@@ -402,10 +434,6 @@ def interval_case(torch, label, env, t0_range, gen, u_fn, act_scale,
 
 def phase_kernel(torch, device):
     gen = torch.Generator(device=device).manual_seed(0)
-
-    def flat_noisy(B, nx, g):
-        h = 1 + 9 * torch.rand(B, 1, generator=g, device=device)
-        return (h + 0.1 * torch.randn(B, nx, generator=g, device=device)).contiguous()
 
     def sine_noisy(B, nx, g):
         x = torch.linspace(0, 1, nx, device=device)
@@ -729,9 +757,11 @@ def ns_kernel_case(torch, label, spec, B, gen, device, track, level=0.0):
         _max_err(f"{label} tsum (plain)", ktsum, p_out[3],
                  NS_TSUM_PLAIN_RTOL * NS_PRECISION_BAND[spec.spectral_precision], 0.0)
         note = f" tsum={e_own:.3e} (of {float(own.abs().max()):.3e})"
+    share = max(e / (atol * x) for e, x in zip(errs, scales))
     log(f"[ns_kernel] {label}: B={B} {spec.ny}x{spec.nx} {spec.spectral_precision} "
         f"max_abs_err u'={errs[0]:.3e} v'={errs[1]:.3e} p={errs[2]:.3e} "
-        f"(bands {', '.join(f'{atol * x:.1e}' for x in scales)}){note}")
+        f"(bands {', '.join(f'{atol * x:.1e}' for x in scales)}; largest share of its "
+        f"band {share:.3f}){note}")
     return max(errs[:2]), (spec,) + inputs
 
 
@@ -787,6 +817,9 @@ def phase_ns_kernel(torch, device):
                    track=False)
     ns_kernel_case(torch, "mixed", _ns_spec(100, 72, MIXED_BC), 64, gen, device, track=True)
     for precision in ("high", "default"):
+        ns_kernel_case(torch, "lid, a fresh episode's fields",
+                       _ns_spec(64, 64, precision=precision), NUM_ENVS, gen, device,
+                       track=True, level=5.0)
         ns_kernel_case(torch, "lid", _ns_spec(64, 64, precision=precision), NUM_ENVS, gen,
                        device, track=True)
         ns_kernel_case(torch, "mixed", _ns_spec(128, 128, MIXED_BC, precision), 64, gen,
@@ -869,6 +902,25 @@ def phase_ns(torch, device):
         f"{[e + 1 for e in ends]}, mean returns "
         f"{outs.reward[:steps].sum(0).mean().item():.4f} and "
         f"{outs.reward[steps:].sum(0).mean().item():.4f}")
+
+    # the reduced precisions' drift over a whole episode against "highest",
+    # reported and not gated: 256 envs of the ns_fast row from one seed, the
+    # frame after 248 steps and the returns
+    frames, returns = {}, {}
+    for precision in ("highest", "high", "default"):
+        run = ns_setup(torch, device, spectral_precision=precision)
+        frames[precision], outs, _ = run_ns_episode(torch, run, 256, 1, seed=10,
+                                                    num_steps=steps - 1)
+        returns[precision] = outs.reward.sum(0)
+    scale = float(frames["highest"].abs().max())
+    for precision in ("high", "default"):
+        d_frame = float((frames[precision] - frames["highest"]).abs().max())
+        d_return = float(((returns[precision] - returns["highest"]).abs()
+                          / returns["highest"].abs()).max())
+        log(f"[ns] drift of {precision!r} against 'highest' after 248 steps, 256 envs "
+            f"(reported, not gated): max |frame difference| {d_frame:.3e} "
+            f"({d_frame / scale:.3e} of max |frame| {scale:.3e}), largest relative return "
+            f"difference {d_return:.3e}")
     return launches
 
 
@@ -1594,22 +1646,32 @@ def interval_episode_times(torch, device, card, backend):
     interval1d.LAUNCHES = launches_before  # timing launches do not count
 
 
-def ns_bound(spec, num_envs, track):
+def ns_bound(spec, num_envs, track, tensor_cores=True):
     """The least time the card could take for one projection step: the bytes
     it must move (u, v, action in; u', v', p out; the target once and a sum an
-    env with the tracking sum) over the memory rate, against its float32
-    operations over the float32 peak. Operations, counted from the formulae in
-    ops/ns_fused.py: the four products, 2*ny*nx*(ny + nx) twice over; a cell,
-    18 for each predictor (two differences 2 each, the Laplacian 6, the
-    combination 8), 6 for g, 1 for the mode scale, 8 for the corrector, 6 for
-    the tracking sum. Returns (bound_ms, "bytes" or "operations", bytes,
-    operations)."""
+    env with the tracking sum) over the memory rate, against its operations
+    over the rates of the units that run them. Operations, counted from the
+    formulae in ops/ns_fused.py: the four products, 2*ny*nx*(ny + nx) twice
+    over, each run on the tensor cores as NS_PRODUCTS says for the precision
+    (three TF32 products at 495 TFLOP/s for "highest"); a cell, 18 for each
+    predictor (two differences 2 each, the Laplacian 6, the combination 8), 6
+    for g, 1 for the mode scale, 8 for the corrector, 6 for the tracking sum,
+    at the float32 peak. ``tensor_cores=False`` counts the products once at the
+    float32 peak, as the bound of the scalar kernel before them was counted.
+    Returns (bound_ms, "bytes" or "operations", bytes, operations)."""
     ny, nx = spec.ny, spec.nx
     cells = ny * nx
     nbytes = 4 * (num_envs * (5 * cells + 1 + int(track)) + 2 * cells * int(track))
-    flops = num_envs * (4 * cells * (ny + nx) + cells * (36 + 6 + 1 + 8 + 6 * int(track)))
+    products = num_envs * 4 * cells * (ny + nx)
+    rest = num_envs * cells * (36 + 6 + 1 + 8 + 6 * int(track))
+    if tensor_cores:
+        count, rate = NS_PRODUCTS[spec.spectral_precision]
+        flops = count * products + rest
+        by_ops = (count * products / rate + rest / PEAK_FP32_FLOPS) * 1e3
+    else:
+        flops = products + rest
+        by_ops = flops / PEAK_FP32_FLOPS * 1e3
     by_bytes = nbytes / PEAK_MEMORY_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_FP32_FLOPS * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations"), \
         nbytes, flops
 
@@ -1625,13 +1687,16 @@ def ns_kernel_times(torch, device, inputs, card):
         dev, _ = device_ms(torch, call, "ns_step_kernel")
         p = cuda_ms(torch, lambda: ns_fused.ns_step_plain(spec, *tensors))
         bound, bound_by, nbytes, flops = ns_bound(spec, tensors[0].shape[0], True)
+        old, old_by, _, _ = ns_bound(spec, tensors[0].shape[0], True, tensor_cores=False)
         step_ms[name] = {"ms": k, "plain_ms": p, "bound_ms": bound,
                          "bound_by": bound_by, "library_ms": None}
         log(f"[times] one {name} projection step B={tensors[0].shape[0]}: kernel {k:.4f} "
             f"ms per call (20 back to back), {dev:.4f} ms on the device "
             f"(torch.profiler); plain {p:.4f} ms; bound {bound:.5f} ms by {bound_by} "
-            f"({nbytes} bytes, {flops} operations), share of the bound reached "
-            f"{bound / dev:.3f}; no single PyTorch call computes the step ({card})")
+            f"({nbytes} bytes, {flops} operations, the products on the tensor cores), "
+            f"share of the bound reached {bound / dev:.3f}; the bound with the products "
+            f"at the float32 peak {old:.5f} ms by {old_by}, share {old / dev:.3f}; no single "
+            f"PyTorch call computes the step ({card})")
 
     # the four products of the plain spectral solve alone, as torch.matmul
     spec, u = inputs["ns 64x64"][0], inputs["ns 64x64"][1]
@@ -1699,7 +1764,120 @@ def ns_eager_times(torch, device, card):
         f"{NUM_ENVS} envs ({card})")
 
 
+# -- comparing copies of the port ---------------------------------------------------
+
+
+def time_kernels(torch, device):
+    """B5 and B6 of the package this process imported, alone at their main
+    paths' shapes: B5 one interval of the implicit bench row (4096 envs,
+    n=257, S=25, theta=0.5); B6 one step at 4096 x 64x64 in the three
+    precisions and at 1024 x 128x128, lid-driven cavity, tracking sum, from a
+    fresh episode's fields. Returns {name: {"ms", "max_abs_err"}}: ms per call
+    of 20 back to back (CUDA events, median of 5), and the largest difference
+    from the plain version on the same inputs, reported and not judged (a copy
+    compared may be a diagnostic that skips work)."""
+    from pdecontrolgym_tpu_torch.ops import interval1d, ns_fused
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    env = rd_implicit_setup(torch, device)[0]
+    nt, S = env.config.nt, env.config.sample_rate
+    args = _interval_inputs(torch, env, (0, nt - 1 - S), gen, flat_noisy, 1.0, 5.0)
+    err = (interval1d.interval(*args)[0] - interval1d.interval_plain(*args)[0]).abs().max()
+    out = {"b5": {"ms": cuda_ms(torch, lambda: interval1d.interval(*args), runs=5, calls=20),
+                  "max_abs_err": float(err)}}
+    for name, n, B, precision in (("b6_64", 64, NUM_ENVS, "highest"),
+                                  ("b6_64_high", 64, NUM_ENVS, "high"),
+                                  ("b6_64_default", 64, NUM_ENVS, "default"),
+                                  ("b6_128", 128, 1024, "highest")):
+        spec = _ns_spec(n, n, precision=precision)
+        tensors = _ns_inputs(torch, spec, B, gen, device, track=True, level=5.0)
+        got, want = ns_fused.ns_step(spec, *tensors), ns_fused.ns_step_plain(spec, *tensors)
+        err = max(float((g - w).abs().max()) for g, w in zip(got[:2], want[:2]))
+        out[name] = {"ms": cuda_ms(torch, lambda: ns_fused.ns_step(spec, *tensors),
+                                   runs=5, calls=20),
+                     "max_abs_err": err}
+    return out
+
+
+def compare(roots):
+    """``python3 chip_smoke.py --compare ROOT [ROOT ...]``: time B5 and B6
+    (:func:`time_kernels`) of several copies of the port on one card. Each
+    ROOT holds a ``pdecontrolgym_tpu_torch`` package (``.`` is this
+    checkout): an unpacked older commit, or a copy with one design step taken
+    out. The roots are built first, all at once, each with the compiler's
+    register and spill counts; then each is timed in a process of its own in
+    the order given (give a root first and last to see the card drift).
+    Prints a line for each root and kernel, the card's name and power limit,
+    and last one JSON object with every number."""
+    import re
+
+    import torch
+
+    card = phase_device(torch)
+    build = ("import sys; sys.path.insert(0, sys.argv[1]); "
+             "from pdecontrolgym_tpu_torch.ops import _build; _build.build(verbose=True)")
+    jobs = {r: subprocess.Popen([sys.executable, "-c", build, os.path.abspath(r)],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in dict.fromkeys(roots)}
+    for r, proc in jobs.items():
+        text = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"{r}: the build failed\n{text[-4000:]}")
+        # registers and spilled bytes of the B6 instances and of B5 at K=9 (n=257)
+        regs, spills = {}, 0
+        for chunk in text.split("Compiling entry function")[1:]:
+            name = re.search(r"(ns_step_kernel|pcr_interval_kernel)ILi(\d+)E(Lb([01])E)?",
+                             chunk)
+            used = re.search(r"Used (\d+) registers", chunk)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
+            n_spill = int(spill.group(1)) + int(spill.group(2)) if spill else 0
+            spills += n_spill
+            if name and used and (name.group(1) == "ns_step_kernel" or name.group(2) == "9"):
+                big = f",{name.group(4)}" if name.group(3) else ""
+                regs[f"{name.group(1)}<{name.group(2)}{big}>"] = (
+                    f"{used.group(1)} registers, {n_spill} B spilled")
+        log(f"[compare] {r}: built; {regs}; {spills} bytes of spills in all")
+    results = []
+    for r in roots:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-root", r],
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{r}: the timing failed\n{proc.stderr[-4000:]}")
+        numbers = json.loads(proc.stdout.strip().splitlines()[-1])
+        results.append({"root": r, **numbers})
+        for name, v in numbers.items():
+            log(f"[compare] {r} {name}: {v['ms']:.4f} ms per call (20 back to back, CUDA "
+                f"events, median of 5), max_abs_err against the plain version "
+                f"{v['max_abs_err']:.3e} ({card})")
+    print(card, flush=True)
+    print(json.dumps({"card": card, "results": results}), flush=True)
+
+
+def time_root(root):
+    """The child of :func:`compare`: import the package under ``root``, time
+    its kernels, print them as one JSON object."""
+    import importlib
+
+    import torch
+
+    sys.path.insert(0, os.path.abspath(root))
+    pkg = importlib.import_module(PKG)
+    where = os.path.dirname(os.path.dirname(os.path.abspath(pkg.__file__)))
+    if where != os.path.abspath(root):
+        raise RuntimeError(f"{PKG} imported from {where}, not from {root}")
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(json.dumps(time_kernels(torch, device)), flush=True)
+
+
 def main():
+    if sys.argv[1:2] == ["--compare"] and len(sys.argv) > 2:
+        return compare(sys.argv[2:])
+    if sys.argv[1:2] == ["--time-root"] and len(sys.argv) == 3:
+        return time_root(sys.argv[2])
+    if len(sys.argv) > 1:
+        raise SystemExit("usage: python3 chip_smoke.py [--compare ROOT [ROOT ...]]")
     modules_at_start = set(sys.modules)
     import torch
 

@@ -17,32 +17,39 @@
 // right-hand side d, runs the steps reductions
 // d[i] += alpha[i]*d[i-s] + beta_k[i]*d[i+s], and scales by 1/b.
 //
-// Design. One warp per env, up to eight warps a block. Everything of an env
-// lives in the warp's part of dynamic shared memory: 2*steps factor rows, 1/b,
-// eb, and six work rows of n floats (26 rows, 26.7 KB at n = 257; eight warps
-// are 214 KB of the 227 KB a block may use, so one block a SM). The work rows
-// hold (a, b, c) twice during the elimination and then the state row and two
-// right-hand-side rows. Lane l owns the points l, l+32, l+64, ..., so that the
-// lanes of a warp read consecutive words whatever the stride: no bank
-// conflicts. The state is read from device memory once and written once; the
-// kernel is bound by shared-memory traffic (per point and reduction step two
-// factor loads, three loads of d and one store), not by device memory or
-// arithmetic, and by the latency of the dependent rounds at eight warps a SM.
+// What bounds it. The state is read from device memory once and written once
+// an interval; the work is S * steps dependent rounds of a few operations a
+// point, so the bound is the operations (interval_bound in chip_smoke.py), and
+// what the card can reach is set by how much of the rounds' latency the SM
+// hides.
+//
+// Design. One warp per env; lane l owns the K = ceil(n / 32) points l, l+32,
+// l+64, ... (K <= 16, a template parameter) and keeps the state row, the
+// right-hand side d, 1/b and eb in registers for the whole interval. Points at
+// or past n are padding: d and the factors are zero there, b one, so a read
+// past the row's end gives the value the plain version's zero (one for b) fill
+// gives. A round of stride s < 32 gets d[i-s] and d[i+s] by one __shfl_sync
+// a register from lane (l -+ s) & 31; the lanes whose neighbour wraps to the
+// next point group take the shuffled value of register k -+ 1 instead (a
+// select). A round of stride s >= 32 is a register index, d[k -+ s/32]. The
+// rounds are unrolled (s is a compile-time constant), so no d goes through
+// shared memory and no barrier separates the rounds. The elimination runs the
+// same way on a, b, c in registers. Only the factor rows stay in shared memory,
+// one float2 (alpha, beta_k) a point and round, written and later read by the
+// same lane (no barrier): 20.3 KB an env at n = 257, so 11 envs a SM, in
+// blocks of as many warps as fit one SM.
 //
 // Points where this could go wrong, and what the kernel does:
-// 1. A reduction step reads d[i-s] and d[i+s] as they were before the step.
-//    d is double-buffered: a step reads one row and writes the other, with
-//    __syncwarp() before the rows swap. The elimination does the same with
-//    its three rows.
-// 2. Reads past the row's ends are zero (one for b), by an index test; the
-//    TPU kernel's identity padding rows give the same values.
-// 3. Rounding. Built with -fmad=false and IEEE division; the scalars arrive
+// 1. A reduction step reads d[i-s] and d[i+s] as they were before the step:
+//    the shuffles and register reads of a round all come before its writes.
+// 2. Rounding. Built with -fmad=false and IEEE division; the scalars arrive
 //    rounded to float32 where the TPU body rounds them (2F, -th*F, 1-th,
 //    (1-th)*F formed in double and rounded once). Each expression keeps the
-//    plain version's association.
-// 4. th = 1 has no eb row and no stencil: d = u on the kept rows.
-// 5. Neumann control reads u[n-2] before the sub-step writes the row.
-// 6. Fast and masked paths per env, norm slots and the boundary sum are as in
+//    plain version's association, so the state equals interval_plain's to the
+//    bit; the norms are sums over the row in another order.
+// 3. th = 1 has no eb and no stencil: d = u on the kept rows.
+// 4. Neumann control reads u[n-2] before the sub-step writes the row.
+// 5. Fast and masked paths per env, norm slots and the boundary sum are as in
 //    interval1d.cu.
 
 #include "interval1d_common.cuh"
@@ -51,8 +58,8 @@ namespace {
 
 using namespace pdecg;
 
-constexpr int kMaxWarpsPerBlock = 8;
 constexpr int kMaxSteps = 9;                  // ceil(log2 kMaxNx)
+constexpr int kMaxPerLane = kMaxNx / 32;      // K at most
 constexpr size_t kMaxDynamicSmem = 232448;    // 227 KB a block on sm_90
 
 struct PcrParams : IntervalArgs {
@@ -61,77 +68,141 @@ struct PcrParams : IntervalArgs {
   float dt, two_f, th, off, omth, omth_f, dx;
 };
 
-__host__ __device__ inline int rows_per_env(int steps, int has_eb) {
-  return 2 * steps + 1 + has_eb + 6;
+// Up to 10 points a lane a block may hold 16 warps (the registers of 512
+// threads); above, 8.
+#define PCR_MAX_WARPS(K) ((K) <= 10 ? 16 : 8)
+
+// out[k] = x at point (l + 32k) - s, `fill` below point 0; s = 2^R
+template <int K, int R>
+__device__ __forceinline__ void from_below(const float (&x)[K], float (&out)[K], int lane,
+                                           float fill) {
+  constexpr int s = 1 << R;
+  if constexpr (s < 32) {
+    float sh[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) sh[k] = __shfl_sync(kFull, x[k], (lane - s) & 31);
+    const bool wrap = lane < s;
+#pragma unroll
+    for (int k = 0; k < K; ++k) out[k] = wrap ? (k > 0 ? sh[k - 1] : fill) : sh[k];
+  } else {
+    constexpr int m = s / 32;
+#pragma unroll
+    for (int k = 0; k < K; ++k) out[k] = k >= m ? x[k - m] : fill;
+  }
 }
 
-__global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
+// out[k] = x at point (l + 32k) + s, `fill` past the last register
+template <int K, int R>
+__device__ __forceinline__ void from_above(const float (&x)[K], float (&out)[K], int lane,
+                                           float fill) {
+  constexpr int s = 1 << R;
+  if constexpr (s < 32) {
+    float sh[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) sh[k] = __shfl_sync(kFull, x[k], (lane + s) & 31);
+    const bool wrap = lane + s >= 32;
+#pragma unroll
+    for (int k = 0; k < K; ++k) out[k] = wrap ? (k + 1 < K ? sh[k + 1] : fill) : sh[k];
+  } else {
+    constexpr int m = s / 32;
+#pragma unroll
+    for (int k = 0; k < K; ++k) out[k] = k + m < K ? x[k + m] : fill;
+  }
+}
+
+// Elimination rounds R .. steps-1 on (a, b, c); writes the factor rows
+template <int K, int R>
+__device__ __forceinline__ void eliminate(float (&a)[K], float (&b)[K], float (&c)[K],
+                                          float2* fac, int lane, int n, int steps) {
+  if constexpr (R < kMaxSteps) {
+    if (R >= steps) return;
+    constexpr int NP = 32 * K;
+    float am[K], bm[K], cm[K], ap[K], bp[K], cp[K];
+    from_below<K, R>(a, am, lane, 0.f);
+    from_below<K, R>(b, bm, lane, 1.f);
+    from_below<K, R>(c, cm, lane, 0.f);
+    from_above<K, R>(a, ap, lane, 0.f);
+    from_above<K, R>(b, bp, lane, 1.f);
+    from_above<K, R>(c, cp, lane, 0.f);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const bool in = lane + 32 * k < n;
+      const float alpha = in ? -a[k] / bm[k] : 0.f;
+      const float beta_k = in ? -c[k] / bp[k] : 0.f;
+      fac[R * NP + 32 * k] = make_float2(alpha, beta_k);
+      b[k] = in ? b[k] + alpha * cm[k] + beta_k * ap[k] : 1.f;
+      a[k] = in ? alpha * am[k] : 0.f;
+      c[k] = in ? beta_k * cp[k] : 0.f;
+    }
+    eliminate<K, R + 1>(a, b, c, fac, lane, n, steps);
+  }
+}
+
+// Reduction rounds R .. steps-1 on the right-hand side d
+template <int K, int R>
+__device__ __forceinline__ void reduce(float (&d)[K], const float2* fac, int lane,
+                                       int steps) {
+  if constexpr (R < kMaxSteps) {
+    if (R >= steps) return;
+    constexpr int NP = 32 * K;
+    float dm[K], dp[K];
+    from_below<K, R>(d, dm, lane, 0.f);
+    from_above<K, R>(d, dp, lane, 0.f);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float2 f = fac[R * NP + 32 * k];
+      d[k] = d[k] + f.x * dm[k] + f.y * dp[k];
+    }
+    reduce<K, R + 1>(d, fac, lane, steps);
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(PCR_MAX_WARPS(K) * 32)
 pcr_interval_kernel(const PcrParams p) {
-  extern __shared__ float smem[];
+  extern __shared__ float2 smem[];
+  constexpr int NP = 32 * K;  // the padded row
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int env = blockIdx.x * p.warps + warp;
   if (env >= p.B) return;  // whole warp: env is uniform across it
   const int n = p.nx;
   const size_t row = static_cast<size_t>(env) * n;
-
-  float* fac = smem + static_cast<size_t>(warp) * rows_per_env(p.steps, p.has_eb) * n;
-  float* inv_b = fac + 2 * p.steps * n;
-  float* eb = inv_b + n;  // only with has_eb
-  float* work = inv_b + (1 + p.has_eb) * n;
+  float2* fac = smem + static_cast<size_t>(warp) * p.steps * NP + lane;
 
   // -- once per interval: eliminate (a, b, c) into the factor rows ------------
+  float inv_b[K], eb[K];
   {
-    float *a0 = work, *b0 = work + n, *c0 = work + 2 * n;
-    float *a1 = work + 3 * n, *b1 = work + 4 * n, *c1 = work + 5 * n;
-    for (int i = lane; i < n; i += 32) {
+    float a[K], b[K], c[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int i = lane + 32 * k;
       const bool keep = i >= 1 && i <= n - 2;
-      const float be = p.beta[row + i];
-      a0[i] = keep ? p.off : 0.f;
-      c0[i] = keep ? p.off : 0.f;
-      b0[i] = keep ? 1.f + p.th * (p.two_f - p.dt * be) : 1.f;
-      if (p.has_eb) eb[i] = 1.f + p.omth * (p.dt * be - p.two_f);
+      const float be = i < n ? p.beta[row + i] : 0.f;
+      a[k] = keep ? p.off : 0.f;
+      c[k] = a[k];
+      b[k] = keep ? 1.f + p.th * (p.two_f - p.dt * be) : 1.f;
+      eb[k] = 1.f + p.omth * (p.dt * be - p.two_f);
     }
-    __syncwarp();
-    for (int r = 0; r < p.steps; ++r) {
-      const int s = 1 << r;
-      float* alpha_r = fac + 2 * r * n;
-      float* beta_r = alpha_r + n;
-      for (int i = lane; i < n; i += 32) {
-        const bool lo = i - s >= 0, hi = i + s < n;
-        const float am = lo ? a0[i - s] : 0.f, bm = lo ? b0[i - s] : 1.f,
-                    cm = lo ? c0[i - s] : 0.f;
-        const float ap = hi ? a0[i + s] : 0.f, bp = hi ? b0[i + s] : 1.f,
-                    cp = hi ? c0[i + s] : 0.f;
-        const float alpha = -a0[i] / bm;
-        const float beta_k = -c0[i] / bp;
-        alpha_r[i] = alpha;
-        beta_r[i] = beta_k;
-        b1[i] = b0[i] + alpha * cm + beta_k * ap;
-        a1[i] = alpha * am;
-        c1[i] = beta_k * cp;
-      }
-      __syncwarp();
-      float* tmp;
-      tmp = a0; a0 = a1; a1 = tmp;
-      tmp = b0; b0 = b1; b1 = tmp;
-      tmp = c0; c0 = c1; c1 = tmp;
-    }
-    for (int i = lane; i < n; i += 32) inv_b[i] = 1.f / b0[i];
-    __syncwarp();  // the work rows are free from here on
+    eliminate<K, 0>(a, b, c, fac, lane, n, p.steps);
+#pragma unroll
+    for (int k = 0; k < K; ++k) inv_b[k] = 1.f / b[k];
   }
 
-  float* us = work;        // the state row
-  float* d0 = work + n;    // the right-hand side, double-buffered
-  float* d1 = work + 2 * n;
-  for (int i = lane; i < n; i += 32) us[i] = p.u[row + i];
-  __syncwarp();
+  float u[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int i = lane + 32 * k;
+    u[k] = i < n ? p.u[row + i] : 0.f;
+  }
 
   const float ctrl = p.ctrl[env];
   const int t0 = p.t0[env];
   const bool fast = t0 + p.S <= p.nt - 1;
   const bool bconst = !p.neumann;
   float* nrow = p.norms + static_cast<size_t>(env) * p.Wp;
+  // u[n-2], which Neumann control reads: lane and register
+  const int nb_lane = (n - 2) & 31, nb_reg = (n - 2) >> 5;
 
   int t = t0;
   float bsum = 0.f;
@@ -140,35 +211,39 @@ pcr_interval_kernel(const PcrParams p) {
   for (int j = 0; j < p.S; ++j) {
     const bool active = fast || t < p.nt - 1;
     if (active) {
-      const float boundary = p.neumann ? ctrl * p.dx + us[n - 2] : ctrl;
-      for (int i = lane; i < n; i += 32) {
-        float d = (i == n - 1) ? boundary : 0.f;
-        if (i >= 1 && i <= n - 2)
-          d = p.has_eb ? us[i] * eb[i] + p.omth_f * (us[i - 1] + us[i + 1]) : us[i];
-        d0[i] = d;
+      float boundary = ctrl;
+      if (p.neumann) {
+        float v = u[0];
+#pragma unroll
+        for (int k = 1; k < K; ++k) v = k == nb_reg ? u[k] : v;
+        boundary = ctrl * p.dx + __shfl_sync(kFull, v, nb_lane);
       }
-      __syncwarp();
-      float *src = d0, *dst = d1;
-      for (int r = 0; r < p.steps; ++r) {
-        const int s = 1 << r;
-        const float* alpha_r = fac + 2 * r * n;
-        const float* beta_r = alpha_r + n;
-        for (int i = lane; i < n; i += 32) {
-          const float dm = (i - s >= 0) ? src[i - s] : 0.f;
-          const float dp = (i + s < n) ? src[i + s] : 0.f;
-          dst[i] = src[i] + alpha_r[i] * dm + beta_r[i] * dp;
-        }
-        __syncwarp();
-        float* tmp = src; src = dst; dst = tmp;
+      float d[K];
+      if (p.has_eb) {
+        float um[K], up[K];
+        from_below<K, 0>(u, um, lane, 0.f);
+        from_above<K, 0>(u, up, lane, 0.f);
+#pragma unroll
+        for (int k = 0; k < K; ++k) d[k] = u[k] * eb[k] + p.omth_f * (um[k] + up[k]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < K; ++k) d[k] = u[k];
       }
-      for (int i = lane; i < n; i += 32) us[i] = src[i] * inv_b[i];
-      __syncwarp();
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int i = lane + 32 * k;
+        if (i == 0 || i >= n - 1) d[k] = i == n - 1 ? boundary : 0.f;
+      }
+      reduce<K, 0>(d, fac, lane, p.steps);
+#pragma unroll
+      for (int k = 0; k < K; ++k) u[k] = d[k] * inv_b[k];
       if (!(fast && bconst)) bsum = bsum + fabsf(boundary);
       ++t;
     }
     if (j == next_j) {
       float s = 0.f;
-      for (int i = lane; i < n; i += 32) s += us[i] * us[i];
+#pragma unroll
+      for (int k = 0; k < K; ++k) s += u[k] * u[k];
       const float nrm = sqrtf(warp_sum(s));
       if (lane == 0) nrow[j % p.Wp] = nrm;
       ++next_pos;
@@ -177,10 +252,36 @@ pcr_interval_kernel(const PcrParams p) {
   }
   if (fast && bconst) bsum = static_cast<float>(p.S) * fabsf(ctrl);
 
-  for (int i = lane; i < n; i += 32) p.u_out[row + i] = us[i];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int i = lane + 32 * k;
+    if (i < n) p.u_out[row + i] = u[k];
+  }
   if (lane == 0) {
     p.bsum[env] = bsum;
     p.t_out[env] = t;
+  }
+}
+
+template <int K>
+cudaError_t launch_pcr(const PcrParams& p, cudaStream_t stream) {
+  const size_t smem_bytes = sizeof(float2) * p.steps * 32 * K * p.warps;
+  cudaError_t err = cudaFuncSetAttribute(pcr_interval_kernel<K>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem_bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.B + p.warps - 1) / p.warps);
+  pcr_interval_kernel<K><<<grid, p.warps * 32, smem_bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int K>
+cudaError_t dispatch(int k, const PcrParams& p, cudaStream_t stream) {
+  if constexpr (K <= kMaxPerLane) {
+    if (k == K) return launch_pcr<K>(p, stream);
+    return dispatch<K + 1>(k, p, stream);
+  } else {
+    return cudaErrorInvalidValue;
   }
 }
 
@@ -189,8 +290,8 @@ pcr_interval_kernel(const PcrParams p) {
 extern "C" {
 
 // Launches one implicit interval on `stream`. Returns cudaGetLastError() after
-// the launch (0 on success), cudaErrorInvalidValue for a row whose factor rows
-// do not fit a block's shared memory; does not synchronise.
+// the launch (0 on success), cudaErrorInvalidValue for a row the kernel does
+// not take; does not synchronise.
 int interval1d_pcr_launch(const float* u, const float* beta, const float* ctrl,
                           const int* t0, float* u_out, float* norms, float* bsum,
                           int* t_out, int B, int nx, int S, int nt, int Wp,
@@ -205,27 +306,21 @@ int interval1d_pcr_launch(const float* u, const float* beta, const float* ctrl,
   if (err != cudaSuccess) return static_cast<int>(err);
   int steps = 1;
   while ((1 << steps) < nx) ++steps;  // ceil(log2 nx)
-  has_eb = has_eb ? 1 : 0;
-  const size_t env_bytes = sizeof(float) * rows_per_env(steps, has_eb) * nx;
+  const int K = (nx + 31) / 32;
+  // as many envs a block as fit one SM's shared memory, at most PCR_MAX_WARPS(K)
+  // and no more than the batch has
+  const size_t env_bytes = sizeof(float2) * steps * 32 * K;
   int warps = static_cast<int>(kMaxDynamicSmem / env_bytes);
-  if (warps > kMaxWarpsPerBlock) warps = kMaxWarpsPerBlock;
-  if (steps > kMaxSteps || warps < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (warps > PCR_MAX_WARPS(K)) warps = PCR_MAX_WARPS(K);
+  if (warps > B) warps = B;
+  if (steps > kMaxSteps || K > kMaxPerLane) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  p.neumann = neumann; p.has_eb = has_eb; p.steps = steps; p.warps = warps;
+  p.neumann = neumann; p.has_eb = has_eb ? 1 : 0; p.steps = steps; p.warps = warps;
   p.dt = dt; p.two_f = two_f; p.th = th; p.off = off; p.omth = omth;
   p.omth_f = omth_f; p.dx = dx;
-
-  const size_t smem_bytes = env_bytes * warps;
-  err = cudaFuncSetAttribute(pcr_interval_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 block(warps * 32);
-  const dim3 grid((B + warps - 1) / warps);
-  pcr_interval_kernel<<<grid, block, smem_bytes, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(dispatch<1>(K, p, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

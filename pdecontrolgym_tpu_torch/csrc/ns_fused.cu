@@ -6,71 +6,93 @@
 // Contract and semantics: pdecontrolgym_tpu_torch/ops/ns_fused.py, whose
 // ns_step_plain is the oracle this kernel is tested against.
 //
-// What bounds it. An env reads u, v and writes u', v', p: 20 bytes a cell. The
-// pressure solve P = Qy [(Qy^T G Qx) * inv] Qx^T is four dense products of
-// 2*n^3 operations each against the zero-padded DCT-II bases, 8*n operations a
-// cell: at n = 64 about 0.14 ms of float32 multiply-adds for 4096 envs against
-// 0.10 ms of memory traffic, so operations bind, a little; at n = 128 they bind
-// by 2.6 to 1.
+// What bounds it. An env reads u, v and writes u', v', p: 20 bytes a cell, 0.10
+// ms for 4096 envs at 64x64 on an H100's 3.35 TB/s. The pressure solve
+// P = Qy [(Qy^T G Qx) * inv] Qx^T is four dense products of 2*n^3 operations
+// each against the zero-padded DCT-II bases; on the tensor cores (three TF32
+// products each at "highest") they take less than the bytes, and the stencil
+// passes' float32 operations less still, so the bytes bind.
 //
-// Design. One block per env, one thread for each 4x4 tile of the grid (256
-// threads at 64x64, 1024 at 128x128, the largest grid it takes). Shared memory
-// holds two work fields and one basis, each padded to np x (np + 4) floats
-// with np = max(ny, nx) rounded up to 4, all padding zero, so the products run
-// on whole 4x4 tiles without bounds checks whatever ny and nx are. u* and v*
-// are staged through the output tensors: the block that wrote them reads them
-// back from L2, and device memory still sees each field once. Holding u* and
-// v* in shared memory too was measured and lost: at 64x64 it leaves room for
-// two blocks an SM instead of four, and the step's many short phases between
-// barriers need the other blocks to hide their latency (0.645 ms against 0.515
-// ms for 4096 envs on an H100 at 700 W).
+// Design. One block per env. Shared memory holds two work fields and one or
+// two bases, each np x np with np = max(ny, nx) rounded up to 32, all padding
+// zero, so the products run on whole tiles without bounds checks whatever ny
+// and nx are. u* and v* are staged through the output tensors: the block that
+// wrote them reads them back from L2, and device memory still sees each field
+// once (holding them in shared memory too lost: fewer blocks an SM).
 //
-// The four products. Each thread owns a 4x4 tile of the output and walks the
-// contraction index k with two 16-byte shared-memory loads and 16 fmaf a step.
-// That needs both operands k-major. The order y-forward, x-forward,
-// x-backward, y-backward gets it for free: the first two products store their
-// tiles transposed (a register tile stores as columns as cheaply as rows), so
-// every field operand is k-major when it is read, and the wrapper passes each
-// basis in both orientations (Qy, Qx, Qx^T, Qy^T, then inv), copied into the
-// one basis buffer before the product that reads it. The products use fmaf
-// explicitly; the build has no FMA contraction (-fmad=false), so the stencil
-// passes round as the plain version's separate tensor operations do.
+// The four products run on the tensor cores with warp-level mma.sync, one
+// 16 x 32 output tile a warp at a time (four m16n8 tiles), float32
+// accumulation. spectral_precision "highest" is 3xTF32: each operand x is
+// split as hi = x with its low 13 mantissa bits cleared, lo = x - hi (the
+// tensor core truncates lo to TF32), and the tile accumulates
+// lo*hi + hi*lo + hi*hi (the small terms first; lo*lo is dropped); the result
+// is within a few float32 ulps of a float32 product, not equal to
+// torch.matmul's to the bit. "high" splits each operand into a bf16 head and a
+// bf16 tail and adds the same three products on bf16 m16n8k16; "default" is
+// one bf16 product. The order y-forward, x-forward, x-backward, y-backward
+// makes every operand read in the pattern the fragments want: a left operand
+// row-major [m][k] with row stride np + 4, a right one [k][n] with np + 8 (both
+// strides make the fragment loads of a warp fall in 32 different banks); each
+// product stores its output in the role and stride the next one reads it in,
+// and the wrapper passes the bases as Qy^T, Qx, Qx^T, Qy in their roles, then
+// inv, compact (np, np) each.
 //
-// spectral_precision. "highest" multiplies float32 operands. "default" rounds
-// both operands of every product to bf16 at the load, "high" splits each into
-// a bf16 head and a bf16 tail and adds the three leading products; both
-// accumulate in float32. They are a template parameter of the operand load and
-// buy no speed here: a tensor-core mapping is later work.
+// The bases are copied into shared memory with cp.async. Where four np x
+// (np + 8) fields fit a block's shared memory (np <= 96 with 227 KB), a second
+// basis buffer lets the next product's basis load while the current product
+// runs: one barrier a product. Otherwise (128 x 128) the one buffer is
+// reloaded between products, with a barrier on each side. The launch decides
+// from the shape.
+//
+// Boundary writes. The reference writes lower, upper, left, right, and a
+// Neumann edge reads the current field's inner neighbour, so corners depend
+// on earlier writes. Where an edge of u or v is Neumann, the kernel keeps the
+// four passes with a barrier after each. Where none is, an edge write is a
+// constant (zero or the control), so the four writes differ only at the
+// corners, where the last one wins: right over left over upper over lower.
+// Writing each ring cell once with that value gives the same field, so the
+// predictor and the corrector write the ring themselves and no pass or
+// barrier is added (the lid-driven cavity of the main path), and the tracking
+// sum is taken in the corrector's loop, not in a loop of its own after the
+// last pass. On an H100 this path took 5% less time than the four passes at
+// 4096 x 64x64 and 13% less at 1024 x 128x128.
+//
+// Where nx is a multiple of 4 and every field is 16-byte aligned, the
+// predictor, the divergence and the corrector read and write u, v, u*, v*, p
+// and the targets 16 bytes at a time (four cells of a row a thread); otherwise
+// one cell at a time.
 //
 // Points where the TPU kernel could go wrong, and what this one does:
-// 1. Boundary writes. The reference writes lower, upper, left, right, and a
-//    Neumann edge reads the current field's inner neighbour, so corners depend
-//    on earlier writes. Here the four edges are four passes with a barrier
-//    after each, for u and v together; the conditions are run-time integers.
+// 1. Boundary writes: above.
 // 2. The pressure ring. The reference copies right column, row 0, left
 //    column, row ny-1 in sequence; on a field whose ring was zero that equals
 //    p[y][x] = P[clamp(y, 1, ny-2)][clamp(x, 1, nx-2)], which is what the
 //    corrector and the p output read (tests/test_torch_poisson2d.py holds the
 //    two forms equal).
 // 3. The predictor reads the old u and v of its neighbours: they come from the
-//    input tensors, which the kernel never writes (the outputs are separate
-//    tensors; carrying the state in place is left to a later measurement).
+//    input tensors, which the kernel never writes.
 // 4. The tracking sum is reduced in the block (warp shuffles, then one value a
 //    warp through shared memory): another order than the plain version's.
+// 5. The stencil passes are built without FMA contraction (-fmad=false) and
+//    keep the plain version's association, so they round as its separate
+//    tensor operations do.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxThreads = 1024;
+constexpr int kMaxThreads = 512;
+constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr size_t kMaxSharedBytes = 232448;  // 227 KB, the most a block can ask for
 
 enum Cond { kDirichlet = 0, kControllable = 1, kNeumann = 2 };
 enum Prec { kHighest = 0, kHigh = 1, kDefault = 2 };
-// the order of the (np, ld) matrices in `consts`
-enum Const { kQy = 0, kQx = 1, kQxT = 2, kQyT = 3, kInv = 4 };
+// the order of the (np, np) matrices in `consts`: the bases of the four
+// products in their roles, then the mode scale
+enum Const { kQyT = 0, kQx = 1, kQxT = 2, kQy = 3, kInv = 4 };
 
 struct Params {
   const float* u;
@@ -83,8 +105,11 @@ struct Params {
   float* v_out;
   float* p_out;
   float* tsum;  // (B, 1), or null
-  int B, ny, nx, np, ld;
+  int B, ny, nx, np;
   int bc[2][4];  // [u or v][lower, upper, left, right]
+  int neumann;   // any edge of u or v is Neumann
+  int prefetch;  // two basis buffers
+  int vec4;      // nx % 4 == 0 and every field 16-byte aligned
   // 0.5/dx, 0.5/dy, 1/(dx*dy), dt, viscosity, -dx*dy*rho/dt, dt/rho
   float chdx, chdy, cinv, dt, nu, cg, ccorr;
 };
@@ -95,10 +120,6 @@ __device__ __forceinline__ float warp_sum(float s) {
   return s;
 }
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
 __device__ __forceinline__ float predict(float f, float fxp, float fxm, float fyp,
                                          float fym, float u, float v,
                                          const Params& p) {
@@ -106,6 +127,15 @@ __device__ __forceinline__ float predict(float f, float fxp, float fxm, float fy
   const float ddyf = (fyp - fym) * p.chdy;
   const float lapf = (fxm + fym - 4.f * f + fxp + fyp) * p.cinv;
   return f + p.dt * (-u * ddxf - v * ddyf + p.nu * lapf);
+}
+
+// The value the four edge writes leave on ring cell (y, x) of field `fld`
+// when no edge is Neumann: the last edge in the order lower, upper, left,
+// right that holds the cell.
+__device__ __forceinline__ float ring_value(int y, int x, int fld, float act,
+                                            const Params& p) {
+  const int e = (x == p.nx - 1) ? 3 : (x == 0) ? 2 : (y == p.ny - 1) ? 1 : 0;
+  return p.bc[fld][e] == kControllable ? act : 0.f;
 }
 
 // The reference's edge loop on u* (f0) and v* (f1): four passes in the order
@@ -135,233 +165,446 @@ __device__ void apply_bc(float* f0, float* f1, const Params& p, float act) {
   }
 }
 
-__device__ __forceinline__ void load_matrix(float* dst, const float* src, int count4) {
-  const float4* s = reinterpret_cast<const float4*>(src);
-  float4* d = reinterpret_cast<float4*>(dst);
-  for (int i = threadIdx.x; i < count4; i += blockDim.x) d[i] = __ldg(s + i);
+// -- asynchronous copies ----------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
 }
 
-// acc[ii][jj] = sum over k < K of Lt[k][i0 + ii] * R[k][j0 + jj]; both operands
-// have row stride ld, and i0, j0 and ld are multiples of 4.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// Starts copying the compact (np, np) matrix `src` into `dst` with row stride ld
+__device__ __forceinline__ void load_basis(float* dst, const float* src, int np, int ld) {
+  const int per_row = np / 4;
+  for (int c = threadIdx.x; c < np * per_row; c += blockDim.x) {
+    const int r = c / per_row, q = c - r * per_row;
+    cp_async16(dst + r * ld + 4 * q, src + r * np + 4 * q);
+  }
+  cp_async_commit();
+}
+
+// -- tensor-core products ---------------------------------------------------------
+
+// x = hi + lo: hi is x with its low 13 mantissa bits cleared (a TF32 value),
+// lo = x - hi exactly. lo goes to the tensor core as a float32 bit pattern,
+// whose low 13 bits the TF32 product ignores. Two full-rate instructions an
+// operand, where cvt.rna.tf32.f32 would take more.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo_col, hi_col);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// (x0, x1) as bf16 pairs: the head, and the tail x - head
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
+}
+
+// C = A * B (then * inv, elementwise, where inv is given): A row-major [m][k]
+// with row stride lda, B [k][n] with row stride ldb, C row-major with row
+// stride ldc, all np x np. Warp w takes the 16 x 32 output tiles w, w + nwarps,
+// ...; no barrier inside.
 template <int PREC>
-__device__ __forceinline__ void product(const float* Lt, const float* R, int K, int ld,
-                                        int i0, int j0, float (&acc)[4][4]) {
+__device__ void product(const float* A, int lda, const float* B, int ldb, float* C,
+                        int ldc, const float* inv, int np) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int tiles_n = np / 32, ntiles = (np / 16) * tiles_n;
+  for (int tile = warp; tile < ntiles; tile += nwarps) {
+    const int m0 = 16 * (tile / tiles_n), n0 = 32 * (tile - (tile / tiles_n) * tiles_n);
+    const float* a_lo_row = A + (m0 + g) * lda;  // rows m0 + g and m0 + g + 8
+    const float* a_hi_row = a_lo_row + 8 * lda;
+    float acc[4][4];
 #pragma unroll
-  for (int ii = 0; ii < 4; ++ii)
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) acc[ii][jj] = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    const float4 a4 = *reinterpret_cast<const float4*>(Lt + k * ld + i0);
-    const float4 b4 = *reinterpret_cast<const float4*>(R + k * ld + j0);
-    float a[4] = {a4.x, a4.y, a4.z, a4.w};
-    float b[4] = {b4.x, b4.y, b4.z, b4.w};
+      for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
     if (PREC == kHighest) {
+#pragma unroll 2
+      for (int k0 = 0; k0 < np; k0 += 8) {
+        uint32_t ah[4], al[4];
+        split_tf32(a_lo_row[k0 + t], ah[0], al[0]);
+        split_tf32(a_hi_row[k0 + t], ah[1], al[1]);
+        split_tf32(a_lo_row[k0 + t + 4], ah[2], al[2]);
+        split_tf32(a_hi_row[k0 + t + 4], ah[3], al[3]);
+        const float* b0 = B + (k0 + t) * ldb + n0 + g;
 #pragma unroll
-      for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) acc[ii][jj] = fmaf(a[ii], b[jj], acc[ii][jj]);
-    } else if (PREC == kDefault) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        a[q] = bf16_round(a[q]);
-        b[q] = bf16_round(b[q]);
-      }
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) acc[ii][jj] = fmaf(a[ii], b[jj], acc[ii][jj]);
-    } else {
-      float al[4], bl[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float ah = bf16_round(a[q]);
-        al[q] = bf16_round(a[q] - ah);
-        a[q] = ah;
-        const float bh = bf16_round(b[q]);
-        bl[q] = bf16_round(b[q] - bh);
-        b[q] = bh;
-      }
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          float s = fmaf(a[ii], b[jj], acc[ii][jj]);
-          s = fmaf(a[ii], bl[jj], s);
-          acc[ii][jj] = fmaf(al[ii], b[jj], s);
+        for (int j = 0; j < 4; ++j) {
+          uint32_t bh[2], bl[2];
+          split_tf32(b0[8 * j], bh[0], bl[0]);
+          split_tf32(b0[4 * ldb + 8 * j], bh[1], bl[1]);
+          mma_tf32(acc[j], al, bh);
+          mma_tf32(acc[j], ah, bl);
+          mma_tf32(acc[j], ah, bh);
         }
+      }
+    } else {
+      for (int k0 = 0; k0 < np; k0 += 16) {
+        const float2 x0 = *reinterpret_cast<const float2*>(a_lo_row + k0 + 2 * t);
+        const float2 x1 = *reinterpret_cast<const float2*>(a_hi_row + k0 + 2 * t);
+        const float2 x2 = *reinterpret_cast<const float2*>(a_lo_row + k0 + 2 * t + 8);
+        const float2 x3 = *reinterpret_cast<const float2*>(a_hi_row + k0 + 2 * t + 8);
+        uint32_t ah[4], al[4];
+        if (PREC == kDefault) {
+          ah[0] = pack_bf16(x0.x, x0.y); ah[1] = pack_bf16(x1.x, x1.y);
+          ah[2] = pack_bf16(x2.x, x2.y); ah[3] = pack_bf16(x3.x, x3.y);
+        } else {
+          split_bf16(x0.x, x0.y, ah[0], al[0]); split_bf16(x1.x, x1.y, ah[1], al[1]);
+          split_bf16(x2.x, x2.y, ah[2], al[2]); split_bf16(x3.x, x3.y, ah[3], al[3]);
+        }
+        const float* b0 = B + (k0 + 2 * t) * ldb + n0 + g;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float* bj = b0 + 8 * j;
+          uint32_t bh[2], bl[2];
+          if (PREC == kDefault) {
+            bh[0] = pack_bf16(bj[0], bj[ldb]);
+            bh[1] = pack_bf16(bj[8 * ldb], bj[9 * ldb]);
+            mma_bf16(acc[j], ah, bh);
+          } else {
+            split_bf16(bj[0], bj[ldb], bh[0], bl[0]);
+            split_bf16(bj[8 * ldb], bj[9 * ldb], bh[1], bl[1]);
+            mma_bf16(acc[j], al, bh);
+            mma_bf16(acc[j], ah, bl);
+            mma_bf16(acc[j], ah, bh);
+          }
+        }
+      }
+    }
+    // c0, c1 at (m0 + g, col), (m0 + g, col + 1); c2, c3 eight rows down
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + 8 * j + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + g + 8 * h;
+        float2 c = make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+        if (inv != nullptr) {
+          const float2 s = __ldg(reinterpret_cast<const float2*>(inv + row * np + col));
+          c.x = c.x * s.x;
+          c.y = c.y * s.y;
+        }
+        *reinterpret_cast<float2*>(C + row * ldc + col) = c;
+      }
     }
   }
 }
 
-// C[i0 + ii][j0 + jj] = acc[ii][jj]
-__device__ __forceinline__ void store_tile(float* C, int ld, int i0, int j0,
-                                           const float (&acc)[4][4]) {
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii)
-    *reinterpret_cast<float4*>(C + (i0 + ii) * ld + j0) =
-        make_float4(acc[ii][0], acc[ii][1], acc[ii][2], acc[ii][3]);
+// -- the step ---------------------------------------------------------------------
+
+// One cell of the predictor: the new value of field `fld` at (y, x) from its
+// centre and neighbours and the cell's u and v
+__device__ __forceinline__ float predictor_cell(int y, int x, int fld, float f, float fxp,
+                                                float fxm, float fyp, float fym, float uc,
+                                                float vc, float act, const Params& p) {
+  const bool interior = y >= 1 && y <= p.ny - 2 && x >= 1 && x <= p.nx - 2;
+  if (interior) return predict(f, fxp, fxm, fyp, fym, uc, vc, p);
+  return p.neumann ? f : ring_value(y, x, fld, act, p);
 }
 
-// C[j0 + jj][i0 + ii] = acc[ii][jj]
-__device__ __forceinline__ void store_tile_transposed(float* C, int ld, int i0, int j0,
-                                                      const float (&acc)[4][4]) {
-#pragma unroll
-  for (int jj = 0; jj < 4; ++jj)
-    *reinterpret_cast<float4*>(C + (j0 + jj) * ld + i0) =
-        make_float4(acc[0][jj], acc[1][jj], acc[2][jj], acc[3][jj]);
-}
-
-template <int PREC>
-__global__ void __launch_bounds__(kMaxThreads) ns_step_kernel(const Params p) {
-  extern __shared__ __align__(16) float smem[];
-  const int ny = p.ny, nx = p.nx, ld = p.ld;
-  const int msize = p.np * ld;
-  const int cells = ny * nx;
+__device__ void predictor(const float* u, const float* v, float* us, float* vs, float act,
+                          const Params& p) {
+  const int ny = p.ny, nx = p.nx, cells = ny * nx;
   const int tid = threadIdx.x, nthr = blockDim.x;
+  if (p.vec4) {
+    // four cells of a row a thread: 16-byte loads of the row and the rows
+    // above and below, one word each from the neighbouring groups
+#pragma unroll 2
+    for (int idx = 4 * tid; idx < cells; idx += 4 * nthr) {
+      const int y = idx / nx, x0 = idx - y * nx;
+      const bool inner_row = y >= 1 && y <= ny - 2;
+      const float4 u4 = __ldg(reinterpret_cast<const float4*>(u + idx));
+      const float4 v4 = __ldg(reinterpret_cast<const float4*>(v + idx));
+      const int dy = inner_row ? nx : 0;
+      const float4 uyp = __ldg(reinterpret_cast<const float4*>(u + idx + dy));
+      const float4 uym = __ldg(reinterpret_cast<const float4*>(u + idx - dy));
+      const float4 vyp = __ldg(reinterpret_cast<const float4*>(v + idx + dy));
+      const float4 vym = __ldg(reinterpret_cast<const float4*>(v + idx - dy));
+      const int l = x0 > 0 ? idx - 1 : idx, r = x0 + 4 < nx ? idx + 4 : idx + 3;
+      const float ul = __ldg(u + l), ur = __ldg(u + r), vl = __ldg(v + l), vr = __ldg(v + r);
+      const float uc[6] = {ul, u4.x, u4.y, u4.z, u4.w, ur};
+      const float vc[6] = {vl, v4.x, v4.y, v4.z, v4.w, vr};
+      const float uup[4] = {uyp.x, uyp.y, uyp.z, uyp.w}, udn[4] = {uym.x, uym.y, uym.z, uym.w};
+      const float vup[4] = {vyp.x, vyp.y, vyp.z, vyp.w}, vdn[4] = {vym.x, vym.y, vym.z, vym.w};
+      float un[4], vn[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int x = x0 + q;
+        un[q] = predictor_cell(y, x, 0, uc[q + 1], uc[q + 2], uc[q], uup[q], udn[q],
+                               uc[q + 1], vc[q + 1], act, p);
+        vn[q] = predictor_cell(y, x, 1, vc[q + 1], vc[q + 2], vc[q], vup[q], vdn[q],
+                               uc[q + 1], vc[q + 1], act, p);
+      }
+      *reinterpret_cast<float4*>(us + idx) = make_float4(un[0], un[1], un[2], un[3]);
+      *reinterpret_cast<float4*>(vs + idx) = make_float4(vn[0], vn[1], vn[2], vn[3]);
+    }
+  } else {
+#pragma unroll 2
+    for (int idx = tid; idx < cells; idx += nthr) {
+      const int y = idx / nx, x = idx - y * nx;
+      const bool interior = y >= 1 && y <= ny - 2 && x >= 1 && x <= nx - 2;
+      const int dxi = interior ? 1 : 0, dyi = interior ? nx : 0;
+      const float uc = __ldg(u + idx), vc = __ldg(v + idx);
+      us[idx] = predictor_cell(y, x, 0, uc, __ldg(u + idx + dxi), __ldg(u + idx - dxi),
+                               __ldg(u + idx + dyi), __ldg(u + idx - dyi), uc, vc, act, p);
+      vs[idx] = predictor_cell(y, x, 1, vc, __ldg(v + idx + dxi), __ldg(v + idx - dxi),
+                               __ldg(v + idx + dyi), __ldg(v + idx - dyi), uc, vc, act, p);
+    }
+  }
+}
+
+// One cell of the corrector. P is the solution with row stride ld; returns
+// p at (y, x) with its mirror ring and updates uo, vo in place.
+__device__ __forceinline__ float corrector_cell(int y, int x, const float* P, int ld,
+                                                float& uo, float& vo, float act,
+                                                const Params& p) {
+  const int ny = p.ny, nx = p.nx;
+  const int cy = min(max(y, 1), ny - 2), cx = min(max(x, 1), nx - 2);
+  const bool interior = cy == y && cx == x;
+  if (interior) {
+    const int xm = max(cx - 1, 1), xp = min(cx + 1, nx - 2);
+    const int ym = max(cy - 1, 1), yp = min(cy + 1, ny - 2);
+    const float dpdx = (P[cy * ld + xp] - P[cy * ld + xm]) * p.chdx;
+    const float dpdy = (P[yp * ld + cx] - P[ym * ld + cx]) * p.chdy;
+    uo = uo - p.ccorr * dpdx;
+    vo = vo - p.ccorr * dpdy;
+  } else if (!p.neumann) {
+    uo = ring_value(y, x, 0, act, p);
+    vo = ring_value(y, x, 1, act, p);
+  }
+  return P[cy * ld + cx];
+}
+
+// The corrector over u*, v* in place into u', v', and p; with no Neumann edge
+// it also returns this thread's part of the tracking sum (else 0)
+__device__ float corrector(float* us, float* vs, float* p_out, const float* P, int ld,
+                           float act, bool track, const Params& p) {
+  const int ny = p.ny, nx = p.nx, cells = ny * nx;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const bool fuse = track && !p.neumann;
+  float s = 0.f;
+  if (p.vec4) {
+#pragma unroll 2
+    for (int idx = 4 * tid; idx < cells; idx += 4 * nthr) {
+      const int y = idx / nx, x0 = idx - y * nx;
+      const float4 u4 = *reinterpret_cast<const float4*>(us + idx);
+      const float4 v4 = *reinterpret_cast<const float4*>(vs + idx);
+      float uo[4] = {u4.x, u4.y, u4.z, u4.w}, vo[4] = {v4.x, v4.y, v4.z, v4.w}, po[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        po[q] = corrector_cell(y, x0 + q, P, ld, uo[q], vo[q], act, p);
+      *reinterpret_cast<float4*>(us + idx) = make_float4(uo[0], uo[1], uo[2], uo[3]);
+      *reinterpret_cast<float4*>(vs + idx) = make_float4(vo[0], vo[1], vo[2], vo[3]);
+      *reinterpret_cast<float4*>(p_out + idx) = make_float4(po[0], po[1], po[2], po[3]);
+      if (fuse) {
+        const float4 ur = __ldg(reinterpret_cast<const float4*>(p.uref + idx));
+        const float4 vr = __ldg(reinterpret_cast<const float4*>(p.vref + idx));
+        const float urr[4] = {ur.x, ur.y, ur.z, ur.w}, vrr[4] = {vr.x, vr.y, vr.z, vr.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float du = uo[q] - urr[q], dv = vo[q] - vrr[q];
+          s = s + (du * du + dv * dv);
+        }
+      }
+    }
+  } else {
+#pragma unroll 4
+    for (int idx = tid; idx < cells; idx += nthr) {
+      const int y = idx / nx, x = idx - y * nx;
+      float uo = us[idx], vo = vs[idx];
+      p_out[idx] = corrector_cell(y, x, P, ld, uo, vo, act, p);
+      us[idx] = uo;
+      vs[idx] = vo;
+      if (fuse) {
+        const float du = uo - __ldg(p.uref + idx), dv = vo - __ldg(p.vref + idx);
+        s = s + (du * du + dv * dv);
+      }
+    }
+  }
+  return s;
+}
+
+// g = cg * (ddx(u*) + ddy(v*)) on the interior, zero on the ring and the
+// padding, into G [y][x] with row stride ld: the right operand of the first
+// product. u* and v* are read back from the outputs (L2).
+__device__ void divergence(const float* us, const float* vs, float* G, int ld,
+                           const Params& p) {
+  const int ny = p.ny, nx = p.nx, np = p.np;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  if (p.vec4) {
+    // four cells of a row a thread; nx % 4 == 0, so a group lies inside the
+    // grid or wholly in the padding
+#pragma unroll 2
+    for (int idx = 4 * tid; idx < np * np; idx += 4 * nthr) {
+      const int y = idx / np, x0 = idx - y * np;
+      float g[4] = {0.f, 0.f, 0.f, 0.f};
+      if (y >= 1 && y <= ny - 2 && x0 < nx) {
+        const int c = y * nx + x0;
+        const float4 u4 = *reinterpret_cast<const float4*>(us + c);
+        const float ul = x0 > 0 ? us[c - 1] : 0.f, ur = x0 + 4 < nx ? us[c + 4] : 0.f;
+        const float4 vp = *reinterpret_cast<const float4*>(vs + c + nx);
+        const float4 vm = *reinterpret_cast<const float4*>(vs + c - nx);
+        const float uu[6] = {ul, u4.x, u4.y, u4.z, u4.w, ur};
+        const float vup[4] = {vp.x, vp.y, vp.z, vp.w}, vdn[4] = {vm.x, vm.y, vm.z, vm.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int x = x0 + q;
+          const float dudx = (uu[q + 2] - uu[q]) * p.chdx;
+          const float dvdy = (vup[q] - vdn[q]) * p.chdy;
+          g[q] = (x >= 1 && x <= nx - 2) ? p.cg * (dudx + dvdy) : 0.f;
+        }
+      }
+      *reinterpret_cast<float4*>(G + y * ld + x0) = make_float4(g[0], g[1], g[2], g[3]);
+    }
+  } else {
+#pragma unroll 4
+    for (int idx = tid; idx < np * np; idx += nthr) {
+      const int y = idx / np, x = idx - y * np;
+      const bool interior = y >= 1 && y <= ny - 2 && x >= 1 && x <= nx - 2;
+      const int c = interior ? y * nx + x : nx + 1;  // off the interior: any valid cell
+      const float dudx = (us[c + 1] - us[c - 1]) * p.chdx;
+      const float dvdy = (vs[c + nx] - vs[c - nx]) * p.chdy;
+      G[y * ld + x] = interior ? p.cg * (dudx + dvdy) : 0.f;
+    }
+  }
+}
+
+// BIG: blocks of more than 256 threads (np > 64), one an SM, up to 128
+// registers a thread. Else blocks of up to 256: at "highest" three an SM (80
+// registers, what three blocks' shared memory allows at 64x64); the bf16
+// precisions' products need more registers, and would spill at 80, so two.
+template <int PREC, bool BIG>
+__global__ void __launch_bounds__(BIG ? kMaxThreads : 256,
+                                  BIG ? 1 : (PREC == kHighest ? 3 : 2))
+ns_step_kernel(const Params p) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float partial[kMaxWarps];
+  const int ny = p.ny, nx = p.nx, np = p.np;
+  const int lda = np + 4, ldb = np + 8;  // the strides of a left and a right operand
+  const int msize = np * ldb;
+  const int cells = ny * nx;
+  const int tid = threadIdx.x;
   const int env = blockIdx.x;
   const size_t off = static_cast<size_t>(env) * cells;
-  const float* u = p.u + off;
-  const float* v = p.v + off;
-  float* w0 = smem;
-  float* w1 = smem + msize;
-  float* bb = smem + 2 * msize;
+  float* f0 = smem;
+  float* f1 = smem + msize;
+  float* bases[2] = {smem + 2 * msize, smem + (p.prefetch ? 3 : 2) * msize};
   // u* and v*, then u' and v', live in the outputs
   float* us = p.u_out + off;
   float* vs = p.v_out + off;
   const float act = p.act[env];
-  const int nyp = (ny + 3) & ~3, nxp = (nx + 3) & ~3;
+  const float* consts = p.consts;
+  const int csize = np * np;
 
-  // predictor, from the input tensors. The stencil passes are written without
-  // branches (a ring cell reads its own address in place of a neighbour's and
-  // keeps its value by a select), so that the loads of several cells are in
-  // flight at once.
-#pragma unroll 2
-  for (int idx = tid; idx < cells; idx += nthr) {
-    const int y = idx / nx, x = idx - y * nx;
-    const bool interior = y >= 1 && y <= ny - 2 && x >= 1 && x <= nx - 2;
-    const int dxi = interior ? 1 : 0, dyi = interior ? nx : 0;
-    const float uc = __ldg(u + idx), vc = __ldg(v + idx);
-    const float un = predict(uc, __ldg(u + idx + dxi), __ldg(u + idx - dxi),
-                             __ldg(u + idx + dyi), __ldg(u + idx - dyi), uc, vc, p);
-    const float vn = predict(vc, __ldg(v + idx + dxi), __ldg(v + idx - dxi),
-                             __ldg(v + idx + dyi), __ldg(v + idx - dyi), uc, vc, p);
-    us[idx] = interior ? un : uc;
-    vs[idx] = interior ? vn : vc;
-  }
+  // the first product's basis loads while the predictor runs
+  load_basis(bases[0], consts + kQyT * csize, np, lda);
+  predictor(p.u + off, p.v + off, us, vs, act, p);
   __syncthreads();
-  apply_bc(us, vs, p, act);
+  if (p.neumann) apply_bc(us, vs, p, act);
 
-  // g = cg * (ddx(u*) + ddy(v*)) on the interior, zero on the ring and the
-  // padding, into w0; Qy into the basis buffer
-#pragma unroll 4
-  for (int idx = tid; idx < nyp * nxp; idx += nthr) {
-    const int y = idx / nxp, x = idx - y * nxp;
-    const bool interior = y >= 1 && y <= ny - 2 && x >= 1 && x <= nx - 2;
-    const int c = interior ? y * nx + x : nx + 1;  // off the interior: any valid cell
-    const float dudx = (us[c + 1] - us[c - 1]) * p.chdx;
-    const float dvdy = (vs[c + nx] - vs[c - nx]) * p.chdy;
-    w0[y * ld + x] = interior ? p.cg * (dudx + dvdy) : 0.f;
-  }
-  load_matrix(bb, p.consts + kQy * msize, msize / 4);
-  __syncthreads();
+  divergence(us, vs, f0, ldb, p);
 
-  // every product has an (nyp, nxp) output; thread t owns the 4x4 tile at
-  // rows 4*(t / (nxp/4)), columns 4*(t % (nxp/4))
-  const int tiles_x = nxp / 4;
-  const bool active = tid < tiles_x * (nyp / 4);
-  const int i0 = 4 * (tid / tiles_x), j0 = 4 * (tid % tiles_x);
-  float acc[4][4];
-
-  // T1[ky][x] = sum_y Qy[y][ky] G[y][x], stored as w1[x][ky]
-  if (active) {
-    product<PREC>(bb, w0, nyp, ld, i0, j0, acc);
-    store_tile_transposed(w1, ld, i0, j0, acc);
-  }
-  __syncthreads();
-  load_matrix(bb, p.consts + kQx * msize, msize / 4);
-  __syncthreads();
-
-  // T[ky][kx] = inv[ky][kx] * sum_x T1[ky][x] Qx[x][kx], stored as w0[kx][ky]
-  if (active) {
-    product<PREC>(w1, bb, nxp, ld, i0, j0, acc);
-    const float* inv = p.consts + kInv * msize;
+  // the four products, each with its basis in its role:
+  //   T1[ky][x] = sum_y QyT[ky][y] G[y][x]             f0 -> f1 (left operand)
+  //   T[ky][kx] = inv * sum_x T1[ky][x] Qx[x][kx]      f1 -> f0 (left operand)
+  //   E[ky][x]  = sum_kx T[ky][kx] QxT[kx][x]          f0 -> f1 (right operand)
+  //   P[y][x]   = sum_ky Qy[y][ky] E[ky][x]            f1 -> f0
+  const int kind[4] = {kQyT, kQx, kQxT, kQy};
+  const int stride[4] = {lda, ldb, ldb, lda};  // the first and last basis are left operands
 #pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
-      const float4 s = __ldg(reinterpret_cast<const float4*>(inv + (i0 + ii) * ld + j0));
-      acc[ii][0] = acc[ii][0] * s.x;
-      acc[ii][1] = acc[ii][1] * s.y;
-      acc[ii][2] = acc[ii][2] * s.z;
-      acc[ii][3] = acc[ii][3] * s.w;
+  for (int i = 0; i < 4; ++i) {
+    float* basis = bases[p.prefetch ? (i & 1) : 0];
+    cp_async_wait_all();
+    __syncthreads();
+    if (p.prefetch && i < 3)
+      load_basis(bases[(i + 1) & 1], consts + kind[i + 1] * csize, np, stride[i + 1]);
+    switch (i) {
+      case 0: product<PREC>(basis, lda, f0, ldb, f1, lda, nullptr, np); break;
+      case 1: product<PREC>(f1, lda, basis, ldb, f0, lda, consts + kInv * csize, np); break;
+      case 2: product<PREC>(f0, lda, basis, ldb, f1, ldb, nullptr, np); break;
+      default: product<PREC>(basis, lda, f1, ldb, f0, ldb, nullptr, np); break;
     }
-    store_tile_transposed(w0, ld, i0, j0, acc);
-  }
-  __syncthreads();
-  load_matrix(bb, p.consts + kQxT * msize, msize / 4);
-  __syncthreads();
-
-  // E[ky][x] = sum_kx T[ky][kx] Qx[x][kx], stored as w1[ky][x]
-  if (active) {
-    product<PREC>(w0, bb, nxp, ld, i0, j0, acc);
-    store_tile(w1, ld, i0, j0, acc);
-  }
-  __syncthreads();
-  load_matrix(bb, p.consts + kQyT * msize, msize / 4);
-  __syncthreads();
-
-  // P[y][x] = sum_ky Qy[y][ky] E[ky][x], stored as w0[y][x]
-  if (active) {
-    product<PREC>(bb, w1, nyp, ld, i0, j0, acc);
-    store_tile(w0, ld, i0, j0, acc);
+    if (!p.prefetch && i < 3) {
+      __syncthreads();
+      load_basis(basis, consts + kind[i + 1] * csize, np, stride[i + 1]);
+    }
   }
   __syncthreads();
 
-  // p with its mirror ring, and the corrector on the interior
-  float* p_out = p.p_out + off;
+  // p with its mirror ring, and the corrector
+  const bool track = p.tsum != nullptr;  // uniform across the block
+  float s = corrector(us, vs, p.p_out + off, f0, ldb, act, track, p);
+  if (p.neumann) {
+    __syncthreads();
+    apply_bc(us, vs, p, act);
+    if (track) {
 #pragma unroll 4
-  for (int idx = tid; idx < cells; idx += nthr) {
-    const int y = idx / nx, x = idx - y * nx;
-    const int cy = min(max(y, 1), ny - 2), cx = min(max(x, 1), nx - 2);
-    const bool interior = cy == y && cx == x;
-    const int xm = max(cx - 1, 1), xp = min(cx + 1, nx - 2);
-    const int ym = max(cy - 1, 1), yp = min(cy + 1, ny - 2);
-    const float dpdx = (w0[cy * ld + xp] - w0[cy * ld + xm]) * p.chdx;
-    const float dpdy = (w0[yp * ld + cx] - w0[ym * ld + cx]) * p.chdy;
-    const float uo = us[idx], vo = vs[idx];
-    p_out[idx] = w0[cy * ld + cx];
-    us[idx] = interior ? uo - p.ccorr * dpdx : uo;
-    vs[idx] = interior ? vo - p.ccorr * dpdy : vo;
+      for (int idx = tid; idx < cells; idx += blockDim.x) {
+        const float du = us[idx] - __ldg(p.uref + idx), dv = vs[idx] - __ldg(p.vref + idx);
+        s = s + (du * du + dv * dv);
+      }
+    }
   }
-  __syncthreads();
-  apply_bc(us, vs, p, act);
 
   // the tracking sum over all cells of the env
-  if (p.tsum != nullptr) {  // uniform across the block
-    float s = 0.f;
-#pragma unroll 4
-    for (int idx = tid; idx < cells; idx += nthr) {
-      const float du = us[idx] - __ldg(p.uref + idx), dv = vs[idx] - __ldg(p.vref + idx);
-      s = s + (du * du + dv * dv);
-    }
+  if (track) {
     s = warp_sum(s);
-    if ((tid & 31) == 0) bb[tid >> 5] = s;
+    if ((tid & 31) == 0) partial[tid >> 5] = s;
     __syncthreads();
     if (tid < 32) {
-      float t = (tid < (nthr >> 5)) ? bb[tid] : 0.f;
+      float t = (tid < (blockDim.x >> 5)) ? partial[tid] : 0.f;
       t = warp_sum(t);
       if (tid == 0) p.tsum[env] = t;
     }
   }
 }
 
-template <int PREC>
-cudaError_t launch(const Params& p, int threads, size_t bytes, cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(ns_step_kernel<PREC>,
+template <int PREC, bool BIG>
+cudaError_t launch_as(const Params& p, int threads, size_t bytes, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(ns_step_kernel<PREC, BIG>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  ns_step_kernel<PREC><<<p.B, threads, bytes, s>>>(p);
+  ns_step_kernel<PREC, BIG><<<p.B, threads, bytes, s>>>(p);
   return cudaGetLastError();
+}
+
+template <int PREC>
+cudaError_t launch(const Params& p, int threads, size_t bytes, cudaStream_t s) {
+  return threads > 256 ? launch_as<PREC, true>(p, threads, bytes, s)
+                       : launch_as<PREC, false>(p, threads, bytes, s);
 }
 
 }  // namespace
@@ -369,46 +612,57 @@ cudaError_t launch(const Params& p, int threads, size_t bytes, cudaStream_t s) {
 extern "C" {
 
 // Launches one projection step on `stream`. Returns the launch's error code (0
-// on success); does not synchronise. `consts` holds the five (np, ld) float32
-// matrices Qy, Qx, Qx^T, Qy^T and inv, zero-padded; `bc` is a host array of
-// eight conditions, u's four edges then v's. uref, vref and tsum are all null
-// or all set.
+// on success); does not synchronise. `consts` holds the five compact (np, np)
+// float32 matrices Qy^T, Qx, Qx^T, Qy and inv, zero-padded, np = max(ny, nx)
+// rounded up to 32; `bc` is a host array of eight conditions, u's four edges
+// then v's. uref, vref and tsum are all null or all set.
 int ns_fused_launch(const float* u, const float* v, const float* act,
                     const float* consts, const float* uref, const float* vref,
                     float* u_out, float* v_out, float* p_out, float* tsum,
-                    int B, int ny, int nx, int np, int ld, int prec, const int* bc,
+                    int B, int ny, int nx, int np, int prec, const int* bc,
                     float chdx, float chdy, float cinv, float dt, float nu, float cg,
                     float ccorr, int device, void* stream) {
-  const int nyp = (ny + 3) & ~3, nxp = (nx + 3) & ~3;
+  const int big = ny > nx ? ny : nx;
   const bool track = tsum != nullptr;
-  if (ny < 3 || nx < 3 || B < 0 || np != (nyp > nxp ? nyp : nxp) || ld != np + 4 ||
-      prec < kHighest || prec > kDefault || track != (uref != nullptr) ||
-      track != (vref != nullptr))
+  if (ny < 3 || nx < 3 || B < 0 || np != ((big + 31) / 32) * 32 || prec < kHighest ||
+      prec > kDefault || track != (uref != nullptr) || track != (vref != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.u = u; p.v = v; p.act = act; p.consts = consts; p.uref = uref; p.vref = vref;
   p.u_out = u_out; p.v_out = v_out; p.p_out = p_out; p.tsum = tsum;
-  p.B = B; p.ny = ny; p.nx = nx; p.np = np; p.ld = ld;
+  p.B = B; p.ny = ny; p.nx = nx; p.np = np;
+  p.neumann = 0;
   for (int i = 0; i < 8; ++i) {
     if (bc[i] < kDirichlet || bc[i] > kNeumann)
       return static_cast<int>(cudaErrorInvalidValue);
     p.bc[i / 4][i % 4] = bc[i];
+    if (bc[i] == kNeumann) p.neumann = 1;
   }
+  // every env's field starts at a multiple of nx cells, so with nx % 4 == 0
+  // four cells of a row are 16-byte aligned where the base pointers are
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(u) | reinterpret_cast<uintptr_t>(v) |
+                         reinterpret_cast<uintptr_t>(uref) | reinterpret_cast<uintptr_t>(vref) |
+                         reinterpret_cast<uintptr_t>(u_out) |
+                         reinterpret_cast<uintptr_t>(v_out) | reinterpret_cast<uintptr_t>(p_out);
+  p.vec4 = nx % 4 == 0 && addr % 16 == 0;
   p.chdx = chdx; p.chdy = chdy; p.cinv = cinv; p.dt = dt; p.nu = nu; p.cg = cg;
   p.ccorr = ccorr;
+  // one thread for each 16 cells of the padded square, at most 512; two basis
+  // buffers where four fields fit a block's shared memory
+  const size_t field = static_cast<size_t>(np) * (np + 8) * sizeof(float);
+  p.prefetch = 4 * field <= kMaxSharedBytes;
+  const size_t bytes = (p.prefetch ? 4 : 3) * field;
+  int threads = np * np / 16;
+  if (threads > kMaxThreads) threads = kMaxThreads;
+  if (bytes > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-
-  const int threads = (((nyp / 4) * (nxp / 4) + 31) / 32) * 32;
-  const size_t field = static_cast<size_t>(np) * ld * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (threads > kMaxThreads || 3 * field > kMaxSharedBytes)
-    return static_cast<int>(cudaErrorInvalidValue);
   switch (prec) {
-    case kHighest: err = launch<kHighest>(p, threads, 3 * field, s); break;
-    case kHigh: err = launch<kHigh>(p, threads, 3 * field, s); break;
-    default: err = launch<kDefault>(p, threads, 3 * field, s); break;
+    case kHighest: err = launch<kHighest>(p, threads, bytes, s); break;
+    case kHigh: err = launch<kHigh>(p, threads, bytes, s); break;
+    default: err = launch<kDefault>(p, threads, bytes, s); break;
   }
   return static_cast<int>(err);
 }

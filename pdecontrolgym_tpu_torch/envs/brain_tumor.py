@@ -477,6 +477,10 @@ class TherapyEnv(FunctionalEnv):
         ff_state, ff_out = self._fast_forward(state, POST_THERAPY, among=post)
         return _select(post, ff_state, one_state), _select(post, ff_out, one_out)
 
+    def step(self, state, actions, generator=None):
+        """The same as :meth:`step_batch`: the env is batch-first."""
+        return self.step_batch(state, actions, generator)
+
     def observe_batch(self, state):
         return state.u
 

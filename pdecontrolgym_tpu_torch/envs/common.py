@@ -25,7 +25,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from pdecontrolgym_tpu_torch.core.base import FunctionalEnv, RewardCtx, StepOut
+from pdecontrolgym_tpu_torch.core.base import FunctionalEnv, RewardCtx, StepOut, roll_ring
 from pdecontrolgym_tpu_torch.core.sensing import make_control_fn, make_sensing_fn
 from pdecontrolgym_tpu_torch.ops.interval1d import IntervalSpec, interval
 
@@ -217,7 +217,7 @@ class Boundary1DEnv(FunctionalEnv):
     def step(self, state, actions, generator=None):
         """Eager path: every sub-step of the interval as separate tensor ops."""
         c = self.config
-        S, W, nt = c.sample_rate, self.window, c.nt
+        S, W = c.sample_rate, self.window
         control = torch.as_tensor(actions, dtype=c.dtype, device=self.device).reshape(-1, 1)
         u, t, bsum = state.u, state.time_index, state.bsum
         # the row one SUB-step before the final row, not one interval before
@@ -227,13 +227,8 @@ class Boundary1DEnv(FunctionalEnv):
         norms = torch.zeros((B, S), dtype=c.dtype, device=self.device)
         aux = torch.zeros_like(norms) if self._needs_aux else None
         for j in range(S):
-            active = t < nt - 1
-            u_new, boundary = self._advance(u, state.beta, control)
-            if self._needs_prev:
-                prev_u = torch.where(active[:, None], u, prev_u)
-            u = torch.where(active[:, None], u_new, u)
-            t = torch.where(active, t + 1, t)
-            bsum = torch.where(active, bsum + boundary[:, 0].abs(), bsum)
+            u, prev_u, t, bsum = self._masked_substep(u, prev_u, t, bsum, state.beta,
+                                                      control)
             if j in positions:
                 norms[:, j] = torch.linalg.vector_norm(u, dim=-1)
                 if self._needs_aux:
@@ -245,6 +240,56 @@ class Boundary1DEnv(FunctionalEnv):
         )
         return self._finish(state, u, prev_u, t, bsum, trailing, generator,
                             aux_trailing)
+
+    def _masked_substep(self, u, prev_u, t, bsum, beta, control):
+        """One sub-step of the eager path; an env whose row index has reached
+        ``nt - 1`` keeps its row, previous row, index and boundary sum."""
+        active = t < self.config.nt - 1
+        u_new, boundary = self._advance(u, beta, control)
+        if self._needs_prev:
+            prev_u = torch.where(active[:, None], u, prev_u)
+        u = torch.where(active[:, None], u_new, u)
+        t = torch.where(active, t + 1, t)
+        bsum = torch.where(active, bsum + boundary[:, 0].abs(), bsum)
+        return u, prev_u, t, bsum
+
+    def step_with_history(self, state, actions, generator=None):
+        """Like :meth:`step`, and also every sub-step row of the interval:
+        returns ``(state, StepOut, rows)``, ``rows`` of shape ``(B, S,
+        state_dim)``, env ``b``'s ``(S, state_dim)`` rows in ``rows[b]`` (a
+        frozen sub-step repeats the row). For a Gym adapter that keeps the
+        reference's full history buffer for legacy reward objects; eager, not
+        a hot path, and launches no kernel.
+
+        Unlike :meth:`step`, every sub-step's norms are taken, and when ``S``
+        does not exceed the window the trailing windows advance by the
+        sub-steps each env executed (:func:`roll_ring`), as the JAX method
+        does."""
+        c = self.config
+        S = c.sample_rate
+        control = torch.as_tensor(actions, dtype=c.dtype, device=self.device).reshape(-1, 1)
+        u, t, bsum, prev_u = state.u, state.time_index, state.bsum, state.prev_u
+        rows, norms, aux = [], [], []
+        for _ in range(S):
+            u, prev_u, t, bsum = self._masked_substep(u, prev_u, t, bsum, state.beta,
+                                                      control)
+            rows.append(u)
+            norms.append(torch.linalg.vector_norm(u, dim=-1))
+            if self._needs_aux:
+                aux.append(self._aux_norm(u))
+        executed = t - state.time_index
+
+        def trail(ring, values):
+            values = torch.stack(values, dim=-1)
+            if S > self.window:
+                return values[:, -self.window:]
+            return roll_ring(ring, values, executed)
+
+        trailing = trail(state.norm_ring, norms)
+        aux_trailing = trail(state.aux_ring, aux) if self._needs_aux else None
+        new_state, out = self._finish(state, u, prev_u, t, bsum, trailing, generator,
+                                      aux_trailing)
+        return new_state, out, torch.stack(rows, dim=1)
 
     def _trailing(self, ring, norms):
         """Advance the trailing-norm window by one full interval: a static

@@ -33,7 +33,7 @@ BUILD_DIR = _PKG / "_build"
 # -fmad=false: no FMA contraction, so the kernels round as the plain PyTorch
 # version does (see csrc/interval1d.cu, point 4). Division and square root stay
 # IEEE (no -use_fast_math). One flag set serves every source: csrc/ns_fused.cu
-# keeps it for its stencil passes and calls fmaf by name in its products.
+# keeps it for its stencil passes; its products run on the tensor cores.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xcompiler", "-fPIC",
@@ -127,9 +127,9 @@ def load() -> ctypes.CDLL:
         lib.interval1d_pcr_launch.argtypes = common + [i, i] + [f] * 7 + tail
         lib.interval1d_pcr_launch.restype = ctypes.c_int
         # u, v, act, consts, uref, vref, u_out, v_out, p_out, tsum; B, ny, nx,
-        # np, ld, prec; bc; 0.5/dx, 0.5/dy, 1/(dx*dy), dt, nu, -dx*dy*rho/dt, dt/rho
+        # np, prec; bc; 0.5/dx, 0.5/dy, 1/(dx*dy), dt, nu, -dx*dy*rho/dt, dt/rho
         lib.ns_fused_launch.argtypes = (
-            [p] * 10 + [i] * 6 + [ctypes.POINTER(ctypes.c_int)] + [f] * 7 + tail)
+            [p] * 10 + [i] * 5 + [ctypes.POINTER(ctypes.c_int)] + [f] * 7 + tail)
         lib.ns_fused_launch.restype = ctypes.c_int
         # u, Z, L, t, pB, p, u_out, Z_out, L_out, t_out, done, norms, prev; B, M,
         # K, W, ord; dt, dx, D, a, g, LSubS, scale, RSubG, aT1, beta_c, nt, coeff,

@@ -27,8 +27,9 @@ Two implementations, one contract:
   backward, and the oracle for the kernel.
 - ``csrc/ns_fused.cu``, CUDA C++ for ``sm_90a``: one block per env, the work
   fields and the bases in shared memory, u* and v* staged through the outputs,
-  the four products in the kernel's body (see the note at the top of that
-  file). It takes grids from 3×3 to 128×128.
+  the four products on the tensor cores (``mma.sync``) in the kernel's body
+  (see the note at the top of that file). It takes grids from 3×3 to
+  128×128.
 
 :func:`ns_step` dispatches on the tensors' device: the plain version for CPU
 tensors, the kernel for CUDA tensors. It never falls back from one to the
@@ -39,7 +40,9 @@ twin).
 
 Both implementations take the four products in the order y-forward, x-forward,
 x-backward, y-backward and round every scalar constant to float32 once, on the
-host. ``spectral_precision``: ``"highest"`` multiplies float32 operands;
+host. ``spectral_precision``: ``"highest"`` multiplies float32 operands (the
+kernel as three TF32 products of each operand's head and tail, 3xTF32, within
+a few float32 ulps of the plain version's float32 product, not equal to it);
 ``"default"`` rounds both operands of each product to bf16; ``"high"`` splits
 each operand into a bf16 head and tail and adds the three leading products;
 all accumulate in float32.
@@ -175,21 +178,22 @@ class NSStepSpec:
         return self._basis[device]
 
     @property
-    def padded(self):
-        """``(np, ld)``: the kernel's padded matrix shape, ``np = max(ny, nx)``
-        rounded up to a multiple of 4 and ``ld = np + 4``."""
-        np_ = max(-(-self.ny // 4) * 4, -(-self.nx // 4) * 4)
-        return np_, np_ + 4
+    def padded(self) -> int:
+        """``np``: the kernel's padded square, ``max(ny, nx)`` rounded up to a
+        multiple of 32 (whole 16 x 32 tiles of the tensor-core products)."""
+        return -(-max(self.ny, self.nx) // 32) * 32
 
     def kernel_constants(self, device):
-        """The kernel's ``(5, np, ld)`` float32 constants on ``device``: Qy, Qx,
-        Qxᵀ, Qyᵀ and inv, each in the top-left corner of a zero matrix."""
+        """The kernel's ``(5, np, np)`` float32 constants on ``device``: the
+        bases of the four products in the roles the kernel reads them in
+        (Qyᵀ, Qx, Qxᵀ, Qy), then inv, each in the top-left corner of a zero
+        matrix."""
         device = torch.device(device)
         if device not in self._consts:
-            np_, ld = self.padded
+            np_ = self.padded
             b = fused_basis_np(self.ny, self.nx)
-            out = np.zeros((5, np_, ld), np.float32)
-            for k, name in enumerate(("qy", "qx", "qxT", "qyT", "inv")):
+            out = np.zeros((5, np_, np_), np.float32)
+            for k, name in enumerate(("qyT", "qx", "qxT", "qy", "inv")):
                 a = b[name]
                 out[k, :a.shape[0], :a.shape[1]] = a
             self._consts[device] = torch.from_numpy(out).to(device)
@@ -337,14 +341,13 @@ def _ns_step_cuda(spec, u, v, action, uref, vref):
     if max(spec.ny, spec.nx) > MAX_N:
         raise ValueError(
             f"ns_step kernel: grid {spec.ny}x{spec.nx} exceeds {MAX_N}x{MAX_N} "
-            "(one block per env, one thread for each 4x4 tile of the grid)"
+            "(one block per env, its work fields in shared memory)"
         )
     tensors = [t for t in (u, v, action, uref, vref) if t is not None]
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ns_step kernel: inputs must be contiguous")
     B = u.shape[0]
     consts = spec.kernel_constants(u.device)
-    np_, ld = spec.padded
     # u' and v' are the two halves of one allocation, so that a caller can view
     # them as one (B, ny, nx, 2) frame without a copy (envs/navier_stokes.py)
     u_out, v_out = torch.empty((2,) + tuple(u.shape), dtype=u.dtype, device=u.device)
@@ -359,7 +362,7 @@ def _ns_step_cuda(spec, u, v, action, uref, vref):
         u.data_ptr(), v.data_ptr(), action.data_ptr(), consts.data_ptr(),
         ptr(uref), ptr(vref),
         u_out.data_ptr(), v_out.data_ptr(), p_out.data_ptr(), ptr(tsum),
-        B, spec.ny, spec.nx, np_, ld, _PRECISIONS[spec.spectral_precision],
+        B, spec.ny, spec.nx, spec.padded, _PRECISIONS[spec.spectral_precision],
         (ctypes.c_int * 8)(*spec.condition_codes()),
         *spec.scalars(),
         u.device.index if u.device.index is not None else torch.cuda.current_device(),

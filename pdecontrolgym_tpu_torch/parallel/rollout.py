@@ -34,15 +34,17 @@ def batch_step(env, autoreset: bool = True):
     fresh ones drawn with ``generator``; the returned ``StepOut`` reports the
     finishing transition but carries the fresh obs.
 
-    When the env, or an env it wraps (``env.env``), declares
-    ``autoreset_gate = True`` (an env whose ``init_batch`` is expensive, as
+    When the env, or any env it wraps (``env.env``, ``env.env.env``, ...),
+    declares ``autoreset_gate = True`` (an env whose ``init_batch`` is expensive, as
     ``TherapyEnv``'s, which fast-forwards a whole stage), the reset work runs
     only ``if bool(done.any())``: one host read per step, which waits for the
     device. Envs that declare nothing keep the ungated path and read nothing.
     """
     raw_step = getattr(env, "step_batch", env.step)
-    gate = bool(getattr(env, "autoreset_gate", False)
-                or getattr(getattr(env, "env", None), "autoreset_gate", False))
+    gate, inner = False, env
+    while inner is not None and not gate:
+        gate = bool(getattr(inner, "autoreset_gate", False))
+        inner = getattr(inner, "env", None)
 
     if not autoreset:
         return lambda state, actions, generator=None: raw_step(state, actions)
@@ -106,6 +108,10 @@ def rollout(
     controller, a policy network, random actions). Returns the final
     ``(state, obs)`` and a ``StepOut`` whose fields are stacked over steps;
     ``num_steps=0`` returns the initial ``(state, obs)`` and empty stacks.
+    ``info`` keeps the entries that are tensors, each stacked over steps (the
+    neuron's ``L``, ``Z`` and ``control``, the brain tumor's ``stage``), as
+    the JAX scan stacks the whole ``StepOut``; an entry that is not a tensor
+    is left out. With ``num_steps=0`` it is empty.
 
     ``keep_obs=False`` leaves ``obs`` out of the stacked result (it is None):
     for a caller that reads only the rewards, the flags and the final obs. It
@@ -139,10 +145,15 @@ def rollout(
         return torch.stack([getattr(o, name) for o in outs])
 
     flags = obs.new_empty((num_envs,), dtype=torch.bool)
+    info = {}
+    if outs:
+        info = {k: torch.stack([o.info[k] for o in outs])
+                for k, v in outs[0].info.items() if isinstance(v, torch.Tensor)}
     stacked = StepOut(
         obs=stack("obs", obs, obs.dtype) if keep_obs else None,
         reward=stack("reward", flags, obs.dtype),
         terminated=stack("terminated", flags, torch.bool),
         truncated=stack("truncated", flags, torch.bool),
+        info=info,
     )
     return (state, obs), stacked

@@ -240,6 +240,46 @@ def test_therapy_env_matches_vmapped_jax_wrapper(weekends):
     assert bool((pstate.stage == POST_THERAPY).any())
 
 
+@pytest.mark.parametrize("cls", ["therapy", "dose"])
+def test_therapy_step_is_step_batch_and_matches_jax_step(cls):
+    """``TherapyEnv.step`` and ``DoseTherapyEnv.step`` equal their
+    ``step_batch`` (the port is batch-first), and both match the JAX class's
+    ``step`` vmapped over the envs, over 12 days that take some envs into
+    Post-Therapy."""
+    ic = brain_ic(3)
+    jenv, penv = brain_pair("xla", "kernel", ic=ic)
+    jcls, pcls = ((JaxTherapyEnv, TherapyEnv) if cls == "therapy"
+                  else (JaxDoseTherapyEnv, DoseTherapyEnv))
+    jx, px = jcls(jenv, t_benchmark=40), pcls(penv, t_benchmark=40)
+
+    def jax_init(u0):
+        state, _ = jenv.init_from(u0, 40)
+        return jx._fast_forward(state, JAX_GROWTH)[0]
+
+    jstate = jax.jit(jax.vmap(jax_init))(jnp.asarray(ic))
+    state_a, _ = px.init_batch(3)
+    state_b = state_a
+    dose = np.array([0.3, 0.8, 1.0], np.float32)
+    if cls == "dose":
+        dose = 2.0 * dose - 1.0
+    jstep = jax.jit(jax.vmap(lambda s, a: jx.step(s, a)))
+    for _ in range(12):
+        jstate, jout = jstep(jstate, jnp.asarray(dose))
+        state_a, out_a = px.step(state_a, torch.from_numpy(dose))
+        state_b, out_b = px.step_batch(state_b, torch.from_numpy(dose))
+        for f in dataclasses.fields(state_a):
+            assert torch.equal(getattr(state_a, f.name), getattr(state_b, f.name)), f.name
+        for name in ("obs", "reward", "terminated", "truncated"):
+            assert torch.equal(getattr(out_a, name), getattr(out_b, name)), name
+        assert_brain_state_close(state_a, jstate)
+        np.testing.assert_allclose(out_a.obs.numpy(), np.asarray(jout.obs), rtol=1e-6,
+                                   atol=1e-3 if cls == "therapy" else 1e-8)
+        np.testing.assert_allclose(out_a.reward.numpy(), np.asarray(jout.reward),
+                                   rtol=1e-5, atol=1e-3)
+        np.testing.assert_array_equal(out_a.terminated.numpy(), np.asarray(jout.terminated))
+    assert bool((state_a.stage == POST_THERAPY).any())
+
+
 def test_benchmark_matches_jax():
     """The zero-treatment survival of a tumour that dies inside the horizon."""
     jenv, penv = brain_pair("xla", "kernel", ic=brain_ic(1, lo=24.0, hi=24.0))

@@ -150,14 +150,16 @@ def test_wrapper_checks_its_tensors():
 
 
 def test_kernel_constants_are_the_padded_bases():
-    """What the CUDA kernel is handed: Qy, Qx, Qx^T, Qy^T and inv in the
-    top-left corner of zero (np, np + 4) matrices, np a multiple of 4."""
+    """What the CUDA kernel is handed: the bases of its four products in their
+    roles, Qy^T, Qx, Qx^T and Qy, then inv, in the top-left corner of zero
+    (np, np) matrices, np = max(ny, nx) rounded up to a multiple of 32."""
     _, spec = _specs(21, 30, MIXED_BC)
-    assert spec.padded == (32, 36)
+    assert spec.padded == 32
+    assert _specs(100, 72, MIXED_BC)[1].padded == 128
     consts = spec.kernel_constants("cpu")
-    assert consts.shape == (5, 32, 36) and consts.dtype == torch.float32
+    assert consts.shape == (5, 32, 32) and consts.dtype == torch.float32
     basis = spec.basis("cpu")
-    for k, name in enumerate(("qy", "qx", "qxT", "qyT", "inv")):
+    for k, name in enumerate(("qyT", "qx", "qxT", "qy", "inv")):
         a = basis[name]
         assert torch.equal(consts[k, :a.shape[0], :a.shape[1]], a)
         rest = consts[k].clone()

@@ -62,6 +62,81 @@ def test_cuda_kernel_matches_plain_version(grid, bc, precision):
     np.testing.assert_allclose(got[3].cpu().numpy(), want[3].cpu().numpy(), rtol=1e-4)
 
 
+# chip_smoke.py's bands: atol 2e-5 on fields of order 1 (the JAX package's
+# between its kernel and its XLA path), scaled by the field's largest
+# magnitude and, for u' and v', by the pressure term the corrector subtracts;
+# widened for the bf16 precisions, where an intermediate that differs in its
+# last float32 bits can round to the other bf16 neighbour
+PRECISION_BAND = {"highest": 1.0, "high": 8.0, "default": 400.0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+@pytest.mark.parametrize("bc", ["lid", "mixed"])
+@pytest.mark.parametrize("n", [64, 128])
+def test_cuda_kernel_within_band_at_the_main_shapes(n, bc, precision):
+    """The main path's 64x64 and the largest grid, 128x128, in all three
+    precisions, for the lid-driven cavity (one boundary pass) and the Neumann
+    corner chains (four passes), from a fresh episode's fields (a U(-5, 5)
+    constant an env): u', v', p within the scaled band, the tracking sum rtol
+    1e-4 times the band."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain products in full float32
+    spec = tns.NSStepSpec(n, n, 1.0 / (n - 1), 1.0 / (n - 1), 2e-4, NU, RHO,
+                          LID_BC if bc == "lid" else MIXED_BC, precision)
+    batch = 64
+    u, v, act, uref, vref = _inputs(n, n, batch, seed=n)
+    level = np.random.default_rng(1).uniform(-5, 5, (2, batch, 1, 1)).astype(np.float32)
+    tensors = [torch.from_numpy(a).cuda() for a in (u + level[0], v + level[1], act, uref, vref)]
+    before = tns.LAUNCHES
+    got = tns.ns_step(spec, *tensors)
+    torch.cuda.synchronize()
+    assert tns.LAUNCHES == before + 1
+    want = tns.ns_step_plain(spec, *tensors)
+    chdx, chdy, *_, ccorr = spec.scalars()
+    p_max = float(want[2].abs().max())
+    scales = (max(1.0, float(want[0].abs().max()), ccorr * chdx * p_max),
+              max(1.0, float(want[1].abs().max()), ccorr * chdy * p_max), max(1.0, p_max))
+    atol = 2e-5 * PRECISION_BAND[precision]
+    for g, w, scale in zip(got[:3], want[:3], scales):
+        assert torch.isfinite(g).all()
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=0,
+                                   atol=atol * scale)
+    np.testing.assert_allclose(got[3].cpu().numpy(), want[3].cpu().numpy(),
+                               rtol=1e-4 * PRECISION_BAND[precision])
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_takes_unaligned_views():
+    """Contiguous views that start 4 bytes into their storage (not 16-byte
+    aligned, nx a multiple of 4): the kernel reads them one cell at a time and
+    agrees with the plain version as on aligned tensors."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain products in full float32
+    spec = tns.NSStepSpec(64, 64, 1.0 / 63, 1.0 / 63, 2e-4, NU, RHO, LID_BC, "highest")
+    u, v, act, uref, vref = _inputs(64, 64, 9, seed=3)
+
+    def unaligned(a):
+        buf = torch.empty(a.size + 1, device="cuda")
+        view = buf[1:].view(a.shape)
+        view.copy_(torch.from_numpy(a))
+        return view
+
+    tensors = [unaligned(u), unaligned(v)] + [torch.from_numpy(a).cuda()
+                                              for a in (act, uref, vref)]
+    assert tensors[0].is_contiguous() and tensors[0].data_ptr() % 16 != 0
+    got = tns.ns_step(spec, *tensors)
+    torch.cuda.synchronize()
+    want = tns.ns_step_plain(spec, *tensors)
+    for g, w in zip(got[:3], want[:3]):
+        scale = max(1.0, float(w.abs().max()))
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=0,
+                                   atol=2e-5 * scale)
+    np.testing.assert_allclose(got[3].cpu().numpy(), want[3].cpu().numpy(), rtol=1e-4)
+
+
 @pytest.mark.cuda
 def test_cuda_wrapper_raises_above_its_cap():
     if not torch.cuda.is_available():

@@ -430,3 +430,80 @@ def test_brain_tumor_rollout_matches_jax_across_a_death():
                              else torch.int32), f.name
         np.testing.assert_allclose(got.numpy(), np.asarray(getattr(jstate, f.name)),
                                    rtol=1e-6, atol=1e-3, err_msg=f.name)
+
+
+def test_rollout_stacks_the_tensor_entries_of_info_as_jax_does():
+    """The stacked ``StepOut`` carries ``info`` as the JAX scan does: the
+    neuron's ``L`` (exactly) and ``Z`` (rtol 1e-6) over five calls of K=7
+    dt-steps, and the brain tumor's ``stage`` over 85 days across a death,
+    against the JAX rollouts. ``keep_obs=False`` leaves out only ``obs``; an
+    entry that is not a tensor is left out."""
+    jenv, penv = neuron_pair(dtype=jnp.float32, steps_per_call=7, backend="pallas")
+    _, jouts = jax.jit(lambda key: jax_rollout(
+        jenv, lambda o, k: jnp.zeros(o.shape[:-1]), 4, 5, key))(jax.random.key(0))
+    for keep_obs in (True, False):
+        _, pouts = rollout(penv, lambda o, g: torch.zeros(o.shape[0]), 4, 5,
+                           torch.Generator().manual_seed(0), keep_obs=keep_obs)
+        assert sorted(pouts.info) == sorted(jouts.info) == ["L", "Z"]
+        assert pouts.info["L"].shape == (5, 4) and pouts.info["L"].dtype == torch.int32
+        np.testing.assert_array_equal(pouts.info["L"].numpy(), np.asarray(jouts.info["L"]))
+        np.testing.assert_allclose(pouts.info["Z"].numpy(), np.asarray(jouts.info["Z"]),
+                                   rtol=1e-6)
+        assert (pouts.obs is None) != keep_obs
+
+    n = 4
+    ic = np.repeat(brain_ic(1, lo=24.0, hi=24.0), n, axis=0)
+    jenv, penv = brain_pair("xla", "kernel", ic=ic)
+    doses = np.array([0.0, 0.05, 0.3, 1.0], np.float32)
+    jdoses, pdoses = jnp.asarray(doses), torch.from_numpy(doses)
+    _, jouts = jax.jit(lambda key: jax_rollout(
+        jenv, lambda o, k: jdoses, n, 85, key))(jax.random.key(0))
+    _, pouts = rollout(penv, lambda o, g: pdoses, n, 85, torch.Generator().manual_seed(0),
+                       keep_obs=False)
+    stage = pouts.info["stage"].numpy()
+    assert stage.shape == (85, n) and len(np.unique(stage)) > 1
+    np.testing.assert_array_equal(stage, np.asarray(jouts.info["stage"]))
+
+    class Labelled:  # an env whose info holds a tensor and a string
+        def __init__(self, env):
+            self.env = env
+            self.init_batch = env.init_batch
+
+        def step_batch(self, state, actions):
+            state, out = self.env.step_batch(state, actions)
+            return state, dataclasses.replace(
+                out, info={"stage": out.info["stage"], "label": "day"})
+
+        step = step_batch
+
+    _, pouts = rollout(Labelled(penv), lambda o, g: pdoses, n, 3,
+                       torch.Generator().manual_seed(0))
+    assert list(pouts.info) == ["stage"] and pouts.info["stage"].shape == (3, n)
+    _, empty = rollout(penv, lambda o, g: pdoses, n, 0, torch.Generator().manual_seed(0))
+    assert empty.info == {}
+
+
+def test_autoreset_gate_is_found_through_a_chain_of_wrappers():
+    """A ``TherapyEnv`` two wrappers deep still gates the reset work: no
+    ``init_batch`` on a step where no env ended, one on a step where one did."""
+    ic = np.repeat(brain_ic(1, lo=24.0, hi=24.0), 3, axis=0)
+    _, penv = brain_pair("xla", "kernel", ic=ic)
+
+    class Wrapper:  # forwards everything but the declaration itself
+        def __init__(self, env):
+            self.env = env
+            self.init_batch, self.step_batch = env.init_batch, env.step_batch
+            self.step = env.step
+
+    wrapped = Wrapper(Wrapper(TherapyEnv(penv, t_benchmark=40)))
+    gen = torch.Generator().manual_seed(0)
+    calls = _count_init_batch(wrapped)
+    state, _ = wrapped.init_batch(3, gen)
+    step = batch_step(wrapped)
+    state, out = step(state, torch.full((3,), 0.01), gen)
+    assert len(calls) == 1 and not bool((out.terminated | out.truncated).any())
+    ended = 0
+    for _ in range(30):
+        state, out = step(state, torch.tensor([0.05, 0.3, 1.0]), gen)
+        ended += int((out.terminated | out.truncated).any())
+    assert ended >= 1 and len(calls) == 1 + ended
