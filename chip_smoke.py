@@ -81,16 +81,20 @@ JAX package), builds the CUDA kernels from ``csrc/`` and runs:
                 reaction-diffusion episode's) last, then the eager episodes,
                 which are not traced.
 
-``python3 chip_smoke.py --compare ROOT [ROOT ...]`` times the implicit
-reaction-diffusion interval kernel and the projection-step kernel of several
-copies of the port in one run instead (see :func:`compare`).
+``python3 chip_smoke.py --compare ROOT [ROOT ...]`` times the interval kernels
+(B2 to B5) and the projection-step kernel (B6) of several copies of the port
+in one run instead, with the SASS instructions a sub-step of the explicit
+interval kernel (see :func:`compare`).
 
 Float32 matrix products of the plain versions must run in full float32: the
 script sets ``torch.backends.cuda.matmul.allow_tf32 = False`` itself.
 
 Every phase raises on failure, so the script exits non-zero. The last three
 lines of standard output are the card's name and power limit, the per-kernel
-JSON object and ``{"ok": true, "device": {...}}``.
+JSON object and ``{"ok": true, "device": {...}}``. A kernel's ``ms`` there is
+its time per call of 20 back-to-back wrapper calls (CUDA events), which below
+~0.1 ms is the wrapper's host time rather than the kernel's; ``device_ms``
+beside it is the kernel's device time per launch (torch.profiler).
 """
 
 from __future__ import annotations
@@ -108,13 +112,13 @@ NUM_ENVS = 4096
 
 # Tolerances of a kernel against its plain version on the card. The kernels
 # are built with -fmad=false and keep the plain version's association, so the
-# state itself is expected to agree to the bit; the bands are those the JAX
-# package holds its own TPU kernel to against its XLA path
-# (tests/test_pallas1d.py): state 1e-6 rtol/atol (2e-5 for the implicit body,
-# whose solve divides), bsum rtol 1e-4. Norms are sums of up to 257 float32
-# squares taken in another order: rtol 1e-5. t_out must be equal, and norm
-# slots outside the norm positions must be zero.
-U_TOL = 1e-6
+# state of the explicit bodies (transport, Burgers, FTCS) is held to the bit;
+# the other bands are those the JAX package holds its own TPU kernel to against
+# its XLA path (tests/test_pallas1d.py): state 2e-5 rtol/atol for the implicit
+# body, whose solve divides, bsum rtol 1e-4. Norms are sums of up to 257
+# float32 squares taken in another order: rtol 1e-5. t_out must be equal, and
+# norm slots outside the norm positions must be zero.
+U_TOL = 0.0
 U_TOL_IMPLICIT = 2e-5
 BSUM_RTOL = 1e-4
 NORM_RTOL = 1e-5
@@ -432,14 +436,18 @@ def interval_case(torch, label, env, t0_range, gen, u_fn, act_scale,
     return err_u, (spec, u, beta, ctrl, t0)
 
 
+def sine_noisy(B, nx, gen):
+    """A sine of amplitude U(0.5, 2) an env, plus noise of order 0.05."""
+    import torch
+
+    x = torch.linspace(0, 1, nx, device=gen.device)
+    h = 0.5 + 1.5 * torch.rand(B, 1, generator=gen, device=gen.device)
+    return (h * torch.sin(torch.pi * x)
+            + 0.05 * torch.randn(B, nx, generator=gen, device=gen.device)).contiguous()
+
+
 def phase_kernel(torch, device):
     gen = torch.Generator(device=device).manual_seed(0)
-
-    def sine_noisy(B, nx, g):
-        x = torch.linspace(0, 1, nx, device=device)
-        h = 0.5 + 1.5 * torch.rand(B, 1, generator=g, device=device)
-        return (h * torch.sin(torch.pi * x)
-                + 0.05 * torch.randn(B, nx, generator=g, device=device)).contiguous()
 
     errs = {"transport": 0.0, "burgers": 0.0, "rd_explicit": 0.0, "rd_implicit": 0.0}
     inputs = {}
@@ -1411,8 +1419,8 @@ def family_kernel_times(torch, device, neuron_inputs, brain_inputs, card):
     p = cuda_ms(torch, lambda: ni.neuron_interval_plain(spec, u, Z, L, t, **kw))
     bound, bound_by, nbytes, flops = neuron_bound(
         spec, u.shape[0], kw["steps"], kw["window"], kw["need_prev"])
-    times["neuron"] = {"ms": k, "plain_ms": p, "bound_ms": bound, "bound_by": bound_by,
-                       "library_ms": None}
+    times["neuron"] = {"ms": k, "device_ms": dev, "plain_ms": p, "bound_ms": bound,
+                       "bound_by": bound_by, "library_ms": None}
     log(f"[times] one neuron block B={u.shape[0]} M={spec.M} K={kw['steps']}: kernel "
         f"{k:.4f} ms per call (20 back to back), {dev:.4f} ms on the device "
         f"(torch.profiler); plain {p:.4f} ms; bound {bound:.5f} ms by {bound_by} "
@@ -1425,8 +1433,8 @@ def family_kernel_times(torch, device, neuron_inputs, brain_inputs, card):
     dev, _ = device_ms(torch, call, "brain_tumor_field_kernel")
     p = cuda_ms(torch, lambda: bt.brain_tumor_field_plain(fspec, fu, applied, can))
     bound, bound_by, nbytes, flops = brain_bound(fspec, fu.shape[0])
-    times["brain"] = {"ms": k, "plain_ms": p, "bound_ms": bound, "bound_by": bound_by,
-                      "library_ms": None}
+    times["brain"] = {"ms": k, "device_ms": dev, "plain_ms": p, "bound_ms": bound,
+                      "bound_by": bound_by, "library_ms": None}
     log(f"[times] one brain-tumor field pass B={fu.shape[0]} nx={fspec.nx}: kernel "
         f"{k:.4f} ms per call (20 back to back), {dev:.4f} ms on the device "
         f"(torch.profiler); plain {p:.4f} ms; bound {bound:.5f} ms by {bound_by} "
@@ -1511,21 +1519,24 @@ def device_rows(torch, fn, name_part=None, repeat=1):
     and for the first trace after the explicit reaction-diffusion episode's
     42,000 kernels), so main() takes the single-kernel traces first and close
     together, then the episodes' traces with the longest last, and every
-    episode that needs no trace after those."""
+    episode that needs no trace after those. Once, a fresh process's first
+    trace came back empty too: an empty trace is taken again, three times at
+    most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(repeat):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-            and (name_part is None or name_part in e.key)]
-    if not rows:
-        raise AssertionError(f"torch.profiler recorded no device kernel {name_part or ''}")
-    return rows
+    for _ in range(3):  # a trace that comes back empty is taken again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(repeat):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                and (name_part is None or name_part in e.key)]
+        if rows:
+            return rows
+    raise AssertionError(f"torch.profiler recorded no device kernel {name_part or ''}")
 
 
 def device_ms(torch, fn, name_part=None):
@@ -1595,13 +1606,17 @@ def interval_kernel_times(torch, device, inputs, card):
         p = cuda_ms(torch, lambda: interval1d.interval_plain(spec, u, beta, ctrl, t0))
         bound, bound_by, nbytes, flops = interval_bound(
             spec, *body_operations(spec), u.shape[0])
-        interval_ms[name] = {"ms": k, "plain_ms": p, "bound_ms": bound,
+        interval_ms[name] = {"ms": k, "device_ms": dev, "plain_ms": p, "bound_ms": bound,
                              "bound_by": bound_by, "library_ms": None}
+        # built with -fmad=false, every mul and add issues alone: twice the
+        # operation bound, which counts an FMA as two operations
+        floor = 2 * flops / PEAK_FP32_FLOPS * 1e3
         log(f"[times] one {name} interval B={u.shape[0]} nx={u.shape[1]} "
             f"S={spec.sample_rate}: kernel {k:.4f} ms per call (20 back to back), "
             f"{dev:.4f} ms on the device (torch.profiler); plain {p:.4f} ms; bound "
             f"{bound:.5f} ms by {bound_by} ({nbytes} bytes, {flops} operations), "
-            f"share of the bound reached {bound / dev:.3f}; no single PyTorch call "
+            f"share of the bound reached {bound / dev:.3f}; -fmad=false floor "
+            f"{floor:.5f} ms, share {floor / dev:.3f}; no single PyTorch call "
             f"computes an S-sub-step interval ({card})")
     interval1d.LAUNCHES = launches_before  # timing launches do not count
     return interval_ms
@@ -1688,7 +1703,7 @@ def ns_kernel_times(torch, device, inputs, card):
         p = cuda_ms(torch, lambda: ns_fused.ns_step_plain(spec, *tensors))
         bound, bound_by, nbytes, flops = ns_bound(spec, tensors[0].shape[0], True)
         old, old_by, _, _ = ns_bound(spec, tensors[0].shape[0], True, tensor_cores=False)
-        step_ms[name] = {"ms": k, "plain_ms": p, "bound_ms": bound,
+        step_ms[name] = {"ms": k, "device_ms": dev, "plain_ms": p, "bound_ms": bound,
                          "bound_by": bound_by, "library_ms": None}
         log(f"[times] one {name} projection step B={tensors[0].shape[0]}: kernel {k:.4f} "
             f"ms per call (20 back to back), {dev:.4f} ms on the device "
@@ -1768,23 +1783,38 @@ def ns_eager_times(torch, device, card):
 
 
 def time_kernels(torch, device):
-    """B5 and B6 of the package this process imported, alone at their main
-    paths' shapes: B5 one interval of the implicit bench row (4096 envs,
-    n=257, S=25, theta=0.5); B6 one step at 4096 x 64x64 in the three
-    precisions and at 1024 x 128x128, lid-driven cavity, tracking sum, from a
-    fresh episode's fields. Returns {name: {"ms", "max_abs_err"}}: ms per call
-    of 20 back to back (CUDA events, median of 5), and the largest difference
-    from the plain version on the same inputs, reported and not judged (a copy
-    compared may be a diagnostic that skips work)."""
+    """B2 to B6 of the package this process imported, alone at their main
+    paths' shapes, on inputs made as phase_kernel makes its first case of
+    each: B2 one transport interval (4096 envs, nx=128, S=1000), B3 one
+    Burgers interval (Godunov, nx=256, S=100), B4 one explicit
+    reaction-diffusion interval (n=201, S=100), B5 one interval of the
+    implicit bench row (n=257, S=25, theta=0.5), all Dirichlet and on the fast
+    path; B6 one step at 4096 x 64x64 in the three precisions and at 1024 x
+    128x128, lid-driven cavity, tracking sum, from a fresh episode's fields.
+    Returns {name: {"ms", "device_ms", "max_abs_err"}}: ms per call of 20
+    back to back (CUDA events, median of 5; below ~0.1 ms this is the
+    wrapper's host time, not the kernel's), the kernel's device time per
+    launch over 10 calls (torch.profiler), and the largest difference from the
+    plain version on the same inputs, reported and not judged (a copy compared
+    may be a diagnostic that skips work)."""
     from pdecontrolgym_tpu_torch.ops import interval1d, ns_fused
 
     gen = torch.Generator(device=device).manual_seed(0)
-    env = rd_implicit_setup(torch, device)[0]
-    nt, S = env.config.nt, env.config.sample_rate
-    args = _interval_inputs(torch, env, (0, nt - 1 - S), gen, flat_noisy, 1.0, 5.0)
-    err = (interval1d.interval(*args)[0] - interval1d.interval_plain(*args)[0]).abs().max()
-    out = {"b5": {"ms": cuda_ms(torch, lambda: interval1d.interval(*args), runs=5, calls=20),
-                  "max_abs_err": float(err)}}
+    out = {}
+    for name, setup, u_fn, act_scale, beta_spread in (
+            ("b2", transport_setup, flat_noisy, 1.0, 0.0),
+            ("b3", burgers_setup, sine_noisy, 0.5, 0.0),
+            ("b4", rd_explicit_setup, flat_noisy, 1.0, 5.0),
+            ("b5", rd_implicit_setup, flat_noisy, 1.0, 5.0)):
+        env = setup(torch, device)[0]
+        nt, S = env.config.nt, env.config.sample_rate
+        args = _interval_inputs(torch, env, (0, nt - 1 - S), gen, u_fn, act_scale,
+                                beta_spread)
+        err = (interval1d.interval(*args)[0] - interval1d.interval_plain(*args)[0]).abs().max()
+        call = lambda a=args: interval1d.interval(*a)  # noqa: E731
+        out[name] = {"ms": cuda_ms(torch, call, runs=5, calls=20),
+                     "device_ms": device_ms(torch, call, "interval_kernel")[0],
+                     "max_abs_err": float(err)}
     for name, n, B, precision in (("b6_64", 64, NUM_ENVS, "highest"),
                                   ("b6_64_high", 64, NUM_ENVS, "high"),
                                   ("b6_64_default", 64, NUM_ENVS, "default"),
@@ -1793,41 +1823,115 @@ def time_kernels(torch, device):
         tensors = _ns_inputs(torch, spec, B, gen, device, track=True, level=5.0)
         got, want = ns_fused.ns_step(spec, *tensors), ns_fused.ns_step_plain(spec, *tensors)
         err = max(float((g - w).abs().max()) for g, w in zip(got[:2], want[:2]))
-        out[name] = {"ms": cuda_ms(torch, lambda: ns_fused.ns_step(spec, *tensors),
-                                   runs=5, calls=20),
+        call = lambda: ns_fused.ns_step(spec, *tensors)  # noqa: E731
+        out[name] = {"ms": cuda_ms(torch, call, runs=5, calls=20),
+                     "device_ms": device_ms(torch, call, "ns_step_kernel")[0],
                      "max_abs_err": err}
     return out
 
 
+# the explicit interval kernels whose SASS --compare counts: the main paths'
+# points a lane, Dirichlet (P, body)
+SASS_INSTANCES = {"transport P=4": (4, 0), "burgers godunov P=8": (8, 1),
+                  "ftcs P=7": (7, 3)}
+
+
+def sass_substeps(library):
+    """Instructions a sub-step in the innermost loops of the SASS_INSTANCES,
+    from ``cuobjdump -sass`` of a built library. A loop is a backward branch
+    and the instructions up to it; an innermost one holds no other. Its
+    SHFL.DOWN instructions count its sub-steps (each body shuffles down once).
+    Counted: its instructions less NOPs and less a block that holds the norm's
+    butterfly (SHFL.BFLY) behind a forward branch, over its sub-steps, and the
+    same by opcode. Returns {instance: [one dict a loop that holds a
+    sub-step]}, empty where ``cuobjdump`` is missing or fails: the count is
+    reported beside the timing and never stops it."""
+    import re
+    import shutil
+    from collections import Counter
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    try:
+        proc = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                              text=True, timeout=300)
+    except (OSError, subprocess.SubprocessError) as e:
+        log(f"[compare] no SASS count: {e}")
+        return {}
+    if proc.returncode != 0:
+        log(f"[compare] no SASS count: cuobjdump exited {proc.returncode}")
+        return {}
+    text = proc.stdout
+    wanted = {v: k for k, v in SASS_INSTANCES.items()}
+    out = {}
+    for chunk in text.split("Function : ")[1:]:
+        m = re.search(r"interval_kernelILi(\d+)ELi(\d+)E(Lb0E)?E", chunk.split("\n", 1)[0])
+        if not m or (int(m[1]), int(m[2])) not in wanted:
+            continue
+        ins = []
+        for addr, body in re.findall(r"/\*([0-9a-f]+)\*/\s+([^;]*?)\s*;", chunk):
+            words = body.split()
+            op = words[1] if words[0].startswith("@") else words[0]
+            target = re.findall(r"0x([0-9a-f]+)", body) if op.startswith("BRA") else []
+            ins.append((int(addr, 16), op, int(target[-1], 16) if target else None))
+        back = [(t, a) for a, _, t in ins if t is not None and t <= a]
+        loops = []
+        for lo, hi in back:
+            if any(lo <= a < hi for _, a in back):
+                continue  # holds an inner loop
+            body = [(a, op, t) for a, op, t in ins if lo <= a <= hi]
+            substeps = sum(op.startswith("SHFL.DOWN") for _, op, _ in body)
+            if not substeps:
+                continue
+            bfly = [a for a, op, _ in body if op.startswith("SHFL.BFLY")]
+            guards = [(a, t) for a, op, t in body if t is not None and t > a and bfly
+                      and a < min(bfly) and t > max(bfly)]
+            skip = min(guards, key=lambda g: g[1] - g[0]) if guards else None
+            hidden = [a for a, _, _ in body if skip and skip[0] < a < skip[1]]
+            kept = [op for a, op, _ in body if not op.startswith("NOP")
+                    and a not in hidden]
+            loops.append({"substeps": substeps, "instructions": len(kept),
+                          "per_substep": len(kept) / substeps,
+                          "norm_block": len(hidden),
+                          "ops": {k: v / substeps for k, v in
+                                  Counter(op.split(".")[0] for op in kept).most_common()}})
+        out[wanted[(int(m[1]), int(m[2]))]] = loops
+    return out
+
+
 def compare(roots):
-    """``python3 chip_smoke.py --compare ROOT [ROOT ...]``: time B5 and B6
+    """``python3 chip_smoke.py --compare ROOT [ROOT ...]``: time B2 to B6
     (:func:`time_kernels`) of several copies of the port on one card. Each
     ROOT holds a ``pdecontrolgym_tpu_torch`` package (``.`` is this
     checkout): an unpacked older commit, or a copy with one design step taken
     out. The roots are built first, all at once, each with the compiler's
-    register and spill counts; then each is timed in a process of its own in
-    the order given (give a root first and last to see the card drift).
-    Prints a line for each root and kernel, the card's name and power limit,
-    and last one JSON object with every number."""
+    register and spill counts and the SASS instructions a sub-step of the
+    explicit interval kernels (:func:`sass_substeps`); then each is timed in a
+    process of its own in the order given (give a root first and last to see
+    the card drift). Prints a line for each root and kernel, the card's name
+    and power limit, and last one JSON object with every number."""
     import re
 
     import torch
 
     card = phase_device(torch)
     build = ("import sys; sys.path.insert(0, sys.argv[1]); "
-             "from pdecontrolgym_tpu_torch.ops import _build; _build.build(verbose=True)")
+             "from pdecontrolgym_tpu_torch.ops import _build; print(_build.build(verbose=True))")
     jobs = {r: subprocess.Popen([sys.executable, "-c", build, os.path.abspath(r)],
                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for r in dict.fromkeys(roots)}
+    sass = {}
     for r, proc in jobs.items():
         text = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"{r}: the build failed\n{text[-4000:]}")
-        # registers and spilled bytes of the B6 instances and of B5 at K=9 (n=257)
-        regs, spills = {}, 0
+        # registers and spilled bytes of the B6 instances, of B5 at K=9
+        # (n=257) and of the explicit interval kernels at the main paths' P
+        regs, spills, explicit = {}, 0, 0
         for chunk in text.split("Compiling entry function")[1:]:
             name = re.search(r"(ns_step_kernel|pcr_interval_kernel)ILi(\d+)E(Lb([01])E)?",
                              chunk)
+            inst = re.search(r"interval_kernelILi(\d+)ELi(\d+)E(Lb([01])E)?", chunk)
             used = re.search(r"Used (\d+) registers", chunk)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
             n_spill = int(spill.group(1)) + int(spill.group(2)) if spill else 0
@@ -1836,7 +1940,22 @@ def compare(roots):
                 big = f",{name.group(4)}" if name.group(3) else ""
                 regs[f"{name.group(1)}<{name.group(2)}{big}>"] = (
                     f"{used.group(1)} registers, {n_spill} B spilled")
-        log(f"[compare] {r}: built; {regs}; {spills} bytes of spills in all")
+            elif inst and used and not name:
+                explicit += 1
+                key = (int(inst.group(1)), int(inst.group(2)))
+                if key in SASS_INSTANCES.values() and inst.group(4) != "1":
+                    regs[f"interval_kernel<{key[0]},{key[1]}>"] = (
+                        f"{used.group(1)} registers, {n_spill} B spilled")
+        log(f"[compare] {r}: built; {explicit} explicit interval kernels; {regs}; "
+            f"{spills} bytes of spills in all")
+        sass[r] = sass_substeps(text.strip().splitlines()[-1])
+        for inst, loops in sass[r].items():
+            for loop in loops:
+                ops = ", ".join(f"{k} {v:g}" for k, v in loop["ops"].items())
+                log(f"[compare] {r} SASS {inst} (Dirichlet): a loop of {loop['substeps']} "
+                    f"sub-steps, {loop['instructions']} instructions (less NOPs and a "
+                    f"norm block of {loop['norm_block']}): {loop['per_substep']:g} a "
+                    f"sub-step; by opcode a sub-step: {ops}")
     results = []
     for r in roots:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-root", r],
@@ -1846,11 +1965,12 @@ def compare(roots):
         numbers = json.loads(proc.stdout.strip().splitlines()[-1])
         results.append({"root": r, **numbers})
         for name, v in numbers.items():
-            log(f"[compare] {r} {name}: {v['ms']:.4f} ms per call (20 back to back, CUDA "
-                f"events, median of 5), max_abs_err against the plain version "
+            log(f"[compare] {r} {name}: {v['device_ms']:.4f} ms on the device per launch "
+                f"(torch.profiler, 10 calls); {v['ms']:.4f} ms per call (20 back to back, "
+                f"CUDA events, median of 5); max_abs_err against the plain version "
                 f"{v['max_abs_err']:.3e} ({card})")
     print(card, flush=True)
-    print(json.dumps({"card": card, "results": results}), flush=True)
+    print(json.dumps({"card": card, "results": results, "sass": sass}), flush=True)
 
 
 def time_root(root):

@@ -7,50 +7,72 @@
 // pdecontrolgym_tpu_torch/ops/interval1d.py, whose interval_plain is the oracle
 // this kernel is tested against.
 //
-// Design. One warp per env. Lane l holds the P = ceil(nx / 32) consecutive
-// points l*P .. l*P+P-1 of the row in registers (P <= 16, so nx <= 512);
-// points at or past nx are padding, held at zero and never read by a valid
-// point. The row is loaded once, advanced S sub-steps, and stored
-// once, so device memory sees 2*nx floats per env per interval (plus beta for
-// transport) against S*nx point updates: the kernel is bound by the issue rate
-// of its arithmetic and shuffles, and by the latency of the shuffle chain in
-// each sub-step, not by memory. 4096 envs are 4096 warps, about 31 on each of
-// the 132 SMs, all resident at once; the sub-steps of one env are serial, so
-// more parallelism per env would have to come from splitting a row over more
-// lanes, or from several envs per warp at small nx. Neighbour reads cross lanes
-// by warp shuffles: u[i+1] from the next lane (__shfl_down_sync), u_old[0]
-// from lane 0 (__shfl_sync), the Burgers flux fr[i-1] and the FTCS u[i-1]
-// from the previous lane (__shfl_up_sync). The L2 norm is a butterfly reduction (__shfl_xor_sync),
-// taken only after the sub-steps listed in the norm positions. t and the
-// boundary sum stay in registers. All lanes of a warp share one env, so every
-// branch on t is uniform across the warp.
+// What bounds it. The row is loaded once, advanced S sub-steps in registers,
+// and stored once: device memory sees about 3*nx floats an env and interval
+// against S*nx point updates of 4 (FTCS) to 16 (Rusanov) float operations. So
+// the kernel is bound by the issue rate of its instructions: 4096 envs are
+// 4096 warps, about 8 on each of the card's 528 schedulers (in blocks of 8
+// warps), each warp issuing its sub-steps one after the other. Built with
+// -fmad=false (point 4 below), every mul and add issues on its own, so the
+// float floor is twice the operation bound that chip_smoke.py's
+// interval_bound counts at 67 TFLOP/s. Beyond the float
+// operations a sub-step issues two shuffles, a select for each special row,
+// two for the ghost slot and about one loop instruction, whatever the points a
+// lane: at P = 7, FTCS issues about 35 instructions a sub-step where its float
+// operations are 28 (chip_smoke.py --compare counts them in the SASS).
 //
-// Points where the TPU kernel could go wrong, and what this one does:
+// Layout. One warp per env; lane l holds P = ceil(nx / 32) consecutive points
+// in registers (P <= 16, so nx <= 512). With g = 32*P - nx, the g lanes
+// l < g are short: they hold P - 1 points and their slot P-1 is a ghost; the
+// others hold P. So lane l's slot 0 is row l*P - min(l, g), row 0 is always
+// slot 0 of lane 0 and row nx-1 slot P-1 of lane 31: both special rows sit at
+// slots the compiler knows, and each is set by one select on a predicate
+// hoisted out of the loop. (P = 1 is the exception: lane l holds row l, the
+// lanes l >= nx are ghosts, and row nx-1 is lane nx-1.) Neighbours cross
+// lanes by warp shuffles: u[i+1] of a lane's last point is slot 0 of the next
+// lane (__shfl_down_sync); u[i-1] of slot 0, and the Burgers flux left of it,
+// is the previous lane's last point (__shfl_up_sync of a selected slot);
+// transport's u_old[0] is slot 0 of lane 0 (__shfl_sync). The L2 norm is a
+// butterfly reduction (__shfl_xor_sync) taken only at the listed positions.
+//
+// Loop. The sub-steps run in stretches between the norm positions, unrolled
+// by 4, with no clock or position test inside: an env runs
+// min(S, max(0, nt - 1 - t0)) sub-steps (all S on the fast path, t0 + S <=
+// nt - 1) and then holds its state, so the masked path is the same loop cut
+// short. The boundary control type (Dirichlet or Neumann) is a template
+// parameter, so a Dirichlet instance carries no Neumann code.
+//
+// Points where the kernel could go wrong, and what it does:
 // 1. Norm slots. The TPU kernel writes only the slots j % Wp of the listed
 //    positions and leaves the others unwritten (garbage). Here the wrapper
-//    zero-fills norms_win and the kernel writes the same slots only.
-// 2. u_old[0]. Every transport point reads u[0] from before the sub-step. It
-//    is read by shuffle from registers before any lane writes its new row,
-//    so this holds by construction.
-// 3. Burgers boundaries. Neumann reads the old u[nx-2] (gathered before the
-//    update); row 0 takes the new un[1]; the flux at face nx-1 (against a
-//    padding point) is never used by a point below nx-1, and row nx-1 is
-//    overwritten by the boundary; the flux left of row 0 (lane 0 shuffles up
-//    its own value) is garbage, and row 0 is overwritten by un[1].
+//    zero-fills norms_win, passes the positions sorted, distinct and inside
+//    [0, S), and the kernel writes those slots only.
+// 2. The ghost slot. It is never loaded, stored or summed into the norm (a
+//    select, not a product, so a non-finite ghost cannot leak), and never read
+//    by a real point: the short lane's last real point takes u[i+1] from the
+//    next lane, and the previous-lane shuffle sends the last real point. What
+//    it computes is garbage, and may overflow.
+// 3. Special rows. Every slot runs the interior formula; then row 0 (FTCS:
+//    +0; Burgers: the new un[1]) and row nx-1 (the boundary) are selected in.
+//    A select keeps the plain version's values exactly, non-finite ones too.
 // 4. Rounding. Built with -fmad=false, so each operation rounds as the plain
 //    version's separate tensor operations do. The expressions below keep the
-//    plain version's association term by term.
-// 5. The boundary value. ctrl arrives already transformed by the env. For
-//    Burgers with Neumann control it is the raw action and the body forms
-//    ctrl*dx + u_old[nx-2].
-// 6. Fast and masked paths are chosen per env (t0 + S <= nt - 1), not per tile.
-//    A fast env with a boundary constant over the interval adds S*|ctrl| once.
-// 7. The FTCS diagonal (1 - 2F) + beta*dt. The TPU body forms 1 - 2F in
-//    float32; here the wrapper does the same and passes it in as c2, and the
-//    kernel adds beta*dt once per interval and keeps the diagonal in registers.
-//    Row 0 is the fixed u(0,t) = 0: lane 0's shuffle from "the previous lane"
-//    returns its own value, which row 0 never uses. The sum u[i-1] + u[i+1] is
-//    taken first, then scaled by F.
+//    plain version's association term by term, so the state equals
+//    interval_plain's to the bit; the norms are sums in another order. The
+//    Burgers flux takes max.NaN, which propagates NaN as torch.maximum does,
+//    so a row that holds inf or NaN evolves as the plain version's does too.
+// 5. Boundary values. ctrl arrives already transformed by the env. Neumann
+//    control forms ctrl*dx + u_old[nx-2] from the register of lane 31 (a
+//    shuffle at P = 1) before the update; the boundary and its sum live in
+//    lane 31.
+// 6. Fast and masked paths are chosen per env, not per tile. A fast env with a
+//    boundary constant over the interval adds S*|ctrl| once; every other env
+//    adds |boundary| after each sub-step it runs, as the plain version does.
+// 7. Body details. FTCS: the diagonal (1 - 2F) + beta*dt is formed once an
+//    interval (the wrapper passes 1 - 2F rounded to float32 as c2), and the
+//    sum u[i-1] + u[i+1] is taken before it is scaled by F. Transport: every
+//    point reads u[0] from before the sub-step. Burgers: the flux at the face
+//    right of row nx-1, and the one left of row 0, are garbage and never used.
 
 #include "interval1d_common.cuh"
 
@@ -63,185 +85,261 @@ constexpr int kWarpsPerBlock = 8;
 enum Body { kTransport = 0, kGodunov = 1, kRusanov = 2, kFtcs = 3 };
 
 struct Params : IntervalArgs {
-  int neumann;
   // transport: c0 = dt/dx, c1 = dt
   // Burgers:   c0 = 0.5*dt/dx, c1 = 0.25*dt/dx, c2 = nu*dt/dx^2, c3 = dx
   // FTCS:      c0 = F = dt/dx^2, c1 = dt, c2 = 1 - 2F, c3 = dx
   float c0, c1, c2, c3;
 };
 
+// Which points of the row a lane holds (see "Layout" above).
 template <int P>
-__device__ __forceinline__ float row_norm(const float (&v)[P]) {
+struct Lane {
+  int base;    // the row of slot 0
+  bool shrt;   // slot P-1 is a ghost (at P = 1: the lane holds no point)
+  bool first;  // holds row 0, in slot 0
+  bool last;   // holds row nx-1, in slot P-1
+
+  __device__ __forceinline__ Lane(int lane, int nx) {
+    if constexpr (P == 1) {
+      base = lane;
+      shrt = lane >= nx;
+      last = lane == nx - 1;
+    } else {
+      const int g = 32 * P - nx;
+      base = lane * P - min(lane, g);
+      shrt = lane < g;
+      last = lane == 31;
+    }
+    first = lane == 0;
+  }
+
+  __device__ __forceinline__ bool holds(int k) const { return k < P - 1 || !shrt; }
+};
+
+// u[i+1] for slot k; `next` is the next lane's slot 0.
+template <int P>
+__device__ __forceinline__ float up_of(const float (&v)[P], int k, float next,
+                                       const Lane<P>& L) {
+  if (k == P - 1) return next;
+  if (k == P - 2) return L.shrt ? next : v[P - 1];
+  return v[k + 1];
+}
+
+// The lane's last real point of `v`, which the next lane reads as u[i-1].
+template <int P>
+__device__ __forceinline__ float last_point(const float (&v)[P], const Lane<P>& L) {
+  if constexpr (P == 1) {
+    return v[0];
+  } else {
+    return L.shrt ? v[P - 2] : v[P - 1];
+  }
+}
+
+// u[nx-2] before the sub-step, in the lane that holds row nx-1.
+template <int P>
+__device__ __forceinline__ float old_nm2(const float (&v)[P], int nx) {
+  if constexpr (P == 1) {
+    return __shfl_sync(kFull, v[0], nx - 2);
+  } else {
+    return v[P - 2];
+  }
+}
+
+template <int P>
+__device__ __forceinline__ float row_norm(const float (&v)[P], const Lane<P>& L) {
   float s = 0.f;
 #pragma unroll
-  for (int k = 0; k < P; ++k) s += v[k] * v[k];
+  for (int k = 0; k < P - 1; ++k) s += v[k] * v[k];
+  s += L.shrt ? 0.f : v[P - 1] * v[P - 1];
   return sqrtf(warp_sum(s));
 }
 
-// u[nx-2] as it is before the sub-step, in every lane (the Neumann boundary).
-template <int P>
-__device__ __forceinline__ float old_nm2(const float (&v)[P], const Params& p,
-                                         int base) {
-  float mine = 0.f;
-#pragma unroll
-  for (int k = 0; k < P; ++k)
-    if (base + k == p.nx - 2) mine = v[k];
-  return __shfl_sync(kFull, mine, (p.nx - 2) / P);
+// max(a, b), NaN if either is NaN, as torch.maximum and clamp_min give it
+// (fmaxf would return the other operand).
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 // One transport sub-step in place; returns the boundary value.
 template <int P>
 __device__ __forceinline__ float transport_substep(float (&v)[P], const float (&bdt)[P],
                                                    float ctrl, const Params& p,
-                                                   int base) {
+                                                   const Lane<P>& L) {
   const float u0 = __shfl_sync(kFull, v[0], 0);
   const float next = __shfl_down_sync(kFull, v[0], 1);
   float un[P];
 #pragma unroll
-  for (int k = 0; k < P; ++k) {
-    const int i = base + k;
-    const float up = (k + 1 < P) ? v[k + 1] : next;
-    const float interior = v[k] + p.c0 * (up - v[k]) + u0 * bdt[k];
-    un[k] = (i < p.nx - 1) ? interior : ((i == p.nx - 1) ? ctrl : 0.f);
-  }
+  for (int k = 0; k < P; ++k)
+    un[k] = v[k] + p.c0 * (up_of<P>(v, k, next, L) - v[k]) + u0 * bdt[k];
+  un[P - 1] = L.last ? ctrl : un[P - 1];
 #pragma unroll
   for (int k = 0; k < P; ++k) v[k] = un[k];
   return ctrl;
 }
 
 // One Burgers sub-step in place; returns the boundary value.
-template <int P, int BODY>
+template <int P, int BODY, bool NEUMANN>
 __device__ __forceinline__ float burgers_substep(float (&v)[P], float ctrl,
-                                                 const Params& p, int base) {
-  const float nm2 = old_nm2<P>(v, p, base);
+                                                 const Params& p, const Lane<P>& L) {
+  float boundary = ctrl;
+  if constexpr (NEUMANN) boundary = ctrl * p.c3 + old_nm2<P>(v, p.nx);
   const float next = __shfl_down_sync(kFull, v[0], 1);
   float fr[P];
 #pragma unroll
   for (int k = 0; k < P; ++k) {
     const float ul = v[k];
-    const float ur = (k + 1 < P) ? v[k + 1] : next;
+    const float ur = up_of<P>(v, k, next, L);
     float f;
-    if (BODY == kGodunov) {
-      const float m = fmaxf(fmaxf(ul, -ur), 0.f);
+    if constexpr (BODY == kGodunov) {
+      const float m = max_nan(max_nan(ul, -ur), 0.f);
       f = p.c0 * (m * m);
     } else {
-      const float coef = p.c0 * fmaxf(fabsf(ul), fabsf(ur));
+      const float coef = p.c0 * max_nan(fabsf(ul), fabsf(ur));
       f = p.c1 * (ul * ul + ur * ur) - coef * (ur - ul);
     }
     if (p.c2 != 0.f) f = f - p.c2 * (ur - ul);
     fr[k] = f;
   }
-  const float fl_first = __shfl_up_sync(kFull, fr[P - 1], 1);
+  const float fl_first = __shfl_up_sync(kFull, last_point<P>(fr, L), 1);
   float un[P];
 #pragma unroll
-  for (int k = 0; k < P; ++k) {
-    const float fl = (k > 0) ? fr[k - 1] : fl_first;
-    un[k] = v[k] - (fr[k] - fl);
+  for (int k = 0; k < P; ++k) un[k] = v[k] - (fr[k] - ((k > 0) ? fr[k - 1] : fl_first));
+  // row 0 takes the new un[1] (zero-gradient outflow)
+  float un1;
+  if constexpr (P == 1) {
+    un1 = __shfl_sync(kFull, un[0], 1);
+  } else if constexpr (P == 2) {
+    const float lane1 = __shfl_down_sync(kFull, un[0], 1);
+    un1 = L.shrt ? lane1 : un[1];  // a short lane 0 holds row 0 only
+  } else {
+    un1 = un[1];
   }
-  const float boundary = p.neumann ? ctrl * p.c3 + nm2 : ctrl;
-  // new un[1] for the zero-gradient outflow at row 0
-  const float un1 = __shfl_sync(kFull, un[1 % P], 1 / P);
-#pragma unroll
-  for (int k = 0; k < P; ++k) {
-    const int i = base + k;
-    v[k] = (i == 0) ? un1
-         : (i < p.nx - 1) ? un[k]
-         : (i == p.nx - 1) ? boundary : 0.f;
-  }
-  return boundary;
-}
-
-// One FTCS sub-step in place; returns the boundary value.
-template <int P>
-__device__ __forceinline__ float ftcs_substep(float (&v)[P], const float (&diag)[P],
-                                              float ctrl, const Params& p, int base) {
-  const float nm2 = old_nm2<P>(v, p, base);
-  const float prev = __shfl_up_sync(kFull, v[P - 1], 1);
-  const float next = __shfl_down_sync(kFull, v[0], 1);
-  const float boundary = p.neumann ? ctrl * p.c3 + nm2 : ctrl;
-  float un[P];
-#pragma unroll
-  for (int k = 0; k < P; ++k) {
-    const int i = base + k;
-    const float um = (k > 0) ? v[k - 1] : prev;
-    const float up = (k + 1 < P) ? v[k + 1] : next;
-    const float interior = v[k] * diag[k] + p.c0 * (um + up);
-    un[k] = (i >= 1 && i < p.nx - 1) ? interior : ((i == p.nx - 1) ? boundary : 0.f);
-  }
+  un[0] = L.first ? un1 : un[0];
+  un[P - 1] = L.last ? boundary : un[P - 1];
 #pragma unroll
   for (int k = 0; k < P; ++k) v[k] = un[k];
   return boundary;
 }
 
-template <int P, int BODY>
+// One FTCS sub-step in place; returns the boundary value.
+template <int P, bool NEUMANN>
+__device__ __forceinline__ float ftcs_substep(float (&v)[P], const float (&diag)[P],
+                                              float ctrl, const Params& p,
+                                              const Lane<P>& L) {
+  float boundary = ctrl;
+  if constexpr (NEUMANN) boundary = ctrl * p.c3 + old_nm2<P>(v, p.nx);
+  const float prev = __shfl_up_sync(kFull, last_point<P>(v, L), 1);
+  const float next = __shfl_down_sync(kFull, v[0], 1);
+  float un[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const float um = (k > 0) ? v[k - 1] : prev;
+    un[k] = v[k] * diag[k] + p.c0 * (um + up_of<P>(v, k, next, L));
+  }
+  un[0] = L.first ? 0.f : un[0];  // the fixed u(0, t) = 0
+  un[P - 1] = L.last ? boundary : un[P - 1];
+#pragma unroll
+  for (int k = 0; k < P; ++k) v[k] = un[k];
+  return boundary;
+}
+
+template <int P, int BODY, bool NEUMANN>
+__device__ __forceinline__ float substep(float (&v)[P], const float (&aux)[P], float ctrl,
+                                         const Params& p, const Lane<P>& L) {
+  if constexpr (BODY == kTransport) {
+    return transport_substep<P>(v, aux, ctrl, p, L);
+  } else if constexpr (BODY == kFtcs) {
+    return ftcs_substep<P, NEUMANN>(v, aux, ctrl, p, L);
+  } else {
+    return burgers_substep<P, BODY, NEUMANN>(v, ctrl, p, L);
+  }
+}
+
+// Sub-steps j .. end-1; with ACC, adds each one's |boundary| to bsum.
+template <int P, int BODY, bool NEUMANN, bool ACC>
+__device__ __forceinline__ void run(float (&v)[P], const float (&aux)[P], float ctrl,
+                                    const Params& p, const Lane<P>& L, int& j, int end,
+                                    float& bsum) {
+#pragma unroll 4
+  for (; j < end; ++j) {
+    const float boundary = substep<P, BODY, NEUMANN>(v, aux, ctrl, p, L);
+    if constexpr (ACC) bsum = bsum + fabsf(boundary);
+  }
+}
+
+template <int P, int BODY, bool NEUMANN>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 interval_kernel(const Params p) {
   const int lane = threadIdx.x & 31;
   const int env = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (env >= p.B) return;  // whole warp: env is uniform across it
-  const int base = lane * P;
-  const size_t row = static_cast<size_t>(env) * p.nx;
+  const Lane<P> L(lane, p.nx);
+  const size_t row = static_cast<size_t>(env) * p.nx + L.base;
 
   float v[P];
   float aux[P];  // transport: dt * beta; FTCS: (1 - 2F) + beta * dt
 #pragma unroll
   for (int k = 0; k < P; ++k) {
-    const int i = base + k;
-    v[k] = (i < p.nx) ? p.u[row + i] : 0.f;
-    const bool reads_beta = (BODY == kTransport || BODY == kFtcs) && i < p.nx;
-    const float bdt = reads_beta ? p.beta[row + i] * p.c1 : 0.f;
-    aux[k] = (BODY == kFtcs) ? p.c2 + bdt : bdt;
+    v[k] = L.holds(k) ? p.u[row + k] : 0.f;
+    if constexpr (BODY == kTransport || BODY == kFtcs) {
+      const float bdt = L.holds(k) ? p.beta[row + k] * p.c1 : 0.f;
+      aux[k] = (BODY == kFtcs) ? p.c2 + bdt : bdt;
+    } else {
+      aux[k] = 0.f;
+    }
   }
   const float ctrl = p.ctrl[env];
   const int t0 = p.t0[env];
   const bool fast = t0 + p.S <= p.nt - 1;
-  const bool bconst = (BODY == kTransport) || !p.neumann;
+  const int n_run = fast ? p.S : max(0, min(p.S, p.nt - 1 - t0));
+  constexpr bool bconst = BODY == kTransport || !NEUMANN;
+  const bool acc = !(fast && bconst);
   float* nrow = p.norms + static_cast<size_t>(env) * p.Wp;
 
-  int t = t0;
   float bsum = 0.f;
-  int next_pos = 0;
-  int next_j = p.pos.n > 0 ? p.pos.j[0] : -1;  // the sorted positions, one at a time
-  for (int j = 0; j < p.S; ++j) {
-    const bool active = fast || t < p.nt - 1;
-    if (active) {
-      float boundary;
-      if constexpr (BODY == kTransport)
-        boundary = transport_substep<P>(v, aux, ctrl, p, base);
-      else if constexpr (BODY == kFtcs)
-        boundary = ftcs_substep<P>(v, aux, ctrl, p, base);
-      else
-        boundary = burgers_substep<P, BODY>(v, ctrl, p, base);
-      if (!(fast && bconst)) bsum = bsum + fabsf(boundary);
-      ++t;
-    }
-    if (j == next_j) {
-      const float n = row_norm<P>(v);
-      if (lane == 0) nrow[j % p.Wp] = n;
-      ++next_pos;
-      next_j = next_pos < p.pos.n ? p.pos.j[next_pos] : -1;
+  int j = 0;
+  // the sorted positions, each after the stretch of sub-steps up to it
+  for (int q = 0; q <= p.pos.n; ++q) {
+    const int end = (q < p.pos.n) ? min(p.pos.j[q] + 1, n_run) : n_run;
+    if (acc)
+      run<P, BODY, NEUMANN, true>(v, aux, ctrl, p, L, j, end, bsum);
+    else
+      run<P, BODY, NEUMANN, false>(v, aux, ctrl, p, L, j, end, bsum);
+    if (q < p.pos.n) {
+      const float n = row_norm<P>(v, L);
+      if (lane == 0) nrow[p.pos.j[q] % p.Wp] = n;
     }
   }
-  if (fast && bconst) bsum = static_cast<float>(p.S) * fabsf(ctrl);
+  if (!acc) bsum = static_cast<float>(p.S) * fabsf(ctrl);
 
 #pragma unroll
-  for (int k = 0; k < P; ++k) {
-    const int i = base + k;
-    if (i < p.nx) p.u_out[row + i] = v[k];
-  }
-  if (lane == 0) {
+  for (int k = 0; k < P; ++k)
+    if (L.holds(k)) p.u_out[row + k] = v[k];
+  if (lane == 31) {  // the lane of row nx-1 and its boundary (uniform at P = 1)
     p.bsum[env] = bsum;
-    p.t_out[env] = t;
+    p.t_out[env] = t0 + n_run;
   }
 }
 
+template <int P, int BODY>
+void launch_b(int neumann, const Params& p, dim3 grid, dim3 block, cudaStream_t s) {
+  if (neumann)
+    interval_kernel<P, BODY, true><<<grid, block, 0, s>>>(p);
+  else
+    interval_kernel<P, BODY, false><<<grid, block, 0, s>>>(p);
+}
+
 template <int P>
-void launch_p(int body, const Params& p, dim3 grid, dim3 block, cudaStream_t s) {
+void launch_p(int body, int neumann, const Params& p, dim3 grid, dim3 block,
+              cudaStream_t s) {
   switch (body) {
-    case kTransport: interval_kernel<P, kTransport><<<grid, block, 0, s>>>(p); break;
-    case kGodunov: interval_kernel<P, kGodunov><<<grid, block, 0, s>>>(p); break;
-    case kRusanov: interval_kernel<P, kRusanov><<<grid, block, 0, s>>>(p); break;
-    default: interval_kernel<P, kFtcs><<<grid, block, 0, s>>>(p); break;
+    // transport's boundary is ctrl under either control type
+    case kTransport: interval_kernel<P, kTransport, false><<<grid, block, 0, s>>>(p); break;
+    case kGodunov: launch_b<P, kGodunov>(neumann, p, grid, block, s); break;
+    case kRusanov: launch_b<P, kRusanov>(neumann, p, grid, block, s); break;
+    default: launch_b<P, kFtcs>(neumann, p, grid, block, s); break;
   }
 }
 
@@ -251,7 +349,7 @@ extern "C" {
 
 // Launches one interval on `stream`. Returns cudaGetLastError() after the
 // launch (0 on success); does not synchronise. `positions` is a host array of
-// n_pos sorted sub-step offsets.
+// n_pos sub-step offsets, sorted, distinct and inside [0, S).
 int interval1d_launch(const float* u, const float* beta, const float* ctrl,
                       const int* t0, float* u_out, float* norms, float* bsum,
                       int* t_out, int B, int nx, int S, int nt, int Wp,
@@ -268,20 +366,19 @@ int interval1d_launch(const float* u, const float* beta, const float* ctrl,
   if (B == 0) return 0;
   err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  p.neumann = neumann;
   p.c0 = c0; p.c1 = c1; p.c2 = c2; p.c3 = c3;
 
   const dim3 block(kWarpsPerBlock * 32);
   const dim3 grid((B + kWarpsPerBlock - 1) / kWarpsPerBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((nx + 31) / 32) {  // points a lane
-#define PDECG_CASE(P) case P: launch_p<P>(body, p, grid, block, s); break;
+#define PDECG_CASE(P) case P: launch_p<P>(body, neumann, p, grid, block, s); break;
     PDECG_CASE(1) PDECG_CASE(2) PDECG_CASE(3) PDECG_CASE(4)
     PDECG_CASE(5) PDECG_CASE(6) PDECG_CASE(7) PDECG_CASE(8)
     PDECG_CASE(9) PDECG_CASE(10) PDECG_CASE(11) PDECG_CASE(12)
     PDECG_CASE(13) PDECG_CASE(14) PDECG_CASE(15)
 #undef PDECG_CASE
-    default: launch_p<16>(body, p, grid, block, s); break;
+    default: launch_p<16>(body, neumann, p, grid, block, s); break;
   }
   return static_cast<int>(cudaGetLastError());
 }

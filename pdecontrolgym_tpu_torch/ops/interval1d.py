@@ -27,11 +27,13 @@ Two implementations, one contract:
 - :func:`interval_plain`, PyTorch on ``(B, nx)`` tensors, a Python loop over
   the S sub-steps. The CPU path, and the oracle for the kernel.
 - ``csrc/interval1d.cu``, CUDA C++ for ``sm_90a``: one warp per env, the row
-  held in registers for the whole interval (see the note at the top of that
-  file for what bounds it on the card). It serves the explicit bodies; the
-  implicit θ-scheme body, whose sub-step is a parallel-cyclic-reduction solve,
-  has a kernel of its own, ``csrc/interval1d_pcr.cu`` (one warp per env, the
-  elimination factors and the right-hand side in shared memory).
+  held in registers for the whole interval, row 0 and row nx-1 at fixed
+  register slots, the sub-steps unrolled between the norm positions (see the
+  note at the top of that file for the layout and what bounds it on the card).
+  It serves the explicit bodies; the implicit θ-scheme body, whose sub-step is
+  a parallel-cyclic-reduction solve, has a kernel of its own,
+  ``csrc/interval1d_pcr.cu`` (one warp per env, the state and right-hand side
+  in registers, the elimination factors in shared memory).
 
 :func:`interval` dispatches on the tensors' device: the plain version for CPU
 tensors, the kernel for CUDA tensors. It never falls back from one to the
@@ -362,7 +364,10 @@ def _interval_cuda(spec: IntervalSpec, u, beta, ctrl, t0):
             f"interval kernel: state_dim {nx} > {MAX_NX} (one warp per env holds "
             "at most 16 points a lane); wider rows are ROADMAP A2's crossover work"
         )
-    positions = tuple(int(j) for j in spec.norm_positions)
+    # the kernels take the positions sorted, distinct and inside [0, S): the
+    # others name no sub-step, and the plain version ignores them too
+    S = spec.sample_rate
+    positions = tuple(sorted({int(j) for j in spec.norm_positions if 0 <= int(j) < S}))
     if len(positions) > MAX_POSITIONS:
         raise ValueError(
             f"interval kernel: {len(positions)} norm positions > {MAX_POSITIONS}"
@@ -378,7 +383,7 @@ def _interval_cuda(spec: IntervalSpec, u, beta, ctrl, t0):
     err = launch(
         u.data_ptr(), beta.data_ptr(), ctrl.data_ptr(), t0.data_ptr(),
         u_out.data_ptr(), norms.data_ptr(), bsum.data_ptr(), t_out.data_ptr(),
-        B, nx, spec.sample_rate, spec.nt, spec.wp,
+        B, nx, S, spec.nt, spec.wp,
         pos_arr, len(positions),
         *spec.body.consts(),
         u.device.index if u.device.index is not None else torch.cuda.current_device(),

@@ -12,10 +12,10 @@ The case table and the inputs are shared with ``tests/test_torch_interval1d.py``
 which holds the plain version against the JAX package's Pallas kernel on the
 CPU. The kernels are built with ``-fmad=false`` and keep the plain version's
 association: ``t_out`` must be equal, ``u_out`` within rtol/atol 1e-6 (2e-5 for
-the implicit body, the JAX package's bands) and equal to the bit for the PCR
-kernel, ``bsum_add`` rtol 1e-4, the norms rtol 1e-5 (sums of squares taken in
-another order). ``chip_smoke.py`` makes the same comparison at the main paths'
-shapes.
+the implicit body, the JAX package's bands) over the case table and equal to
+the bit in the cases at rows of 3 to ``MAX_NX`` points, ``bsum_add`` rtol 1e-4,
+the norms rtol 1e-5 (sums of squares taken in another order).
+``chip_smoke.py`` makes the same comparison at the main paths' shapes.
 """
 
 import numpy as np
@@ -30,7 +30,13 @@ from pdecontrolgym_tpu_torch.envs.reaction_diffusion import (
 )
 from pdecontrolgym_tpu_torch.envs.transport import TransportEnv
 from pdecontrolgym_tpu_torch.ops import interval1d
-from pdecontrolgym_tpu_torch.ops.interval1d import IntervalSpec, ReactionDiffusionImplicitBody
+from pdecontrolgym_tpu_torch.ops.interval1d import (
+    BurgersBody,
+    IntervalSpec,
+    ReactionDiffusionBody,
+    ReactionDiffusionImplicitBody,
+    TransportBody,
+)
 from pdecontrolgym_tpu_torch.rewards.tuned import TunedReward1D
 
 B = 8
@@ -196,3 +202,97 @@ def test_cuda_pcr_kernel_rejects_rows_above_its_cap():
     with pytest.raises(ValueError, match="state_dim"):
         interval1d.interval(spec, u, u.clone(), torch.zeros((2, 1), device="cuda"),
                             torch.zeros((2, 1), dtype=torch.int32, device="cuda"))
+
+
+# rows of every points-a-lane P = 1 .. 16 of the explicit kernel, with and
+# without short lanes (32*P - n of them), and both ends of the cap
+EXPLICIT_NS = (3, 31, 32, 33, 100, 128, 129, 201, 256, 257, 511, 512)
+EXPLICIT_BODIES = (("transport", False), ("godunov", False), ("godunov", True),
+                   ("rusanov", False), ("rusanov", True), ("ftcs", False), ("ftcs", True))
+
+
+def explicit_body(name, n, neumann, viscosity=1e-3):
+    """``(body, family of inputs)`` of the explicit kernel at ``n`` points on
+    [0, 1], with a stable step: transport dt = dx/2, Burgers dt = dx/5, FTCS
+    F = dt/dx^2 = 0.4. Transport's boundary is ``ctrl`` under either control
+    type, so it has no Neumann form."""
+    dx = 1.0 / (n - 1)
+    if name == "transport":
+        return TransportBody(0.5 * dx, dx), "transport"
+    if name in ("godunov", "rusanov"):
+        return BurgersBody(0.2 * dx, dx, viscosity, neumann, name), "burgers"
+    return ReactionDiffusionBody(0.4 * dx * dx, dx, neumann), "rd"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fast", "terminal"])
+@pytest.mark.parametrize("body,neumann", EXPLICIT_BODIES)
+@pytest.mark.parametrize("n", EXPLICIT_NS)
+def test_cuda_explicit_kernel_equals_plain_version_to_the_bit(n, body, neumann, kind):
+    """The explicit kernel at rows of 3 to ``MAX_NX`` points, each body,
+    Dirichlet and Neumann control, every env on the fast path or a batch on
+    the masked one, norms after the first, a middle and the last sub-step: the
+    state equals the plain version's to the bit (the sign of a zero too),
+    ``t_out`` is equal, and the norms are written at those slots only."""
+    _need_card()
+    S, nt = 20, 200
+    b, family = explicit_body(body, n, neumann)
+    spec = IntervalSpec(b, S, nt, n, 101, (0, S // 2, S - 1))
+    u, beta, actions, t0 = (torch.from_numpy(a).cuda() for a in
+                            inputs(family, n, nt, S, kind, seed=n, batch=37))
+    ctrl = actions[:, None].contiguous()
+    (gu, gn, gb, gt), (wu, wn, wb, wt) = _launch_and_plain(spec, u, beta, ctrl, t0)
+    assert torch.equal(gt, wt)
+    assert torch.isfinite(gu).all()
+    assert torch.equal(gu.view(torch.int32), wu.view(torch.int32))
+    torch.testing.assert_close(gb, wb, rtol=1e-4, atol=0)
+    torch.testing.assert_close(gn, wn, rtol=1e-5, atol=0)
+    slots = sorted({j % spec.wp for j in spec.norm_positions})
+    assert bool(gn[:, slots].gt(0).all())
+    assert not bool(gn[:, [i for i in range(spec.wp) if i not in slots]].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body,neumann", EXPLICIT_BODIES)
+@pytest.mark.parametrize("n", (3, 33, 128, 201))
+def test_cuda_explicit_kernel_keeps_non_finite_rows_as_the_plain_version(n, body, neumann):
+    """Rows that hold inf or NaN at row 0, row 1, mid-row, row n-2 and row
+    n-1 (Burgers inviscid, where only the flux's max meets a NaN): the kernel
+    gives the same non-finite values at the same places as the plain version,
+    the finite ones equal, and the same norms; FTCS keeps row 0 at zero."""
+    _need_card()
+    S, nt = 20, 200
+    b, family = explicit_body(body, n, neumann, viscosity=0.0)
+    spec = IntervalSpec(b, S, nt, n, 101, (0, S // 2, S - 1))
+    u, beta, actions, t0 = inputs(family, n, nt, S, "fast", seed=n, batch=8)
+    for env, i, value in ((0, 0, np.inf), (1, 1, -np.inf), (2, n // 2, np.nan),
+                          (3, n - 2, np.inf), (4, n - 1, np.nan)):
+        u[env, i] = value
+    u, beta, actions, t0 = (torch.from_numpy(a).cuda() for a in (u, beta, actions, t0))
+    ctrl = actions[:, None].contiguous()
+    (gu, gn, gb, gt), (wu, wn, wb, wt) = _launch_and_plain(spec, u, beta, ctrl, t0)
+    assert not bool(torch.isfinite(wu).all())
+    assert torch.equal(gt, wt)
+    torch.testing.assert_close(gu, wu, rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(gb, wb, rtol=1e-4, atol=0, equal_nan=True)
+    torch.testing.assert_close(gn, wn, rtol=1e-5, atol=0, equal_nan=True)
+    if body == "ftcs":
+        assert not bool(gu[:, 0].any())
+
+
+@pytest.mark.cuda
+def test_cuda_explicit_kernel_takes_positions_as_the_plain_version():
+    """Norm positions unsorted, repeated and outside [0, S): the kernel writes
+    the slots of the positions inside [0, S), as the plain version does."""
+    _need_card()
+    S, nt, n = 20, 200, 201
+    b, family = explicit_body("ftcs", n, False)
+    spec = IntervalSpec(b, S, nt, n, 101, (S - 1, 3, -2, 3, S, 7))
+    u, beta, actions, t0 = (torch.from_numpy(a).cuda() for a in
+                            inputs(family, n, nt, S, "terminal", seed=1, batch=16))
+    ctrl = actions[:, None].contiguous()
+    (gu, gn, gb, gt), (wu, wn, wb, wt) = _launch_and_plain(spec, u, beta, ctrl, t0)
+    assert torch.equal(gu, wu) and torch.equal(gt, wt)
+    torch.testing.assert_close(gn, wn, rtol=1e-5, atol=0)
+    assert bool(gn[:, [3, 7, S - 1]].gt(0).all())
+    assert not bool(gn[:, [i for i in range(spec.wp) if i not in (3, 7, S - 1)]].any())
