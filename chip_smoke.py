@@ -50,8 +50,12 @@ JAX package), builds the CUDA kernels from ``csrc/`` and runs:
                 and 5 in the L2, L1 and max norms; the previous row; B = 5 and
                 4096; per-env perturbed rows, cone states and boundary indices
                 (the lowest stable one, mid-row, M-1; every other env's index
-                moves inside the block); clocks just below ``nt`` so that the
-                time reset fires inside the block; M = 25, 4 and 501.
+                moves inside the block); the episode's own state (L = 10 in
+                every env); every env's index at a slot edge of the kernel's
+                layout (15, 16, 17, 31, 32, 33, 47, 48, 63, 64, 95, 96,
+                M-1); clocks just below
+                ``nt`` so that the time reset fires inside the block; M = 25,
+                4 and 501.
 11. brain_kernel -- the brain-tumor day's field pass against its plain version:
                 the default 201-point domain and the 61-point one of the
                 tests at B = 4 and 4096; doses zero and non-zero; ``can``
@@ -82,9 +86,10 @@ JAX package), builds the CUDA kernels from ``csrc/`` and runs:
                 which are not traced.
 
 ``python3 chip_smoke.py --compare ROOT [ROOT ...]`` times the interval kernels
-(B2 to B5) and the projection-step kernel (B6) of several copies of the port
-in one run instead, with the SASS instructions a sub-step of the explicit
-interval kernel (see :func:`compare`).
+(B2 to B5), the projection-step kernel (B6), the neuron K-step block (B7, on
+three states) and the brain-tumor field pass (B8) of several copies of the
+port in one run instead, with the SASS instructions a sub-step of the explicit
+interval kernel and a dt-step of the neuron block (see :func:`compare`).
 
 Float32 matrix products of the plain versions must run in full float32: the
 script sets ``torch.backends.cuda.matmul.allow_tf32 = False`` itself.
@@ -954,13 +959,13 @@ def neuron_setup(torch, device, reward=False, **overrides):
     return env, policy, 10, cfg.steps_per_call
 
 
-def neuron_state(torch, env, B, lo, seed):
+def neuron_state(torch, env, B, lo, seed, every=None):
     """Perturbed rows (N(0, 1e-3) on tubulin of order 1e-2), per-env cone
     states, and boundary indices from ``lo`` up with ``lo``, mid-row and M-1
-    among them. Every other env's cone length stands 2.5 dt-steps of growth
-    below a rounding boundary of the grid index, so that its ``L`` moves inside
-    a block. At the default dx and dt the explicit scheme is stable from
-    L = 10 up (D dt / dxreal^2 = 0.5 there)."""
+    among them (or ``every`` in every env). Every other env's cone length
+    stands 2.5 dt-steps of growth below a rounding boundary of the grid index,
+    so that its ``L`` moves inside a block. At the default dx and dt the
+    explicit scheme is stable from L = 10 up (D dt / dxreal^2 = 0.5 there)."""
     import dataclasses
 
     import numpy as np
@@ -970,6 +975,8 @@ def neuron_state(torch, env, B, lo, seed):
     M, c = env.M, env.config
     L = rng.integers(lo, M, size=B)
     L[:3] = [lo, M // 2, M - 1][: min(3, B)]
+    if every is not None:
+        L[:] = every
     inc = c.RSubG * c.cInfty * c.dt / (env.scale * c.dx)  # index units a dt-step
     frac = np.where(np.arange(B) % 2 == 1, 0.5 - 2.5 * inc, 0.0)
 
@@ -1017,9 +1024,11 @@ def neuron_kernel_case(torch, label, env, state, K, window=0, ring_ord="2",
                          NEURON_U_ATOL)
         note += f" prev_u={err_p:.3e}"
     moved = int((k_out[2] != state.L).sum())
+    z_bits = int((k_out[1].view(torch.int32) != p_out[1].view(torch.int32)).any(1).sum())
     log(f"[neuron_kernel] {label}: B={state.u.shape[0]} M={env.M} K={K} W={window} "
         f"ord={ring_ord} prev={need_prev} L_moved={moved} "
-        f"terminated={int(k_out[4].sum())} max_abs_err u'={err_u:.3e} Z'={err_z:.3e}{note}")
+        f"terminated={int(k_out[4].sum())} max_abs_err u'={err_u:.3e} Z'={err_z:.3e} "
+        f"(Z' not equal to the bit in {z_bits} envs){note}")
     return err_u, args + (kw,)
 
 
@@ -1041,6 +1050,15 @@ def phase_neuron_kernel(torch, device):
     )
     for label, state, K, kw in cases:
         e, _ = neuron_kernel_case(torch, label, env, state, K, **kw)
+        err = max(err, e)
+    # the episode's own state (L = 10 in every env: one slot of eight live),
+    # and every env's tip at or next to a slot edge of the kernel's layout
+    e, _ = neuron_kernel_case(torch, "the episode's state", env, env.init_batch(NUM_ENVS)[0],
+                              100, window=1)
+    err = max(err, e)
+    for edge in (15, 16, 17, 31, 32, 33, 47, 48, 63, 64, 95, 96, env.M - 1):
+        state = neuron_state(torch, env, 64, 10, seed=14, every=edge)
+        e, _ = neuron_kernel_case(torch, f"L={edge} in every env", env, state, 20)
         err = max(err, e)
 
     # dt a power of two keeps the float32 clock exact: nt = 11 rows, and clocks
@@ -1355,18 +1373,35 @@ def phase_brain(torch, device):
     return launches
 
 
-def neuron_bound(spec, num_envs, K, window, need_prev):
+def neuron_live_rows(torch, spec, u, Z, L, t, K):
+    """The interior point updates that K dt-steps from this state need: the sum
+    over dt-steps and envs of L_new - 1 (rows 1 <= n < L_new take the interior
+    formula; the rest of the row is carried unchanged), from the plain
+    version's dt-steps."""
+    from pdecontrolgym_tpu_torch.ops import neuron_interval as ni
+
+    live = 0
+    for _ in range(K):
+        u, Z, L, t = ni.neuron_advance(spec, u, Z, L, t)[:4]
+        live += int((L.to(torch.int64) - 1).clamp_min(0).sum())
+    return live
+
+
+def neuron_bound(spec, num_envs, K, window, need_prev, live=None):
     """The least time the card could take for one K-step block: bytes (u, Z, L,
     t in; the same and the flag out; the window and the previous row where
     asked for; the tables once) over the memory rate, against its float32
     operations over the float32 peak. Operations, counted from the formulae in
-    ops/neuron_interval.py: a point and dt-step, 21 (the product with pB and
-    its masked add 2, uxx 4, the difference 1, advection 4, the combination
-    10); an env and dt-step, about 40 for the cone ODE, the index, the
-    control and the fictitious point; a point and window slot, 2."""
+    ops/neuron_interval.py: a point update, 21 (the product with pB and its
+    masked add 2, uxx 4, the difference 1, advection 4, the combination 10),
+    over ``live`` point updates (neuron_live_rows; None counts every point of
+    every row, as the bound was counted before the kernel skipped dead rows);
+    an env and dt-step, about 40 for the cone ODE, the index, the control and
+    the fictitious point; a point and window slot, 2."""
     B, M = num_envs, spec.M
+    live = B * K * M if live is None else live
     nbytes = 4 * (B * (2 * M + 2 * 2 + 2 + 2 + window + M * int(need_prev)) + 3 * M) + B
-    flops = B * (K * (21 * M + 40) + window * 2 * M)
+    flops = 21 * live + B * (K * 40 + window * 2 * M)
     by_bytes = nbytes / PEAK_MEMORY_BYTES_PER_S * 1e3
     by_ops = flops / PEAK_FP32_FLOPS * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations"), \
@@ -1417,15 +1452,32 @@ def family_kernel_times(torch, device, neuron_inputs, brain_inputs, card):
     k = cuda_ms(torch, call, calls=20)
     dev, _ = device_ms(torch, call, "neuron_interval_kernel")
     p = cuda_ms(torch, lambda: ni.neuron_interval_plain(spec, u, Z, L, t, **kw))
+    live = neuron_live_rows(torch, spec, u, Z, L, t, kw["steps"])
     bound, bound_by, nbytes, flops = neuron_bound(
-        spec, u.shape[0], kw["steps"], kw["window"], kw["need_prev"])
+        spec, u.shape[0], kw["steps"], kw["window"], kw["need_prev"], live)
+    full, full_by = neuron_bound(spec, u.shape[0], kw["steps"], kw["window"],
+                                 kw["need_prev"])[:2]
     times["neuron"] = {"ms": k, "device_ms": dev, "plain_ms": p, "bound_ms": bound,
                        "bound_by": bound_by, "library_ms": None}
     log(f"[times] one neuron block B={u.shape[0]} M={spec.M} K={kw['steps']}: kernel "
         f"{k:.4f} ms per call (20 back to back), {dev:.4f} ms on the device "
         f"(torch.profiler); plain {p:.4f} ms; bound {bound:.5f} ms by {bound_by} "
-        f"({nbytes} bytes, {flops} operations), share of the bound reached "
-        f"{bound / dev:.3f}; no single PyTorch call computes a K-step block ({card})")
+        f"({nbytes} bytes, {flops} operations over {live} interior point updates), share "
+        f"of the bound reached {bound / dev:.3f}; counted over every point of every row "
+        f"{full:.5f} ms by {full_by}, share {full / dev:.3f}; no single PyTorch call "
+        f"computes a K-step block ({card})")
+    env0 = neuron_setup(torch, device)[0]
+    s0, _ = env0.init_batch(u.shape[0])
+    args0 = (env0.spec, s0.u, s0.Z, s0.L, s0.time_index)
+    call0 = lambda: ni.neuron_interval(*args0, steps=kw["steps"])  # noqa: E731
+    dev0, _ = device_ms(torch, call0, "neuron_interval_kernel")
+    live0 = neuron_live_rows(torch, *args0, kw["steps"])
+    bound0, by0 = neuron_bound(env0.spec, u.shape[0], kw["steps"], 0, False, live0)[:2]
+    log(f"[times] one neuron block from init_batch (the episode's state, L={int(s0.L[0])} "
+        f"in every env) B={u.shape[0]} K={kw['steps']}: {dev0:.4f} ms on the device "
+        f"(torch.profiler), {cuda_ms(torch, call0, calls=20):.4f} ms per call; bound "
+        f"{bound0:.5f} ms by {by0} over {live0} interior point updates, share "
+        f"{bound0 / dev0:.3f} ({card})")
 
     fspec, fu, applied, can = brain_inputs
     call = lambda: bt.brain_tumor_field(fspec, fu, applied, can)  # noqa: E731
@@ -1791,13 +1843,19 @@ def time_kernels(torch, device):
     implicit bench row (n=257, S=25, theta=0.5), all Dirichlet and on the fast
     path; B6 one step at 4096 x 64x64 in the three precisions and at 1024 x
     128x128, lid-driven cavity, tracking sum, from a fresh episode's fields.
+    B7 one K=100 neuron block (4096 envs, M=121) on three states: "b7" the
+    input of phase_neuron_kernel's first case (L spread over [10, 121)),
+    "b7_l10" the episode's own (init_batch: L=10 in every env), "b7_full" L=119
+    in every env (no row is dead); B8 one brain-tumor field pass at 4096 x 201
+    on phase_brain_kernel's first case.
     Returns {name: {"ms", "device_ms", "max_abs_err"}}: ms per call of 20
     back to back (CUDA events, median of 5; below ~0.1 ms this is the
     wrapper's host time, not the kernel's), the kernel's device time per
     launch over 10 calls (torch.profiler), and the largest difference from the
-    plain version on the same inputs, reported and not judged (a copy compared
-    may be a diagnostic that skips work)."""
-    from pdecontrolgym_tpu_torch.ops import interval1d, ns_fused
+    plain version on the same inputs (of u' for B7 and B8), reported and not
+    judged (a copy compared may be a diagnostic that skips work)."""
+    from pdecontrolgym_tpu_torch.ops import brain_tumor_interval as bt
+    from pdecontrolgym_tpu_torch.ops import interval1d, neuron_interval, ns_fused
 
     gen = torch.Generator(device=device).manual_seed(0)
     out = {}
@@ -1827,6 +1885,30 @@ def time_kernels(torch, device):
         out[name] = {"ms": cuda_ms(torch, call, runs=5, calls=20),
                      "device_ms": device_ms(torch, call, "ns_step_kernel")[0],
                      "max_abs_err": err}
+    env = neuron_setup(torch, device)[0]
+    init, _ = env.init_batch(NUM_ENVS)
+    for name, state in (("b7", neuron_state(torch, env, NUM_ENVS, 10, seed=10)),
+                        ("b7_l10", init),
+                        ("b7_full", neuron_state(torch, env, NUM_ENVS, 10, seed=10,
+                                                 every=env.M - 2))):
+        args = (env.spec, state.u, state.Z, state.L, state.time_index)
+        got = neuron_interval.neuron_interval(*args, steps=100)
+        want = neuron_interval.neuron_interval_plain(*args, steps=100)
+        call = lambda a=args: neuron_interval.neuron_interval(*a, steps=100)  # noqa: E731
+        out[name] = {"ms": cuda_ms(torch, call, runs=5, calls=20),
+                     "device_ms": device_ms(torch, call, "neuron_interval_kernel")[0],
+                     "max_abs_err": float((got[0] - want[0]).abs().max())}
+    env = brain_setup(torch, device)[0]
+    rng = torch.Generator().manual_seed(120)
+    u = brain_rows(torch, env.config, NUM_ENVS, 20).to(device)
+    applied = torch.tensor([0.0, 1.8, 15.0])[torch.randint(0, 3, (NUM_ENVS,), generator=rng)]
+    can = torch.rand(NUM_ENVS, generator=rng) < 0.8
+    args = (env._spec, u, applied.to(device), can.to(device))
+    err = (bt.brain_tumor_field(*args)[0] - bt.brain_tumor_field_plain(*args)[0]).abs().max()
+    call = lambda: bt.brain_tumor_field(*args)  # noqa: E731
+    out["b8"] = {"ms": cuda_ms(torch, call, runs=5, calls=20),
+                 "device_ms": device_ms(torch, call, "brain_tumor_field_kernel")[0],
+                 "max_abs_err": float(err)}
     return out
 
 
@@ -1899,14 +1981,61 @@ def sass_substeps(library):
     return out
 
 
+# the neuron kernel's instance at M=121 in each layout it has had: a warp an
+# env with 4 points a lane (the earlier layout), 16 lanes an env with 8
+B7_INSTANCES = {"<4>": "ILi4EEE", "<16,8>": "ILi16ELi8EEE"}
+
+
+def sass_dt_step(library, instance):
+    """The SASS of one neuron dt-step: the loop of the ``neuron_interval_kernel``
+    instance ``instance`` (a key of B7_INSTANCES) in ``cuobjdump -sass`` of a
+    built library, taken as the longest backward branch and the instructions
+    up to it. Static counts: the loop holds every slot's update (a dt-step
+    runs those below the tip), the norm block, the previous-row store and the
+    IEEE fallbacks. Returns {"instructions", "ops": {opcode: count}} less NOPs,
+    or {} where ``cuobjdump`` is missing or fails or the library has no such
+    instance."""
+    import re
+    import shutil
+    from collections import Counter
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    try:
+        proc = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                              text=True, timeout=300)
+    except (OSError, subprocess.SubprocessError):
+        return {}
+    if proc.returncode != 0:
+        return {}
+    for chunk in proc.stdout.split("Function : ")[1:]:
+        if "neuron_interval_kernel" + B7_INSTANCES[instance] not in chunk.split("\n", 1)[0]:
+            continue
+        ins = []
+        for addr, body in re.findall(r"/\*([0-9a-f]+)\*/\s+([^;]*?)\s*;", chunk):
+            words = body.split()
+            op = words[1] if words[0].startswith("@") else words[0]
+            target = re.findall(r"0x([0-9a-f]+)", body) if op.startswith("BRA") else []
+            ins.append((int(addr, 16), op, int(target[-1], 16) if target else None))
+        back = [(t, a) for a, _, t in ins if t is not None and t <= a]
+        if not back:
+            return {}
+        lo, hi = max(back, key=lambda b: b[1] - b[0])
+        kept = [op for a, op, _ in ins if lo <= a <= hi and not op.startswith("NOP")]
+        return {"instructions": len(kept),
+                "ops": dict(Counter(op.split(".")[0] for op in kept).most_common())}
+    return {}
+
+
 def compare(roots):
-    """``python3 chip_smoke.py --compare ROOT [ROOT ...]``: time B2 to B6
+    """``python3 chip_smoke.py --compare ROOT [ROOT ...]``: time B2 to B8
     (:func:`time_kernels`) of several copies of the port on one card. Each
     ROOT holds a ``pdecontrolgym_tpu_torch`` package (``.`` is this
     checkout): an unpacked older commit, or a copy with one design step taken
     out. The roots are built first, all at once, each with the compiler's
     register and spill counts and the SASS instructions a sub-step of the
-    explicit interval kernels (:func:`sass_substeps`); then each is timed in a
+    explicit interval kernels (:func:`sass_substeps`) and of a neuron dt-step
+    (:func:`sass_dt_step`); then each is timed in a
     process of its own in the order given (give a root first and last to see
     the card drift). Prints a line for each root and kernel, the card's name
     and power limit, and last one JSON object with every number."""
@@ -1926,11 +2055,14 @@ def compare(roots):
         if proc.returncode != 0:
             raise RuntimeError(f"{r}: the build failed\n{text[-4000:]}")
         # registers and spilled bytes of the B6 instances, of B5 at K=9
-        # (n=257) and of the explicit interval kernels at the main paths' P
+        # (n=257), of B7 at M=121 (B7_INSTANCES), of B8 at P=7 (nx=201) and of
+        # the explicit interval kernels at the main paths' P
         regs, spills, explicit = {}, 0, 0
         for chunk in text.split("Compiling entry function")[1:]:
             name = re.search(r"(ns_step_kernel|pcr_interval_kernel)ILi(\d+)E(Lb([01])E)?",
                              chunk)
+            family = re.search(
+                r"(neuron_interval_kernel|brain_tumor_field_kernel)ILi(\d+)E(Li(\d+)E)?E", chunk)
             inst = re.search(r"interval_kernelILi(\d+)ELi(\d+)E(Lb([01])E)?", chunk)
             used = re.search(r"Used (\d+) registers", chunk)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
@@ -1940,7 +2072,13 @@ def compare(roots):
                 big = f",{name.group(4)}" if name.group(3) else ""
                 regs[f"{name.group(1)}<{name.group(2)}{big}>"] = (
                     f"{used.group(1)} registers, {n_spill} B spilled")
-            elif inst and used and not name:
+            elif family and used:
+                key = f"<{family.group(2)}{',' + family.group(4) if family.group(3) else ''}>"
+                if (family.group(1) == "neuron_interval_kernel" and key in B7_INSTANCES
+                        or family.group(1) + key == "brain_tumor_field_kernel<7>"):
+                    regs[family.group(1) + key] = (
+                        f"{used.group(1)} registers, {n_spill} B spilled")
+            elif inst and used and not name and not family:
                 explicit += 1
                 key = (int(inst.group(1)), int(inst.group(2)))
                 if key in SASS_INSTANCES.values() and inst.group(4) != "1":
@@ -1949,8 +2087,15 @@ def compare(roots):
         log(f"[compare] {r}: built; {explicit} explicit interval kernels; {regs}; "
             f"{spills} bytes of spills in all")
         sass[r] = sass_substeps(text.strip().splitlines()[-1])
+        for inst in B7_INSTANCES:
+            b7 = sass_dt_step(text.strip().splitlines()[-1], inst)
+            if b7:
+                sass[r][f"neuron dt-step {inst}"] = b7
+                log(f"[compare] {r} SASS neuron_interval_kernel{inst}: {b7['instructions']} "
+                    f"instructions in the dt-step loop (static, less NOPs); by opcode: "
+                    + ", ".join(f"{k} {v}" for k, v in b7["ops"].items()))
         for inst, loops in sass[r].items():
-            for loop in loops:
+            for loop in (loops if isinstance(loops, list) else []):
                 ops = ", ".join(f"{k} {v:g}" for k, v in loop["ops"].items())
                 log(f"[compare] {r} SASS {inst} (Dirichlet): a loop of {loop['substeps']} "
                     f"sub-steps, {loop['instructions']} instructions (less NOPs and a "

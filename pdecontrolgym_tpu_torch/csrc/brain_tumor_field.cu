@@ -5,14 +5,26 @@
 // Contract and semantics: pdecontrolgym_tpu_torch/ops/brain_tumor_interval.py,
 // whose brain_tumor_field_plain is the oracle this kernel is tested against.
 //
-// Design. One warp per env. Lane l holds the P = ceil(nx / 32) consecutive
-// points l*P .. l*P+P-1 of the density row in registers (P <= 16, nx <= 512).
-// The row is read once and written once: the T2 radius scan, the radiation
-// field, the finite-difference update with its Neumann mirror and clip, and
-// the T1 radius scan of the row just computed all work on registers, with
-// neighbours read by warp shuffles. The function moves 2*nx floats an env and
-// does some twenty operations a point, so it is bound by bytes; its worth on
-// this card is the thirty-odd separate PyTorch kernels a day that it replaces.
+// Design. Blocks of four warps, one warp per env. A block's envs are one
+// contiguous run of 4*nx floats (16*nx bytes, so every block's run starts on a
+// 16-byte boundary whatever nx): the block loads it into shared memory with
+// coalesced 16-byte loads, each warp works on its row there and in registers,
+// and the block writes the run back the same way. A warp holds row i in lane
+// i % 32, slot i / 32 (P = ceil(nx / 32) slots, nx <= 512), and reads the two
+// neighbours of a point from shared memory (consecutive lanes, consecutive
+// words: no bank conflict at any nx). Where u or u' does not start on a
+// 16-byte boundary, or in the ragged last block's tail, the same copies run
+// with 4-byte coalesced accesses.
+//
+// The T2 radius scan, the radiation field, the finite-difference update with
+// its Neumann mirror and clip, and the T1 scan of the row just computed follow
+// on registers. The scans are integer max-reductions, one redux.sync each. The
+// divisions by the batch constants k and dx*dx go through csrc/exact_div.cuh
+// (a reciprocal computed once, a two-FMA correction; IEEE division to the bit,
+// IEEE division itself for a numerator outside the sequence's domain). The
+// function moves 2*nx floats an env and does some twenty operations a point,
+// so it is bound by bytes; what stands between it and that bound is measured
+// in PERF.md (the ablation of the earlier design).
 //
 // Points where this could go wrong, and what the kernel does:
 // 1. Thresholds. thr_t1 and thr_t2 arrive as float32, each the double product
@@ -28,8 +40,14 @@
 //    columns 0 and nx-1 are then overwritten by the UPDATED columns 1 and nx-2
 //    (the Neumann mirror), THEN the clip to [0, k], THEN the select on `can`.
 // 5. Rounding. Built with -fmad=false; the expressions keep the plain
-//    version's association; expf and the divisions are the IEEE ones.
+//    version's association; expf is the IEEE one and every division rounds as
+//    IEEE division, so u' equals the plain version's to the bit.
+// 6. Shared memory. A warp reads its neighbours before any lane of it writes
+//    (__syncwarp between), and the block's copies in and out sit behind
+//    __syncthreads, which every warp reaches, those of the ragged block's
+//    missing envs included.
 
+#include "exact_div.cuh"
 #include "interval1d_common.cuh"
 
 namespace {
@@ -50,82 +68,104 @@ struct FieldArgs {
   float dt, dx, dx2, D, rho, k, neg_alpha, abr, thr_t1, thr_t2;
 };
 
-__device__ __forceinline__ int warp_max_int(int s) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s = max(s, __shfl_xor_sync(kFull, s, off));
-  return s;
+// n floats from src to dst by the whole block: 16 bytes a thread where both
+// are 16-byte aligned, the tail and the unaligned case 4 bytes a thread.
+__device__ __forceinline__ void block_copy(float* dst, const float* src, int n, bool vec) {
+  int done = 0;
+  if (vec) {
+    const int n4 = n >> 2;
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    for (int k = threadIdx.x; k < n4; k += blockDim.x) d4[k] = s4[k];
+    done = 4 * n4;
+  }
+  for (int k = done + threadIdx.x; k < n; k += blockDim.x) dst[k] = src[k];
+}
+
+__device__ __forceinline__ bool aligned16(const void* ptr) {
+  return (reinterpret_cast<size_t>(ptr) & 15) == 0;
 }
 
 // The largest column whose value is at or above thr, -1 for none.
 template <int P>
-__device__ __forceinline__ int scan(const float (&v)[P], int base, int nx, float thr) {
+__device__ __forceinline__ int scan(const float (&v)[P], int lane, int nx, float thr) {
   int best = -1;
 #pragma unroll
   for (int q = 0; q < P; ++q)
-    if (base + q < nx && v[q] >= thr) best = base + q;
-  return warp_max_int(best);
+    if (32 * q + lane < nx && v[q] >= thr) best = 32 * q + lane;
+  return __reduce_max_sync(kFull, best);
 }
 
 template <int P>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 brain_tumor_field_kernel(const FieldArgs p) {
-  const int lane = threadIdx.x & 31;
-  const int env = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (env >= p.B) return;  // whole warp: env is uniform across it
-  const int base = lane * P;
-  const size_t row = static_cast<size_t>(env) * p.nx;
+  __shared__ __align__(16) float rows[kWarpsPerBlock * 32 * P];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int env0 = blockIdx.x * kWarpsPerBlock;
+  const int n = min(kWarpsPerBlock, p.B - env0) * p.nx;  // floats of the block's run
+  const size_t base = static_cast<size_t>(env0) * p.nx;
+  const bool vec = aligned16(p.u + base) && aligned16(p.u_out + base);
+  block_copy(rows, p.u + base, n, vec);
+  __syncthreads();
 
-  float v[P];
+  const int env = env0 + warp;
+  if (env < p.B) {  // uniform across the warp
+    float* s = rows + warp * p.nx;
+    const int nx = p.nx;
+    float v[P];
 #pragma unroll
-  for (int q = 0; q < P; ++q) v[q] = (base + q < p.nx) ? p.u[row + base + q] : 0.f;
-  const float applied = p.applied[env];
-  const bool can = p.can[env] != 0;
+    for (int q = 0; q < P; ++q) v[q] = (32 * q + lane < nx) ? s[32 * q + lane] : 0.f;
+    const float applied = p.applied[env];
+    const bool can = p.can[env] != 0;
+    const float r_k = 1.0f / p.k, r_dx2 = 1.0f / p.dx2;
+    const bool ok_k = div_divisor_ok(p.k), ok_dx2 = div_divisor_ok(p.dx2);
 
-  const int i2 = scan<P>(v, base, p.nx, p.thr_t2);
-  const float radius = (i2 >= 0) ? static_cast<float>(i2) * p.dx + 25.0f : 0.0f;
-  const float bed = applied + applied * applied / p.abr;
-  const float r_in = 1.0f - expf(p.neg_alpha * bed);
+    const int i2 = scan<P>(v, lane, nx, p.thr_t2);
+    const float radius = (i2 >= 0) ? static_cast<float>(i2) * p.dx + 25.0f : 0.0f;
+    const float bed = applied + applied * applied / p.abr;
+    const float r_in = 1.0f - expf(p.neg_alpha * bed);
 
-  const float prev_lane = __shfl_up_sync(kFull, v[P - 1], 1);
-  const float next_lane = __shfl_down_sync(kFull, v[0], 1);
-  float upd[P];
+    float upd[P];
 #pragma unroll
-  for (int q = 0; q < P; ++q) {
-    const int i = base + q;
-    float ul = (q > 0) ? v[q - 1] : prev_lane;
-    float ur = (q + 1 < P) ? v[q + 1] : next_lane;
-    ul = (i == 0) ? 0.f : ul;
-    ur = (i >= p.nx - 1) ? 0.f : ur;
-    const float R = (static_cast<float>(i) * p.dx <= radius) ? r_in : 0.0f;
-    const float logistic = v[q] * (1.0f - v[q] / p.k);
-    const float growth = p.D * (ur - 2.0f * v[q] + ul) / p.dx2 + p.rho * logistic;
-    upd[q] = v[q] + p.dt * (growth - R * logistic);
+    for (int q = 0; q < P; ++q) {
+      const int i = 32 * q + lane;
+      const float ul = (i >= 1 && i < nx) ? s[i - 1] : 0.f;
+      const float ur = (i < nx - 1) ? s[i + 1] : 0.f;
+      const float R = (static_cast<float>(i) * p.dx <= radius) ? r_in : 0.0f;
+      const float logistic = v[q] * (1.0f - div_exact(v[q], p.k, r_k, ok_k));
+      const float growth =
+          div_exact(p.D * (ur - 2.0f * v[q] + ul), p.dx2, r_dx2, ok_dx2) + p.rho * logistic;
+      upd[q] = v[q] + p.dt * (growth - R * logistic);
+    }
+    // the Neumann mirror reads the UPDATED columns 1 and nx-2
+    const float first = __shfl_sync(kFull, upd[0], 1);
+    const int m = nx - 2;
+    float mine = upd[0];
+#pragma unroll
+    for (int q = 1; q < P; ++q) mine = (q == (m >> 5)) ? upd[q] : mine;
+    const float last = __shfl_sync(kFull, mine, m & 31);
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      const int i = 32 * q + lane;
+      float r = (i == 0) ? first : upd[q];
+      r = (i == nx - 1) ? last : r;
+      r = fminf(fmaxf(r, 0.0f), p.k);
+      v[q] = can ? r : v[q];
+    }
+
+    const int i1 = scan<P>(v, lane, nx, p.thr_t1);
+    __syncwarp();  // every lane has read its neighbours
+#pragma unroll
+    for (int q = 0; q < P; ++q)
+      if (32 * q + lane < nx) s[32 * q + lane] = v[q];
+    if (lane == 0) {
+      p.treatment_radius[env] = radius;
+      p.t1[env] = (i1 >= 0) ? static_cast<float>(i1) * p.dx : 0.0f;
+      p.has_t1[env] = (i1 >= 0) ? 1 : 0;
+    }
   }
-  // the Neumann mirror reads the UPDATED columns 1 and nx-2
-  const float first = __shfl_sync(kFull, upd[1 % P], 1 / P);
-  float mine = 0.f;
-#pragma unroll
-  for (int q = 0; q < P; ++q)
-    if (base + q == p.nx - 2) mine = upd[q];
-  const float last = __shfl_sync(kFull, mine, (p.nx - 2) / P);
-#pragma unroll
-  for (int q = 0; q < P; ++q) {
-    const int i = base + q;
-    float r = (i == 0) ? first : upd[q];
-    r = (i == p.nx - 1) ? last : r;
-    r = fminf(fmaxf(r, 0.0f), p.k);
-    v[q] = (i >= p.nx) ? 0.f : (can ? r : v[q]);
-  }
-
-  const int i1 = scan<P>(v, base, p.nx, p.thr_t1);
-#pragma unroll
-  for (int q = 0; q < P; ++q)
-    if (base + q < p.nx) p.u_out[row + base + q] = v[q];
-  if (lane == 0) {
-    p.treatment_radius[env] = radius;
-    p.t1[env] = (i1 >= 0) ? static_cast<float>(i1) * p.dx : 0.0f;
-    p.has_t1[env] = (i1 >= 0) ? 1 : 0;
-  }
+  __syncthreads();
+  block_copy(p.u_out + base, rows, n, vec);
 }
 
 }  // namespace

@@ -27,8 +27,9 @@ SOURCES = (
     _PKG / "csrc" / "ns_fused.cu",
     _PKG / "csrc" / "neuron_interval.cu",
     _PKG / "csrc" / "brain_tumor_field.cu",
+    _PKG / "csrc" / "exact_div.cu",
 )
-HEADERS = (_PKG / "csrc" / "interval1d_common.cuh",)
+HEADERS = (_PKG / "csrc" / "interval1d_common.cuh", _PKG / "csrc" / "exact_div.cuh")
 BUILD_DIR = _PKG / "_build"
 # -fmad=false: no FMA contraction, so the kernels round as the plain PyTorch
 # version does (see csrc/interval1d.cu, point 4). Division and square root stay
@@ -140,6 +141,9 @@ def load() -> ctypes.CDLL:
         # dx*dx, D, rho, k, -alpha, alpha/beta, thr_t1, thr_t2
         lib.brain_tumor_field_launch.argtypes = [p] * 7 + [i] * 2 + [f] * 10 + tail
         lib.brain_tumor_field_launch.restype = ctypes.c_int
+        # x, y, out; n, guarded
+        lib.exact_div_launch.argtypes = [p] * 3 + [ctypes.c_longlong, i] + tail
+        lib.exact_div_launch.restype = ctypes.c_int
         lib.interval1d_error_string.argtypes = [ctypes.c_int]
         lib.interval1d_error_string.restype = ctypes.c_char_p
         _lib = lib

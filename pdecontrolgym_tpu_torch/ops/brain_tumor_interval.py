@@ -23,8 +23,11 @@ Two implementations, one contract:
 
 - :func:`brain_tumor_field_plain`, PyTorch on ``(B, nx)`` tensors: the CPU
   path, and the oracle for the kernel.
-- ``csrc/brain_tumor_field.cu``, CUDA C++ for ``sm_90a``: one warp per env, the
-  row in registers between its one read and its one write.
+- ``csrc/brain_tumor_field.cu``, CUDA C++ for ``sm_90a``: blocks of four envs,
+  whose rows are copied in and out through shared memory with 16-byte
+  accesses; one warp per env, the row in registers between; the two radius
+  scans one ``redux.sync`` each; ``u_new`` equal to the plain version's to the
+  bit.
 
 :func:`brain_tumor_field` dispatches on the tensors' device: the plain version
 for CPU tensors, the kernel for CUDA tensors. It never falls back from one to

@@ -29,8 +29,11 @@ Two implementations, one contract:
 
 - :func:`neuron_interval_plain`, PyTorch on ``(B, M)`` tensors, a Python loop
   over the K dt-steps. The CPU path, and the oracle for the kernel.
-- ``csrc/neuron_interval.cu``, CUDA C++ for ``sm_90a``: one warp per env, the
-  row in registers for all K dt-steps.
+- ``csrc/neuron_interval.cu``, CUDA C++ for ``sm_90a``: a row in the registers
+  of a group of G = 16 lanes (two envs a warp; 32 lanes above M = 256) for all
+  K dt-steps, row ``i`` in group lane ``i % G``; a dt-step updates only the register slots that hold rows below
+  the tip, and divides by the dt-step's divisors through a reciprocal and a
+  correction that equal IEEE division to the bit (``csrc/exact_div.cuh``).
 
 :func:`neuron_interval` dispatches on the tensors' device: the plain version
 for CPU tensors, the kernel for CUDA tensors. It never falls back from one to
@@ -53,7 +56,7 @@ import torch
 # Launches of the CUDA kernel since import (or since a caller reset it).
 LAUNCHES = 0
 
-MAX_M = 512  # one warp holds a row of at most 32 * 16 points
+MAX_M = 512  # a warp holds a row of at most 32 * 16 points
 RING_ORDS = {"1": 1, "2": 2, "inf": 0}
 
 
@@ -240,8 +243,8 @@ def _neuron_interval_cuda(spec, u, Z, L, t, steps, window, ring_ord, need_prev):
     B, M = u.shape
     if M > MAX_M:
         raise ValueError(
-            f"neuron_interval kernel: M {M} > {MAX_M} (one warp per env holds at "
-            "most 16 points a lane)"
+            f"neuron_interval kernel: M {M} > {MAX_M} (at most 16 points a lane of "
+            "a warp)"
         )
     if not all(x.is_contiguous() for x in (u, Z, L, t, spec.pB, spec.p)):
         raise ValueError("neuron_interval kernel: inputs must be contiguous")

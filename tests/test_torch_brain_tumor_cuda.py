@@ -8,9 +8,10 @@ PyTorch for CUDA and ``nvcc`` and no flax::
 
     python -m pytest tests/test_torch_brain_tumor_cuda.py -m cuda
 
-``chip_smoke.py`` makes the same comparison at the main path's shapes. Bands:
-the radii and ``has_t1`` equal; ``u`` rtol 1e-6 atol 1e-3 (densities of order
-1e5).
+``chip_smoke.py`` makes the same comparison at the main path's shapes. The
+kernel's ``u'``, radii and ``has_t1`` equal the plain version's to the bit. The
+env paths are compared with bands: ``u`` rtol 1e-6 atol 1e-3 (densities of
+order 1e5; the eager path is other code).
 """
 
 import dataclasses
@@ -31,13 +32,13 @@ FAST = dict(T=80.0, dt=1.0, X=60.0, dx=1.0, t1_detection_radius=5.0,
             t1_death_radius=20.0, total_dosage=30.0)
 
 
-def _rows(B, X, nx, seed=0):
+def _rows(B, X, nx, seed=0, peaks=(0.9e5, 0.4e5, 0.1e5)):
     """Plateau tumours of per-env width, some below the T1 threshold, some
     below both, with noise."""
     rng = np.random.default_rng(seed)
     xs = np.linspace(0.0, X, nx)
     r = rng.uniform(0.05 * X, 0.4 * X, size=(B, 1))
-    peak = rng.choice([0.9e5, 0.4e5, 0.1e5], size=(B, 1))
+    peak = rng.choice(peaks, size=(B, 1))
     u = peak * np.exp(-((xs[None] / r) ** 4)) * (1 + 0.01 * rng.normal(size=(B, nx)))
     return torch.from_numpy(np.clip(u, 0, 1e5).astype(np.float32)).cuda()
 
@@ -62,9 +63,33 @@ def test_cuda_kernel_matches_plain_version(fields, B):
     want = tbt.brain_tumor_field_plain(env._spec, u, applied, can)
     for g, w in zip(got[1:], want[1:]):
         assert g.dtype == w.dtype and torch.equal(g, w)
-    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
-                               rtol=1e-6, atol=1e-3)
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
     assert torch.equal(got[0][~can], u[~can])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 5, 33, 4093, 4096])
+@pytest.mark.parametrize("X", [2.0, 31.0, 60.0, 63.0, 200.0, 511.0])  # nx 3 .. 512
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_kernel_equals_plain_version_to_the_bit(B, X, offset):
+    """Every batch shape, ragged last block included, odd and even nx, and
+    rows that start on and off a 16-byte boundary (``offset`` rows of a larger
+    batch cut away): u', the radii and has_t1 equal to the bit. A quarter of
+    the rows hold no point above either threshold."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    cfg = BrainTumorConfig(X=X)
+    env = BrainTumorEnv(cfg, BrainTumorReward())
+    u = _rows(B + offset, cfg.X, cfg.nx, seed=B, peaks=(0.9e5, 0.4e5, 0.1e5, 0.0))[offset:]
+    rng = np.random.default_rng(2)
+    applied = torch.from_numpy(rng.choice([0.0, 1.8, 15.0], size=B).astype(np.float32)).cuda()
+    can = torch.from_numpy(rng.random(B) < 0.8).cuda()
+    got = tbt.brain_tumor_field(env._spec, u, applied, can)
+    want = tbt.brain_tumor_field_plain(env._spec, u, applied, can)
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert bool((~want[3]).any()) or B < 5
 
 
 @pytest.mark.cuda

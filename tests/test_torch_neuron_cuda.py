@@ -25,23 +25,30 @@ from pdecontrolgym_tpu_torch.ops import neuron_interval as tni
 from pdecontrolgym_tpu_torch.rewards.norm import NormReward
 
 
-def _state(env, B, lo=10, seed=0):
+def _state(env, B, lo=10, seed=0, every=None, shrink=False):
     """Perturbed rows, per-env cone states and boundary indices from ``lo`` up
-    (``lo``, mid-row and M-1 among them). Every other env's cone length stands
-    2.5 dt-steps of growth below a rounding boundary of the grid index, so that
-    its ``L`` moves inside a block. At the default ``dx`` and ``dt`` the
-    explicit scheme is stable from ``L = 10`` up."""
+    (``lo``, mid-row and M-1 among them), or the indices ``every`` repeated
+    over the envs. Every other env's cone length stands 2.5 dt-steps of growth
+    below a rounding boundary of the grid index, so that its ``L`` moves inside
+    a block; with ``shrink``, those envs' cones shrink instead and their length
+    stands 2 dt-steps above the boundary below. At the default ``dx`` and
+    ``dt`` the explicit scheme is stable from ``L = 10`` up."""
     rng = np.random.default_rng(seed)
     state, _ = env.init_batch(B)
     M, c = env.M, env.config
     L = rng.integers(lo, M, size=B)
     L[:3] = [lo, M // 2, M - 1][: min(3, B)]
+    if every is not None:
+        L = np.asarray(every)[np.arange(B) % len(every)]
     inc = c.RSubG * c.cInfty * c.dt / (env.scale * c.dx)  # index units a dt-step
-    frac = np.where(np.arange(B) % 2 == 1, 0.5 - 2.5 * inc, 0.0)
+    odd = np.arange(B) % 2 == 1
+    frac = np.where(odd, -0.5 + 2.4 * inc if shrink else 0.5 - 2.5 * inc, 0.0)
     Z = state.Z.clone()
     Z[:, 1] = torch.from_numpy(
         ((L + frac) * c.dx * env.scale - c.LSubS).astype(np.float32)).cuda()
     Z[:, 0] *= torch.from_numpy(1 + 0.1 * rng.normal(size=B).astype(np.float32)).cuda()
+    if shrink:  # the cone ODE's Z1 falls at the rate it rose
+        Z[torch.from_numpy(odd).cuda(), 0] *= -1.2
     u = state.u + torch.from_numpy(
         1e-3 * rng.normal(size=tuple(state.u.shape)).astype(np.float32)).cuda()
     return dataclasses.replace(state, u=u.contiguous(), Z=Z.contiguous(),
@@ -136,3 +143,65 @@ def test_cuda_env_kernel_path_matches_eager_path(reward):
         np.testing.assert_allclose(oa.reward.cpu().numpy(), oe.reward.cpu().numpy(),
                                    rtol=1e-5, atol=1e-7)
     assert tni.LAUNCHES == before + 3
+
+
+def _assert_bits(name, got, want):
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("every,shrink", [
+    ((15,), False), ((16,), False), ((17,), False), ((47,), False), ((48,), False),
+    ((31,), False), ((32,), False), ((33,), False), ((63,), False), ((64,), False),
+    ((95,), False), ((96,), False), ((120,), True),  # M - 1: the tip can only fall
+    ((32, 32, 64, 64, 96, 96, 33, 33), True),  # odd envs fall across a slot edge
+    ((16, 16, 48, 48, 112, 112, 17, 17), True),
+    ((31, 31, 63, 63, 95, 95, 40, 40), False),  # odd envs rise across a slot edge
+    ((10, 120, 33, 64), False),  # the envs of one block at very different L
+])
+def test_cuda_kernel_holds_the_state_to_the_bit_at_slot_edges(every, shrink):
+    """The kernel holds row i in lane i % G of its env's group of lanes, slot
+    i / G (G = 16 at M = 121), and updates only the slots that hold rows below
+    some tip of the warp. With the tip at and across slot edges:
+    L, t and terminated equal. Row 0 is the one row the control integral
+    (summed in another order) writes; in K = 20 dt-steps its rounding reaches
+    rows 1 to 20 and no further, so rows 21 and up of u' are equal to the bit,
+    and so is Z where the tip stencil stays above row 20 (L >= 23)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    env = NeuronEnv(NeuronConfig(dtype=torch.float32))
+    s = _state(env, 64, every=every, shrink=shrink)
+    got = tni.neuron_interval(env.spec, s.u, s.Z, s.L, s.time_index, steps=20, window=2)
+    want = tni.neuron_interval_plain(env.spec, s.u, s.Z, s.L, s.time_index, steps=20,
+                                     window=2)
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+    assert torch.equal(got[4], want[4])
+    assert bool((got[2] != s.L).any())  # some tip moved
+    far = s.L >= 23
+    _assert_bits("Z", got[1][far], want[1][far])
+    _assert_bits("u' from row 21", got[0][:, 21:], want[0][:, 21:])
+    np.testing.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(), rtol=1e-6)
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                               rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(got[5].cpu().numpy(), want[5].cpu().numpy(), rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_on_the_episode_state():
+    """The episode's own state, init_batch at 4096 envs (L = 10 in every env:
+    one slot of eight live), K = 100: L, t and terminated equal, Z and u' within
+    their bands."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    env = NeuronEnv(NeuronConfig(dtype=torch.float32))
+    s, _ = env.init_batch(4096)
+    assert set(s.L.tolist()) == {10}
+    got = tni.neuron_interval(env.spec, s.u, s.Z, s.L, s.time_index, steps=100, window=1)
+    want = tni.neuron_interval_plain(env.spec, s.u, s.Z, s.L, s.time_index, steps=100,
+                                     window=1)
+    for i in (2, 3, 4):
+        assert torch.equal(got[i], want[i])
+    np.testing.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(), rtol=1e-6)
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                               rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(got[5].cpu().numpy(), want[5].cpu().numpy(), rtol=1e-5)
