@@ -16,7 +16,10 @@ JAX package), builds the CUDA kernels from ``csrc/`` and runs:
                 nx=128 S=1000; Burgers Dirichlet/Neumann B=4096 nx=256 S=100;
                 nx=100; explicit reaction-diffusion n=201 and n=257 S=100;
                 implicit reaction-diffusion theta=0.5 and 1 n=257 and n=201
-                S=25; terminal intervals), with the tolerances stated below.
+                S=25; terminal intervals; and the wide kernel: inviscid
+                Burgers Dirichlet/Neumann B=4096 nx=4096 S=100, viscous
+                Burgers nx=1024, transport nx=2048, explicit
+                reaction-diffusion n=1025), with the tolerances stated below.
 4. transport -- the bench.py transport workload through the port's rollout:
                 4096 envs, nx=128, one episode of 50 actions x 1000 sub-steps,
                 backstepping policy, TunedReward1D(50000, -1e3, 3e2).
@@ -24,7 +27,13 @@ JAX package), builds the CUDA kernels from ``csrc/`` and runs:
                 kernels: transport (B=2, nx=100, T=10) and parabolic (B=2,
                 n=201, T=1, 1000 actions).
 6. burgers   -- the bench.py Burgers workload: 4096 envs, nx=256, one
-                episode of 100 actions x 100 sub-steps.
+                episode of 100 actions x 100 sub-steps; and burgers_wide:
+                inviscid Burgers at nx=4096 (a row the JAX package runs
+                through the same interval kernel, bench_backend_sweep.py's
+                Burgers built with viscosity 0), 4096 envs, 100 actions x 100
+                sub-steps through backend="auto": 100 launches of the
+                block-per-env kernel, its first interval held to the bit
+                against the plain version, finite returns.
 7. rd        -- the bench.py reaction-diffusion workload (implicit
                 theta-scheme, theta=0.5, nx=256, dt=4e-4): 4096 envs, one
                 episode of 100 actions x 25 sub-steps; and the explicit scheme
@@ -76,7 +85,8 @@ JAX package), builds the CUDA kernels from ``csrc/`` and runs:
                 or one interval, kernel (per call, 20 back to back) against
                 plain version, and the kernel's device time by
                 torch.profiler; full episodes, kernel path against the eager
-                path, in env-steps/s for Navier-Stokes and the brain tumor,
+                path (the wide Burgers episode on the kernel path only), in
+                env-steps/s for Navier-Stokes and the brain tumor,
                 dt-steps/s for the neuron, simulated days/s for the therapy
                 and PDE sub-steps/s for the 1D workloads, with the device's
                 busy time and idle share; the ``ns_matpow`` parity row (21x21,
@@ -86,10 +96,12 @@ JAX package), builds the CUDA kernels from ``csrc/`` and runs:
                 which are not traced.
 
 ``python3 chip_smoke.py --compare ROOT [ROOT ...]`` times the interval kernels
-(B2 to B5), the projection-step kernel (B6), the neuron K-step block (B7, on
-three states) and the brain-tumor field pass (B8) of several copies of the
-port in one run instead, with the SASS instructions a sub-step of the explicit
-interval kernel and a dt-step of the neuron block (see :func:`compare`).
+(B2 to B5, B3's row without viscosity, and the wide kernel at 4096 x 4096 and
+1024 x 16384), the
+projection-step kernel (B6), the neuron K-step block (B7, on three states) and
+the brain-tumor field pass (B8) of several copies of the port in one run
+instead, with the SASS instructions a sub-step of the explicit interval
+kernels and a dt-step of the neuron block (see :func:`compare`).
 
 Float32 matrix products of the plain versions must run in full float32: the
 script sets ``torch.backends.cuda.matmul.allow_tf32 = False`` itself.
@@ -311,6 +323,15 @@ def burgers_setup(torch, device, **overrides):
     return env, policy, 100, cfg.sample_rate
 
 
+def burgers_wide_setup(torch, device, **overrides):
+    """Inviscid Burgers at nx=4096, built as bench_backend_sweep.py builds
+    Burgers, with viscosity 0 (its explicit viscous bound rules the default
+    viscosity out at this width), as in the JAX package's inviscid rows."""
+    fields = dict(dx=1.0 / 4096, viscosity=0.0)
+    fields.update(overrides)
+    return burgers_setup(torch, device, **fields)
+
+
 def rd_implicit_setup(torch, device, **overrides):
     """bench.py's reaction-diffusion row: implicit theta-scheme, PCR solve."""
     from pdecontrolgym_tpu_torch.envs.reaction_diffusion import (
@@ -388,12 +409,14 @@ def flat_noisy(B, nx, gen):
     return (h + 0.1 * torch.randn(B, nx, generator=gen, device=gen.device)).contiguous()
 
 
-def _interval_inputs(torch, env, t0_range, gen, u_fn, act_scale, beta_spread):
-    """The arguments of one interval of ``env`` for NUM_ENVS envs: rows from
-    ``u_fn``, the env's plant parameter plus a per-env U(-spread, spread)
-    part, U(-act_scale, act_scale) actions, clocks drawn from ``t0_range``."""
+def _interval_inputs(torch, env, t0_range, gen, u_fn, act_scale, beta_spread,
+                     num_envs=None):
+    """The arguments of one interval of ``env`` for ``num_envs`` (default
+    NUM_ENVS) envs: rows from ``u_fn``, the env's plant parameter plus a
+    per-env U(-spread, spread) part, U(-act_scale, act_scale) actions, clocks
+    drawn from ``t0_range``."""
     spec, ctrl_transform = env.interval_spec()
-    B, nx, dev = NUM_ENVS, env.state_dim, env.device
+    B, nx, dev = num_envs or NUM_ENVS, env.state_dim, env.device
     u = u_fn(B, nx, gen)
     beta = env.init_batch(B, gen)[0].beta
     if beta_spread:
@@ -454,7 +477,8 @@ def sine_noisy(B, nx, gen):
 def phase_kernel(torch, device):
     gen = torch.Generator(device=device).manual_seed(0)
 
-    errs = {"transport": 0.0, "burgers": 0.0, "rd_explicit": 0.0, "rd_implicit": 0.0}
+    errs = {"transport": 0.0, "burgers": 0.0, "rd_explicit": 0.0, "rd_implicit": 0.0,
+            "burgers_wide": 0.0, "transport_wide": 0.0, "rd_explicit_wide": 0.0}
     inputs = {}
     for ct in ("Dirchilet", "Neumann"):
         env = transport_setup(torch, device, control_type=ct)[0]
@@ -505,6 +529,36 @@ def phase_kernel(torch, device):
                                  (nt - 1 - S - 5, nt - 1), gen, flat_noisy, 1.0,
                                  beta_spread=5.0)
             errs["rd_explicit"] = max(errs["rd_explicit"], e)
+
+    # the block-per-env kernel: the burgers_wide row, Dirichlet and Neumann, the
+    # Rusanov flux; viscous Burgers at nx=1024 (nu*dt/dx^2 = 0.1); transport
+    # at nx=2048 (dt/dx = 0.2) and FTCS at n=1025 (F = 0.42), their bodies
+    for ct in ("Dirchilet", "Neumann"):
+        env = burgers_wide_setup(torch, device, control_type=ct)[0]
+        nt, S = env.config.nt, env.config.sample_rate
+        e, inp = interval_case(torch, f"burgers wide {ct}", env, (0, nt - 1 - S), gen,
+                               sine_noisy, 0.5)
+        errs["burgers_wide"] = max(errs["burgers_wide"], e)
+        inputs.setdefault("burgers_wide", inp)
+        e, _ = interval_case(torch, f"burgers wide {ct} terminal", env,
+                             (nt - 1 - S - 5, nt - 1), gen, sine_noisy, 0.5)
+        errs["burgers_wide"] = max(errs["burgers_wide"], e)
+    for key, label, env in (
+            ("burgers_wide", "burgers wide rusanov",
+             burgers_wide_setup(torch, device, flux="rusanov")[0]),
+            ("burgers_wide", "burgers wide nx=1024 viscous",
+             burgers_setup(torch, device, dx=1.0 / 1024, T=0.1)[0]),
+            ("transport_wide", "transport wide nx=2048",
+             transport_setup(torch, device, dx=1.0 / 2048, T=0.5)[0]),
+            ("rd_explicit_wide", "rd explicit wide n=1025",
+             rd_explicit_setup(torch, device, dx=1.0 / 1024, dt=4e-7, T=4e-4,
+                               control_sample_rate=4e-5)[0])):
+        nt, S = env.config.nt, env.config.sample_rate
+        u_fn = sine_noisy if key == "burgers_wide" else flat_noisy
+        act = 0.5 if key == "burgers_wide" else 1.0
+        e, _ = interval_case(torch, label, env, (nt - 1 - S - 5, nt - 1), gen, u_fn, act,
+                             beta_spread=5.0 if key == "rd_explicit_wide" else 0.0)
+        errs[key] = max(errs[key], e)
 
     # implicit reaction-diffusion: the bench row's n=257, dt=4e-4, S=25
     for dx, theta, ct in ((1.0 / 256, 0.5, "Dirchilet"), (1.0 / 256, 0.5, "Neumann"),
@@ -678,6 +732,35 @@ def phase_burgers(torch, device):
     log(f"[burgers] {NUM_ENVS} envs x 100 actions: {launches} launches, mean return "
         f"{outs.reward.sum(0).mean().item():.4f}")
     return launches
+
+
+def phase_burgers_wide(torch, device):
+    """The inviscid nx=4096 episode through backend="auto": every interval on
+    the block-per-env kernel, the first one held to the bit against the plain
+    version on the episode's own initial rows and first action."""
+    from pdecontrolgym_tpu_torch.ops import interval1d
+
+    workload = burgers_wide_setup(torch, device)
+    env, policy, steps, _ = workload
+    state, obs = env.init_batch(NUM_ENVS, torch.Generator(device=device).manual_seed(6))
+    spec, ctrl_transform = env.interval_spec()
+    ctrl = ctrl_transform(policy(obs, None))[:, None].contiguous()
+    args = (spec, state.u, state.beta, ctrl, state.time_index[:, None])
+    got, want = interval1d.interval(*args), interval1d.interval_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)):
+        raise AssertionError("burgers wide: the first interval differs from the plain version")
+    interval1d.WIDE_LAUNCHES = 0
+    outs, launches, _ = run_episode(torch, workload, seed=6)
+    wide = interval1d.WIDE_LAUNCHES
+    _check_episode(torch, "burgers wide", outs, launches, steps)
+    if wide != steps:
+        raise AssertionError(f"burgers wide: {wide} wide-kernel launches, expected {steps}")
+    log(f"[burgers_wide] {NUM_ENVS} envs x nx={env.state_dim} x {steps} actions x "
+        f"{spec.sample_rate} sub-steps (inviscid, backend=auto): {wide} launches of the "
+        f"wide kernel, first interval equal to the plain version to the bit, mean return "
+        f"{outs.reward.sum(0).mean().item():.4f}")
+    return wide
 
 
 # -- phases 8 and 9: Navier-Stokes ---------------------------------------------------
@@ -1649,12 +1732,13 @@ def interval_kernel_times(torch, device, inputs, card):
     """One interval of each 1D body alone, at its main path's shape."""
     from pdecontrolgym_tpu_torch.ops import interval1d
 
-    launches_before = interval1d.LAUNCHES
+    launches_before = interval1d.LAUNCHES, interval1d.WIDE_LAUNCHES
     interval_ms = {}
     for name, (spec, u, beta, ctrl, t0) in inputs.items():
         call = lambda: interval1d.interval(spec, u, beta, ctrl, t0)  # noqa: E731
         k = cuda_ms(torch, call, calls=20)
-        dev, _ = device_ms(torch, call, "interval_kernel")
+        kernel = "interval_wide_kernel" if u.shape[1] > interval1d.MAX_NX else "interval_kernel"
+        dev, _ = device_ms(torch, call, kernel)
         p = cuda_ms(torch, lambda: interval1d.interval_plain(spec, u, beta, ctrl, t0))
         bound, bound_by, nbytes, flops = interval_bound(
             spec, *body_operations(spec), u.shape[0])
@@ -1670,7 +1754,8 @@ def interval_kernel_times(torch, device, inputs, card):
             f"share of the bound reached {bound / dev:.3f}; -fmad=false floor "
             f"{floor:.5f} ms, share {floor / dev:.3f}; no single PyTorch call "
             f"computes an S-sub-step interval ({card})")
-    interval1d.LAUNCHES = launches_before  # timing launches do not count
+    # timing launches do not count
+    interval1d.LAUNCHES, interval1d.WIDE_LAUNCHES = launches_before
     return interval_ms
 
 
@@ -1680,15 +1765,19 @@ def interval_episode_times(torch, device, card, backend):
     one last) or on the eager path (no trace), and bench.py's aggregate."""
     from pdecontrolgym_tpu_torch.ops import interval1d
 
-    launches_before = interval1d.LAUNCHES
+    launches_before = interval1d.LAUNCHES, interval1d.WIDE_LAUNCHES
     rates = {}
     # the eager path runs every sub-step as separate PyTorch operations: it is
-    # timed once, and for reaction-diffusion on an episode cut to 10 actions
+    # timed once, and for reaction-diffusion on an episode cut to 10 actions;
+    # the wide Burgers episode only on the interval kernel
     workloads = (("transport", transport_setup, None), ("burgers", burgers_setup, None),
+                 ("burgers wide", burgers_wide_setup, None),
                  ("rd implicit", rd_implicit_setup, 0.1),
                  ("rd explicit", rd_explicit_setup, 0.01))
     path = "interval kernel" if backend == "auto" else "eager"
     for name, setup, eager_T in workloads:
+        if backend == "eager" and name == "burgers wide":
+            continue
         kw, note, runs = {"backend": backend}, "", 3 if backend == "auto" else 1
         if backend == "eager" and eager_T is not None:
             kw["T"] = eager_T
@@ -1710,7 +1799,8 @@ def interval_episode_times(torch, device, card, backend):
     secs = sum(rates[n][1] for n in ("transport", "burgers")) / 1e3
     log(f"[times] aggregate transport nx=128 + Burgers nx=256 ({path}): "
         f"{steps / secs:.0f} PDE sub-steps/s at {NUM_ENVS} envs ({card})")
-    interval1d.LAUNCHES = launches_before  # timing launches do not count
+    # timing launches do not count
+    interval1d.LAUNCHES, interval1d.WIDE_LAUNCHES = launches_before
 
 
 def ns_bound(spec, num_envs, track, tensor_cores=True):
@@ -1839,7 +1929,8 @@ def time_kernels(torch, device):
     paths' shapes, on inputs made as phase_kernel makes its first case of
     each: B2 one transport interval (4096 envs, nx=128, S=1000), B3 one
     Burgers interval (Godunov, nx=256, S=100), B4 one explicit
-    reaction-diffusion interval (n=201, S=100), B5 one interval of the
+    reaction-diffusion interval (n=201, S=100), "b3_inviscid" B3's row with
+    viscosity 0, B5 one interval of the
     implicit bench row (n=257, S=25, theta=0.5), all Dirichlet and on the fast
     path; B6 one step at 4096 x 64x64 in the three precisions and at 1024 x
     128x128, lid-driven cavity, tracking sum, from a fresh episode's fields.
@@ -1847,7 +1938,10 @@ def time_kernels(torch, device):
     input of phase_neuron_kernel's first case (L spread over [10, 121)),
     "b7_l10" the episode's own (init_batch: L=10 in every env), "b7_full" L=119
     in every env (no row is dead); B8 one brain-tumor field pass at 4096 x 201
-    on phase_brain_kernel's first case.
+    on phase_brain_kernel's first case. The wide kernel on inviscid Burgers
+    rows: "wide_4096" (4096 envs x 4096 points, the burgers_wide row) and
+    "wide_16384" (1024 x 16384); a package without it times its eager
+    interval (the plain version) there, with "path": "plain".
     Returns {name: {"ms", "device_ms", "max_abs_err"}}: ms per call of 20
     back to back (CUDA events, median of 5; below ~0.1 ms this is the
     wrapper's host time, not the kernel's), the kernel's device time per
@@ -1859,12 +1953,13 @@ def time_kernels(torch, device):
 
     gen = torch.Generator(device=device).manual_seed(0)
     out = {}
-    for name, setup, u_fn, act_scale, beta_spread in (
-            ("b2", transport_setup, flat_noisy, 1.0, 0.0),
-            ("b3", burgers_setup, sine_noisy, 0.5, 0.0),
-            ("b4", rd_explicit_setup, flat_noisy, 1.0, 5.0),
-            ("b5", rd_implicit_setup, flat_noisy, 1.0, 5.0)):
-        env = setup(torch, device)[0]
+    for name, setup, u_fn, act_scale, beta_spread, kw in (
+            ("b2", transport_setup, flat_noisy, 1.0, 0.0, {}),
+            ("b3", burgers_setup, sine_noisy, 0.5, 0.0, {}),
+            ("b3_inviscid", burgers_setup, sine_noisy, 0.5, 0.0, {"viscosity": 0.0}),
+            ("b4", rd_explicit_setup, flat_noisy, 1.0, 5.0, {}),
+            ("b5", rd_implicit_setup, flat_noisy, 1.0, 5.0, {})):
+        env = setup(torch, device, **kw)[0]
         nt, S = env.config.nt, env.config.sample_rate
         args = _interval_inputs(torch, env, (0, nt - 1 - S), gen, u_fn, act_scale,
                                 beta_spread)
@@ -1873,6 +1968,28 @@ def time_kernels(torch, device):
         out[name] = {"ms": cuda_ms(torch, call, runs=5, calls=20),
                      "device_ms": device_ms(torch, call, "interval_kernel")[0],
                      "max_abs_err": float(err)}
+    # the wide kernel on inviscid Burgers rows: 4096 x 4096 (the burgers_wide
+    # row) and 1024 x 16384 (dt 2.5e-5, CFL <= 0.82, S = 100). A package
+    # without the wide kernel raises there: its eager interval, the plain
+    # version on the card, is timed instead ("path": "plain").
+    for name, nx, B, dt in (("wide_4096", 4096, NUM_ENVS, 1e-4),
+                            ("wide_16384", 16384, 1024, 2.5e-5)):
+        env = burgers_wide_setup(torch, device, dx=1.0 / nx, dt=dt,
+                                 control_sample_rate=100 * dt)[0]
+        nt, S = env.config.nt, env.config.sample_rate
+        args = _interval_inputs(torch, env, (0, nt - 1 - S), gen, sine_noisy, 0.5, 0.0,
+                                num_envs=B)
+        try:
+            got = interval1d.interval(*args)
+            call = lambda a=args: interval1d.interval(*a)  # noqa: E731
+            err, kernel, calls = float((got[0] - interval1d.interval_plain(*args)[0]).abs().max()), \
+                "interval_wide_kernel", 20
+        except ValueError:
+            call = lambda a=args: interval1d.interval_plain(*a)  # noqa: E731
+            err, kernel, calls = 0.0, None, 1
+        out[name] = {"ms": cuda_ms(torch, call, runs=5, calls=calls),
+                     "device_ms": device_ms(torch, call, kernel)[0], "max_abs_err": err,
+                     "path": "kernel" if kernel else "plain"}
     for name, n, B, precision in (("b6_64", 64, NUM_ENVS, "highest"),
                                   ("b6_64_high", 64, NUM_ENVS, "high"),
                                   ("b6_64_default", 64, NUM_ENVS, "default"),
@@ -1912,15 +2029,23 @@ def time_kernels(torch, device):
     return out
 
 
-# the explicit interval kernels whose SASS --compare counts: the main paths'
-# points a lane, Dirichlet (P, body)
-SASS_INSTANCES = {"transport P=4": (4, 0), "burgers godunov P=8": (8, 1),
-                  "ftcs P=7": (7, 3)}
+# the explicit interval kernels whose SASS --compare counts, at the main paths'
+# rows (and B3's row without viscosity), Dirichlet: each label's instance
+# (mangled name, points a lane); the warp kernel takes <P, body, neumann,
+# viscous, short lanes>, the wide kernel <P, body, neumann, viscous>
+SASS_INSTANCES = {
+    "transport nx=128": (("15interval_kernelILi4ELi0ELb0ELb0ELb1EE", 4),),
+    "burgers godunov nx=256": (("15interval_kernelILi8ELi1ELb0ELb1ELb0EE", 8),),
+    "burgers godunov inviscid nx=256": (("15interval_kernelILi8ELi1ELb0ELb0ELb0EE", 8),),
+    "ftcs n=201": (("15interval_kernelILi7ELi3ELb0ELb0ELb1EE", 7),),
+    "wide burgers inviscid nx=4096": (("20interval_wide_kernelILi16ELi1ELb0ELb0EE", 16),),
+}
 
 
 def sass_substeps(library):
-    """Instructions a sub-step in the innermost loops of the SASS_INSTANCES,
-    from ``cuobjdump -sass`` of a built library. A loop is a backward branch
+    """Instructions a sub-step (and a sub-step and point a lane) in the
+    innermost loops of the SASS_INSTANCES, from ``cuobjdump -sass`` of a built
+    library. A loop is a backward branch
     and the instructions up to it; an innermost one holds no other. Its
     SHFL.DOWN instructions count its sub-steps (each body shuffles down once).
     Counted: its instructions less NOPs and less a block that holds the norm's
@@ -1944,12 +2069,14 @@ def sass_substeps(library):
         log(f"[compare] no SASS count: cuobjdump exited {proc.returncode}")
         return {}
     text = proc.stdout
-    wanted = {v: k for k, v in SASS_INSTANCES.items()}
     out = {}
     for chunk in text.split("Function : ")[1:]:
-        m = re.search(r"interval_kernelILi(\d+)ELi(\d+)E(Lb0E)?E", chunk.split("\n", 1)[0])
-        if not m or (int(m[1]), int(m[2])) not in wanted:
+        header = chunk.split("\n", 1)[0]
+        found = [(f"{label} {name[2:]}", P) for label, insts in SASS_INSTANCES.items()
+                 for name, P in insts if name in header]
+        if not found:
             continue
+        key, points = found[0]
         ins = []
         for addr, body in re.findall(r"/\*([0-9a-f]+)\*/\s+([^;]*?)\s*;", chunk):
             words = body.split()
@@ -1974,10 +2101,11 @@ def sass_substeps(library):
                     and a not in hidden]
             loops.append({"substeps": substeps, "instructions": len(kept),
                           "per_substep": len(kept) / substeps,
+                          "per_point": len(kept) / substeps / points,
                           "norm_block": len(hidden),
                           "ops": {k: v / substeps for k, v in
                                   Counter(op.split(".")[0] for op in kept).most_common()}})
-        out[wanted[(int(m[1]), int(m[2]))]] = loops
+        out[key] = loops
     return out
 
 
@@ -2056,14 +2184,15 @@ def compare(roots):
             raise RuntimeError(f"{r}: the build failed\n{text[-4000:]}")
         # registers and spilled bytes of the B6 instances, of B5 at K=9
         # (n=257), of B7 at M=121 (B7_INSTANCES), of B8 at P=7 (nx=201) and of
-        # the explicit interval kernels at the main paths' P
-        regs, spills, explicit = {}, 0, 0
+        # the explicit interval kernels at the main paths' rows (SASS_INSTANCES)
+        regs, spills, explicit, wide = {}, 0, 0, 0
+        sass_names = [n for insts in SASS_INSTANCES.values() for n, _ in insts]
         for chunk in text.split("Compiling entry function")[1:]:
             name = re.search(r"(ns_step_kernel|pcr_interval_kernel)ILi(\d+)E(Lb([01])E)?",
                              chunk)
             family = re.search(
                 r"(neuron_interval_kernel|brain_tumor_field_kernel)ILi(\d+)E(Li(\d+)E)?E", chunk)
-            inst = re.search(r"interval_kernelILi(\d+)ELi(\d+)E(Lb([01])E)?", chunk)
+            header = chunk.split("\n", 1)[0]
             used = re.search(r"Used (\d+) registers", chunk)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
             n_spill = int(spill.group(1)) + int(spill.group(2)) if spill else 0
@@ -2078,14 +2207,15 @@ def compare(roots):
                         or family.group(1) + key == "brain_tumor_field_kernel<7>"):
                     regs[family.group(1) + key] = (
                         f"{used.group(1)} registers, {n_spill} B spilled")
-            elif inst and used and not name and not family:
-                explicit += 1
-                key = (int(inst.group(1)), int(inst.group(2)))
-                if key in SASS_INSTANCES.values() and inst.group(4) != "1":
-                    regs[f"interval_kernel<{key[0]},{key[1]}>"] = (
-                        f"{used.group(1)} registers, {n_spill} B spilled")
-        log(f"[compare] {r}: built; {explicit} explicit interval kernels; {regs}; "
-            f"{spills} bytes of spills in all")
+            elif used and ("15interval_kernelI" in header
+                           or "20interval_wide_kernelI" in header):
+                explicit += "15interval_kernelI" in header
+                wide += "20interval_wide_kernelI" in header
+                for n in sass_names:
+                    if n in header:
+                        regs[n[2:]] = f"{used.group(1)} registers, {n_spill} B spilled"
+        log(f"[compare] {r}: built; {explicit} explicit interval kernels of a warp, "
+            f"{wide} of a block; {regs}; {spills} bytes of spills in all")
         sass[r] = sass_substeps(text.strip().splitlines()[-1])
         for inst in B7_INSTANCES:
             b7 = sass_dt_step(text.strip().splitlines()[-1], inst)
@@ -2100,7 +2230,8 @@ def compare(roots):
                 log(f"[compare] {r} SASS {inst} (Dirichlet): a loop of {loop['substeps']} "
                     f"sub-steps, {loop['instructions']} instructions (less NOPs and a "
                     f"norm block of {loop['norm_block']}): {loop['per_substep']:g} a "
-                    f"sub-step; by opcode a sub-step: {ops}")
+                    f"sub-step, {loop['per_point']:g} a sub-step and point a lane; by "
+                    f"opcode a sub-step: {ops}")
     results = []
     for r in roots:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-root", r],
@@ -2110,6 +2241,12 @@ def compare(roots):
         numbers = json.loads(proc.stdout.strip().splitlines()[-1])
         results.append({"root": r, **numbers})
         for name, v in numbers.items():
+            if v.get("path") == "plain":
+                log(f"[compare] {r} {name}: no kernel takes this row; its eager interval "
+                    f"(the plain version): {v['device_ms']:.4f} ms of device time a call "
+                    f"(torch.profiler), {v['ms']:.4f} ms a call (CUDA events, median of "
+                    f"5) ({card})")
+                continue
             log(f"[compare] {r} {name}: {v['device_ms']:.4f} ms on the device per launch "
                 f"(torch.profiler, 10 calls); {v['ms']:.4f} ms per call (20 back to back, "
                 f"CUDA events, median of 5); max_abs_err against the plain version "
@@ -2159,6 +2296,7 @@ def main():
     phase_goldens(torch, device)
     phase_goldens_parabolic(torch, device)
     burgers_launches = phase_burgers(torch, device)
+    wide_launches = phase_burgers_wide(torch, device)
     explicit_launches, implicit_launches = phase_rd(torch, device)
     ns_err, ns_inputs = phase_ns_kernel(torch, device)
     ns_launches = phase_ns(torch, device)
@@ -2193,12 +2331,17 @@ def main():
         ("rd_implicit", "interval1d<reaction_diffusion_implicit>",
          f"{PKG}/csrc/interval1d_pcr.cu", 327, implicit_launches),
     )
+    rows += (("burgers_wide", "interval1d_wide<burgers>", f"{PKG}/csrc/interval1d_wide.cu",
+              221, wide_launches),)
     kernels = [
         {"name": name, "route": "cuda", "source": source,
          "replaces": f"pdecontrolgym_tpu/ops/pallas1d.py:{line}",
          "launches": launches, "max_abs_err": errs[key], **interval_ms[key]}
         for key, name, source, line, launches in rows
     ]
+    # the wide kernel's other bodies, checked in phase_kernel and not timed
+    kernels[-1]["other_bodies_max_abs_err"] = {
+        "transport": errs["transport_wide"], "reaction_diffusion": errs["rd_explicit_wide"]}
     kernels.append(
         {"name": "ns_step", "route": "cuda", "source": f"{PKG}/csrc/ns_fused.cu",
          "replaces": "pdecontrolgym_tpu/ops/ns_fused.py:743",

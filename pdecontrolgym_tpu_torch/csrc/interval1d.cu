@@ -15,32 +15,47 @@
 // warps), each warp issuing its sub-steps one after the other. Built with
 // -fmad=false (point 4 below), every mul and add issues on its own, so the
 // float floor is twice the operation bound that chip_smoke.py's
-// interval_bound counts at 67 TFLOP/s. Beyond the float
+// interval_bound counts at 67 TFLOP/s. A Burgers point issues 9 float
+// instructions with viscosity (the two max, the square and its scale, the
+// viscous sub, mul and sub, the flux difference and the update), none of
+// which can fuse under that contract. Beyond the float
 // operations a sub-step issues two shuffles, a select for each special row,
 // two for the ghost slot and about one loop instruction, whatever the points a
 // lane: at P = 7, FTCS issues about 35 instructions a sub-step where its float
 // operations are 28 (chip_smoke.py --compare counts them in the SASS).
 //
 // Layout. One warp per env; lane l holds P = ceil(nx / 32) consecutive points
-// in registers (P <= 16, so nx <= 512). With g = 32*P - nx, the g lanes
-// l < g are short: they hold P - 1 points and their slot P-1 is a ghost; the
-// others hold P. So lane l's slot 0 is row l*P - min(l, g), row 0 is always
-// slot 0 of lane 0 and row nx-1 slot P-1 of lane 31: both special rows sit at
-// slots the compiler knows, and each is set by one select on a predicate
-// hoisted out of the loop. (P = 1 is the exception: lane l holds row l, the
-// lanes l >= nx are ghosts, and row nx-1 is lane nx-1.) Neighbours cross
-// lanes by warp shuffles: u[i+1] of a lane's last point is slot 0 of the next
-// lane (__shfl_down_sync); u[i-1] of slot 0, and the Burgers flux left of it,
-// is the previous lane's last point (__shfl_up_sync of a selected slot);
+// in registers (P <= 16, so nx <= 512; wider rows go to
+// csrc/interval1d_wide.cu). With g = 32*P - nx, the g lanes l < g are short:
+// they hold P - 1 points and their slot P-1 is a ghost; the others hold P. So
+// lane l's slot 0 is row l*P - min(l, g), row 0 is always slot 0 of lane 0
+// and row nx-1 slot P-1 of lane 31: both special rows sit at slots the
+// compiler knows, and each is set by one select on a predicate hoisted out of
+// the loop. (P = 1 is the exception: lane l holds row l, the lanes l >= nx are
+// ghosts, and row nx-1 is lane nx-1.) A Burgers row of exactly 32*P points
+// (256 on the main path) has no short lane, and takes an instance (SHORT =
+// false) without the two short-lane selects a sub-step: 78.25 SASS
+// instructions a sub-step at P = 8 against 80.25. Neighbours cross lanes by
+// warp shuffles: u[i+1] of a lane's last point is slot 0 of the next lane
+// (__shfl_down_sync); u[i-1] of slot 0, and the Burgers flux left of it, is
+// the previous lane's last point (__shfl_up_sync of a selected slot);
 // transport's u_old[0] is slot 0 of lane 0 (__shfl_sync). The L2 norm is a
 // butterfly reduction (__shfl_xor_sync) taken only at the listed positions.
+// Two envs a warp (16 lanes each, P = 16 at nx = 256) issue fewer
+// instructions a point (9.56 against 9.78) but took 0.0440 ms against 0.0362
+// on an NVIDIA H100 (4096 envs, S = 100), and are not used.
 //
 // Loop. The sub-steps run in stretches between the norm positions, unrolled
 // by 4, with no clock or position test inside: an env runs
 // min(S, max(0, nt - 1 - t0)) sub-steps (all S on the fast path, t0 + S <=
 // nt - 1) and then holds its state, so the masked path is the same loop cut
-// short. The boundary control type (Dirichlet or Neumann) is a template
-// parameter, so a Dirichlet instance carries no Neumann code.
+// short. The boundary control type (Dirichlet or Neumann) and, for Burgers,
+// the viscous term (c2 != 0) are template parameters, so an instance carries
+// no code it does not run. A run-time test of c2 costs viscous rows nothing
+// (the compiler hoists it), but leaves the viscous operations in the loop,
+// predicated off, on inviscid ones: at nx = 256, 78.25 SASS instructions a
+// sub-step instead of 54.25, and 0.0353-0.0359 ms instead of 0.0279-0.0281 on an NVIDIA
+// H100 (PERF.md).
 //
 // Points where the kernel could go wrong, and what it does:
 // 1. Norm slots. The TPU kernel writes only the slots j % Wp of the listed
@@ -56,11 +71,12 @@
 //    +0; Burgers: the new un[1]) and row nx-1 (the boundary) are selected in.
 //    A select keeps the plain version's values exactly, non-finite ones too.
 // 4. Rounding. Built with -fmad=false, so each operation rounds as the plain
-//    version's separate tensor operations do. The expressions below keep the
-//    plain version's association term by term, so the state equals
-//    interval_plain's to the bit; the norms are sums in another order. The
-//    Burgers flux takes max.NaN, which propagates NaN as torch.maximum does,
-//    so a row that holds inf or NaN evolves as the plain version's does too.
+//    version's separate tensor operations do. The point formulas
+//    (csrc/interval1d_bodies.cuh) keep the plain version's association term
+//    by term, so the state equals interval_plain's to the bit; the norms are
+//    sums in another order. The Burgers flux takes max.NaN, which propagates
+//    NaN as torch.maximum does, so a row that holds inf or NaN evolves as the
+//    plain version's does too.
 // 5. Boundary values. ctrl arrives already transformed by the env. Neumann
 //    control forms ctrl*dx + u_old[nx-2] from the register of lane 31 (a
 //    shuffle at P = 1) before the update; the boundary and its sum live in
@@ -74,7 +90,7 @@
 //    point reads u[0] from before the sub-step. Burgers: the flux at the face
 //    right of row nx-1, and the one left of row 0, are garbage and never used.
 
-#include "interval1d_common.cuh"
+#include "interval1d_bodies.cuh"
 
 namespace {
 
@@ -82,17 +98,9 @@ using namespace pdecg;
 
 constexpr int kWarpsPerBlock = 8;
 
-enum Body { kTransport = 0, kGodunov = 1, kRusanov = 2, kFtcs = 3 };
-
-struct Params : IntervalArgs {
-  // transport: c0 = dt/dx, c1 = dt
-  // Burgers:   c0 = 0.5*dt/dx, c1 = 0.25*dt/dx, c2 = nu*dt/dx^2, c3 = dx
-  // FTCS:      c0 = F = dt/dx^2, c1 = dt, c2 = 1 - 2F, c3 = dx
-  float c0, c1, c2, c3;
-};
-
-// Which points of the row a lane holds (see "Layout" above).
-template <int P>
+// Which points of the row a lane holds (see "Layout" above). SHORT = false:
+// the row has no short lane (nx == 32*P).
+template <int P, bool SHORT>
 struct Lane {
   int base;    // the row of slot 0
   bool shrt;   // slot P-1 is a ghost (at P = 1: the lane holds no point)
@@ -102,12 +110,12 @@ struct Lane {
   __device__ __forceinline__ Lane(int lane, int nx) {
     if constexpr (P == 1) {
       base = lane;
-      shrt = lane >= nx;
+      shrt = SHORT && lane >= nx;
       last = lane == nx - 1;
     } else {
       const int g = 32 * P - nx;
       base = lane * P - min(lane, g);
-      shrt = lane < g;
+      shrt = SHORT && lane < g;
       last = lane == 31;
     }
     first = lane == 0;
@@ -117,17 +125,17 @@ struct Lane {
 };
 
 // u[i+1] for slot k; `next` is the next lane's slot 0.
-template <int P>
+template <int P, bool SHORT>
 __device__ __forceinline__ float up_of(const float (&v)[P], int k, float next,
-                                       const Lane<P>& L) {
+                                       const Lane<P, SHORT>& L) {
   if (k == P - 1) return next;
   if (k == P - 2) return L.shrt ? next : v[P - 1];
   return v[k + 1];
 }
 
 // The lane's last real point of `v`, which the next lane reads as u[i-1].
-template <int P>
-__device__ __forceinline__ float last_point(const float (&v)[P], const Lane<P>& L) {
+template <int P, bool SHORT>
+__device__ __forceinline__ float last_point(const float (&v)[P], const Lane<P, SHORT>& L) {
   if constexpr (P == 1) {
     return v[0];
   } else {
@@ -145,8 +153,8 @@ __device__ __forceinline__ float old_nm2(const float (&v)[P], int nx) {
   }
 }
 
-template <int P>
-__device__ __forceinline__ float row_norm(const float (&v)[P], const Lane<P>& L) {
+template <int P, bool SHORT>
+__device__ __forceinline__ float row_norm(const float (&v)[P], const Lane<P, SHORT>& L) {
   float s = 0.f;
 #pragma unroll
   for (int k = 0; k < P - 1; ++k) s += v[k] * v[k];
@@ -154,25 +162,17 @@ __device__ __forceinline__ float row_norm(const float (&v)[P], const Lane<P>& L)
   return sqrtf(warp_sum(s));
 }
 
-// max(a, b), NaN if either is NaN, as torch.maximum and clamp_min give it
-// (fmaxf would return the other operand).
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
 // One transport sub-step in place; returns the boundary value.
-template <int P>
+template <int P, bool SHORT>
 __device__ __forceinline__ float transport_substep(float (&v)[P], const float (&bdt)[P],
                                                    float ctrl, const Params& p,
-                                                   const Lane<P>& L) {
+                                                   const Lane<P, SHORT>& L) {
   const float u0 = __shfl_sync(kFull, v[0], 0);
   const float next = __shfl_down_sync(kFull, v[0], 1);
   float un[P];
 #pragma unroll
   for (int k = 0; k < P; ++k)
-    un[k] = v[k] + p.c0 * (up_of<P>(v, k, next, L) - v[k]) + u0 * bdt[k];
+    un[k] = transport_point(v[k], up_of(v, k, next, L), u0, bdt[k], p);
   un[P - 1] = L.last ? ctrl : un[P - 1];
 #pragma unroll
   for (int k = 0; k < P; ++k) v[k] = un[k];
@@ -180,32 +180,19 @@ __device__ __forceinline__ float transport_substep(float (&v)[P], const float (&
 }
 
 // One Burgers sub-step in place; returns the boundary value.
-template <int P, int BODY, bool NEUMANN>
+template <int P, int BODY, bool NEUMANN, bool VISC, bool SHORT>
 __device__ __forceinline__ float burgers_substep(float (&v)[P], float ctrl,
-                                                 const Params& p, const Lane<P>& L) {
+                                                 const Params& p, const Lane<P, SHORT>& L) {
   float boundary = ctrl;
   if constexpr (NEUMANN) boundary = ctrl * p.c3 + old_nm2<P>(v, p.nx);
   const float next = __shfl_down_sync(kFull, v[0], 1);
   float fr[P];
 #pragma unroll
-  for (int k = 0; k < P; ++k) {
-    const float ul = v[k];
-    const float ur = up_of<P>(v, k, next, L);
-    float f;
-    if constexpr (BODY == kGodunov) {
-      const float m = max_nan(max_nan(ul, -ur), 0.f);
-      f = p.c0 * (m * m);
-    } else {
-      const float coef = p.c0 * max_nan(fabsf(ul), fabsf(ur));
-      f = p.c1 * (ul * ul + ur * ur) - coef * (ur - ul);
-    }
-    if (p.c2 != 0.f) f = f - p.c2 * (ur - ul);
-    fr[k] = f;
-  }
-  const float fl_first = __shfl_up_sync(kFull, last_point<P>(fr, L), 1);
+  for (int k = 0; k < P; ++k) fr[k] = burgers_flux<BODY, VISC>(v[k], up_of(v, k, next, L), p);
+  const float fl_first = __shfl_up_sync(kFull, last_point(fr, L), 1);
   float un[P];
 #pragma unroll
-  for (int k = 0; k < P; ++k) un[k] = v[k] - (fr[k] - ((k > 0) ? fr[k - 1] : fl_first));
+  for (int k = 0; k < P; ++k) un[k] = burgers_point(v[k], fr[k], (k > 0) ? fr[k - 1] : fl_first);
   // row 0 takes the new un[1] (zero-gradient outflow)
   float un1;
   if constexpr (P == 1) {
@@ -224,20 +211,18 @@ __device__ __forceinline__ float burgers_substep(float (&v)[P], float ctrl,
 }
 
 // One FTCS sub-step in place; returns the boundary value.
-template <int P, bool NEUMANN>
+template <int P, bool NEUMANN, bool SHORT>
 __device__ __forceinline__ float ftcs_substep(float (&v)[P], const float (&diag)[P],
                                               float ctrl, const Params& p,
-                                              const Lane<P>& L) {
+                                              const Lane<P, SHORT>& L) {
   float boundary = ctrl;
   if constexpr (NEUMANN) boundary = ctrl * p.c3 + old_nm2<P>(v, p.nx);
-  const float prev = __shfl_up_sync(kFull, last_point<P>(v, L), 1);
+  const float prev = __shfl_up_sync(kFull, last_point(v, L), 1);
   const float next = __shfl_down_sync(kFull, v[0], 1);
   float un[P];
 #pragma unroll
-  for (int k = 0; k < P; ++k) {
-    const float um = (k > 0) ? v[k - 1] : prev;
-    un[k] = v[k] * diag[k] + p.c0 * (um + up_of<P>(v, k, next, L));
-  }
+  for (int k = 0; k < P; ++k)
+    un[k] = ftcs_point(v[k], (k > 0) ? v[k - 1] : prev, up_of(v, k, next, L), diag[k], p);
   un[0] = L.first ? 0.f : un[0];  // the fixed u(0, t) = 0
   un[P - 1] = L.last ? boundary : un[P - 1];
 #pragma unroll
@@ -245,37 +230,37 @@ __device__ __forceinline__ float ftcs_substep(float (&v)[P], const float (&diag)
   return boundary;
 }
 
-template <int P, int BODY, bool NEUMANN>
+template <int P, int BODY, bool NEUMANN, bool VISC, bool SHORT>
 __device__ __forceinline__ float substep(float (&v)[P], const float (&aux)[P], float ctrl,
-                                         const Params& p, const Lane<P>& L) {
+                                         const Params& p, const Lane<P, SHORT>& L) {
   if constexpr (BODY == kTransport) {
-    return transport_substep<P>(v, aux, ctrl, p, L);
+    return transport_substep(v, aux, ctrl, p, L);
   } else if constexpr (BODY == kFtcs) {
     return ftcs_substep<P, NEUMANN>(v, aux, ctrl, p, L);
   } else {
-    return burgers_substep<P, BODY, NEUMANN>(v, ctrl, p, L);
+    return burgers_substep<P, BODY, NEUMANN, VISC>(v, ctrl, p, L);
   }
 }
 
 // Sub-steps j .. end-1; with ACC, adds each one's |boundary| to bsum.
-template <int P, int BODY, bool NEUMANN, bool ACC>
+template <int P, int BODY, bool NEUMANN, bool VISC, bool SHORT, bool ACC>
 __device__ __forceinline__ void run(float (&v)[P], const float (&aux)[P], float ctrl,
-                                    const Params& p, const Lane<P>& L, int& j, int end,
-                                    float& bsum) {
+                                    const Params& p, const Lane<P, SHORT>& L, int& j,
+                                    int end, float& bsum) {
 #pragma unroll 4
   for (; j < end; ++j) {
-    const float boundary = substep<P, BODY, NEUMANN>(v, aux, ctrl, p, L);
+    const float boundary = substep<P, BODY, NEUMANN, VISC>(v, aux, ctrl, p, L);
     if constexpr (ACC) bsum = bsum + fabsf(boundary);
   }
 }
 
-template <int P, int BODY, bool NEUMANN>
+template <int P, int BODY, bool NEUMANN, bool VISC, bool SHORT>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 interval_kernel(const Params p) {
   const int lane = threadIdx.x & 31;
   const int env = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (env >= p.B) return;  // whole warp: env is uniform across it
-  const Lane<P> L(lane, p.nx);
+  const Lane<P, SHORT> L(lane, p.nx);
   const size_t row = static_cast<size_t>(env) * p.nx + L.base;
 
   float v[P];
@@ -283,17 +268,12 @@ interval_kernel(const Params p) {
 #pragma unroll
   for (int k = 0; k < P; ++k) {
     v[k] = L.holds(k) ? p.u[row + k] : 0.f;
-    if constexpr (BODY == kTransport || BODY == kFtcs) {
-      const float bdt = L.holds(k) ? p.beta[row + k] * p.c1 : 0.f;
-      aux[k] = (BODY == kFtcs) ? p.c2 + bdt : bdt;
-    } else {
-      aux[k] = 0.f;
-    }
+    aux[k] = L.holds(k) ? point_aux<BODY>(p.beta, row + k, p) : 0.f;
   }
   const float ctrl = p.ctrl[env];
   const int t0 = p.t0[env];
   const bool fast = t0 + p.S <= p.nt - 1;
-  const int n_run = fast ? p.S : max(0, min(p.S, p.nt - 1 - t0));
+  const int n_run = sub_steps_run(p, t0, fast);
   constexpr bool bconst = BODY == kTransport || !NEUMANN;
   const bool acc = !(fast && bconst);
   float* nrow = p.norms + static_cast<size_t>(env) * p.Wp;
@@ -304,11 +284,11 @@ interval_kernel(const Params p) {
   for (int q = 0; q <= p.pos.n; ++q) {
     const int end = (q < p.pos.n) ? min(p.pos.j[q] + 1, n_run) : n_run;
     if (acc)
-      run<P, BODY, NEUMANN, true>(v, aux, ctrl, p, L, j, end, bsum);
+      run<P, BODY, NEUMANN, VISC, SHORT, true>(v, aux, ctrl, p, L, j, end, bsum);
     else
-      run<P, BODY, NEUMANN, false>(v, aux, ctrl, p, L, j, end, bsum);
+      run<P, BODY, NEUMANN, VISC, SHORT, false>(v, aux, ctrl, p, L, j, end, bsum);
     if (q < p.pos.n) {
-      const float n = row_norm<P>(v, L);
+      const float n = row_norm(v, L);
       if (lane == 0) nrow[p.pos.j[q] % p.Wp] = n;
     }
   }
@@ -323,23 +303,43 @@ interval_kernel(const Params p) {
   }
 }
 
-template <int P, int BODY>
-void launch_b(int neumann, const Params& p, dim3 grid, dim3 block, cudaStream_t s) {
-  if (neumann)
-    interval_kernel<P, BODY, true><<<grid, block, 0, s>>>(p);
-  else
-    interval_kernel<P, BODY, false><<<grid, block, 0, s>>>(p);
+template <int P, int BODY, bool NEUMANN, bool VISC = false, bool SHORT = true>
+void launch(const Params& p, cudaStream_t s) {
+  const dim3 grid((p.B + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  interval_kernel<P, BODY, NEUMANN, VISC, SHORT><<<grid, kWarpsPerBlock * 32, 0, s>>>(p);
+}
+
+// Burgers: the viscous term and, for a row of exactly 32*P points, the
+// instance without short lanes.
+template <int P, int BODY, bool NEUMANN>
+void launch_burgers(bool visc, const Params& p, cudaStream_t s) {
+  const bool full = p.nx == 32 * P;
+  if (visc) {
+    if (full) launch<P, BODY, NEUMANN, true, false>(p, s);
+    else launch<P, BODY, NEUMANN, true, true>(p, s);
+  } else {
+    if (full) launch<P, BODY, NEUMANN, false, false>(p, s);
+    else launch<P, BODY, NEUMANN, false, true>(p, s);
+  }
 }
 
 template <int P>
-void launch_p(int body, int neumann, const Params& p, dim3 grid, dim3 block,
-              cudaStream_t s) {
+void launch_p(int body, bool neumann, bool visc, const Params& p, cudaStream_t s) {
   switch (body) {
     // transport's boundary is ctrl under either control type
-    case kTransport: interval_kernel<P, kTransport, false><<<grid, block, 0, s>>>(p); break;
-    case kGodunov: launch_b<P, kGodunov>(neumann, p, grid, block, s); break;
-    case kRusanov: launch_b<P, kRusanov>(neumann, p, grid, block, s); break;
-    default: launch_b<P, kFtcs>(neumann, p, grid, block, s); break;
+    case kTransport: launch<P, kTransport, false>(p, s); break;
+    case kGodunov:
+      if (neumann) launch_burgers<P, kGodunov, true>(visc, p, s);
+      else launch_burgers<P, kGodunov, false>(visc, p, s);
+      break;
+    case kRusanov:
+      if (neumann) launch_burgers<P, kRusanov, true>(visc, p, s);
+      else launch_burgers<P, kRusanov, false>(visc, p, s);
+      break;
+    default:
+      if (neumann) launch<P, kFtcs, true>(p, s);
+      else launch<P, kFtcs, false>(p, s);
+      break;
   }
 }
 
@@ -359,7 +359,7 @@ int interval1d_launch(const float* u, const float* beta, const float* ctrl,
                       int device, void* stream) {
   Params p;
   cudaError_t err = make_args(p, u, beta, ctrl, t0, u_out, norms, bsum, t_out, B,
-                              nx, S, nt, Wp, positions, n_pos);
+                              nx, S, nt, Wp, positions, n_pos, kMaxNx);
   if (err == cudaSuccess && (body < kTransport || body > kFtcs))
     err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -368,17 +368,16 @@ int interval1d_launch(const float* u, const float* beta, const float* ctrl,
   if (err != cudaSuccess) return static_cast<int>(err);
   p.c0 = c0; p.c1 = c1; p.c2 = c2; p.c3 = c3;
 
-  const dim3 block(kWarpsPerBlock * 32);
-  const dim3 grid((B + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  const bool visc = (body == kGodunov || body == kRusanov) && c2 != 0.f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((nx + 31) / 32) {  // points a lane
-#define PDECG_CASE(P) case P: launch_p<P>(body, neumann, p, grid, block, s); break;
+#define PDECG_CASE(P) case P: launch_p<P>(body, neumann != 0, visc, p, s); break;
     PDECG_CASE(1) PDECG_CASE(2) PDECG_CASE(3) PDECG_CASE(4)
     PDECG_CASE(5) PDECG_CASE(6) PDECG_CASE(7) PDECG_CASE(8)
     PDECG_CASE(9) PDECG_CASE(10) PDECG_CASE(11) PDECG_CASE(12)
     PDECG_CASE(13) PDECG_CASE(14) PDECG_CASE(15)
 #undef PDECG_CASE
-    default: launch_p<16>(body, neumann, p, grid, block, s); break;
+    default: launch_p<16>(body, neumann != 0, visc, p, s); break;
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,7 +9,8 @@
 namespace pdecg {
 
 constexpr int kMaxPositions = 64;
-constexpr int kMaxNx = 512;
+constexpr int kMaxNx = 512;        // one warp an env: 32 lanes x 16 points
+constexpr int kMaxNxWide = 16384;  // one block an env: 32 warps x 32 x 16
 constexpr unsigned kFull = 0xffffffffu;
 
 // The sorted sub-step offsets after which the row's L2 norm is stored.
@@ -31,14 +32,15 @@ struct IntervalArgs {
   Positions pos;
 };
 
-// Fills `a`; cudaErrorInvalidValue for shapes no interval kernel takes.
-// `positions` is a host array of n_pos sorted sub-step offsets.
+// Fills `a`; cudaErrorInvalidValue for shapes the kernel does not take (rows
+// of 3 to max_nx points). `positions` is a host array of n_pos sorted
+// sub-step offsets.
 inline cudaError_t make_args(IntervalArgs& a, const float* u, const float* beta,
                              const float* ctrl, const int* t0, float* u_out,
                              float* norms, float* bsum, int* t_out, int B, int nx,
                              int S, int nt, int Wp, const int* positions,
-                             int n_pos) {
-  if (nx < 3 || nx > kMaxNx || n_pos < 0 || n_pos > kMaxPositions || B < 0 ||
+                             int n_pos, int max_nx) {
+  if (nx < 3 || nx > max_nx || n_pos < 0 || n_pos > kMaxPositions || B < 0 ||
       S < 0 || Wp <= 0)
     return cudaErrorInvalidValue;
   a.u = u; a.beta = beta; a.ctrl = ctrl; a.t0 = t0;

@@ -302,7 +302,7 @@ int interval1d_pcr_launch(const float* u, const float* beta, const float* ctrl,
                           int device, void* stream) {
   PcrParams p;
   cudaError_t err = make_args(p, u, beta, ctrl, t0, u_out, norms, bsum, t_out, B,
-                              nx, S, nt, Wp, positions, n_pos);
+                              nx, S, nt, Wp, positions, n_pos, kMaxNx);
   if (err != cudaSuccess) return static_cast<int>(err);
   int steps = 1;
   while ((1 << steps) < nx) ++steps;  // ceil(log2 nx)

@@ -13,9 +13,10 @@ Two paths advance a control interval:
   the env's ``_advance`` (the counterpart of ``jax.vmap(env.step)``).
 - :meth:`Boundary1DEnv.step_batch`, the interval path: one call of
   ``ops.interval1d.interval`` per control interval (the CUDA kernel for tensors
-  on the card), when the env has a spec for it and the reward reads nothing
+  on the card), when the env has a spec for it, the reward reads nothing
   the interval does not produce (the previous row, a norm ring in another ord
-  than L2).
+  than L2) and, under ``backend="auto"`` on the card, the row is within the
+  reach of the TPU kernel (``ops.interval1d.auto_steps_eagerly``).
 """
 
 from __future__ import annotations
@@ -27,7 +28,11 @@ import torch
 
 from pdecontrolgym_tpu_torch.core.base import FunctionalEnv, RewardCtx, StepOut, roll_ring
 from pdecontrolgym_tpu_torch.core.sensing import make_control_fn, make_sensing_fn
-from pdecontrolgym_tpu_torch.ops.interval1d import IntervalSpec, interval
+from pdecontrolgym_tpu_torch.ops.interval1d import (
+    IntervalSpec,
+    auto_steps_eagerly,
+    interval,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,7 +42,9 @@ class Boundary1DConfig:
     Field names and defaults are the JAX package's (and the reference's kwargs),
     so configs port verbatim. ``backend``: ``"kernel"`` (the interval kernel),
     ``"eager"`` (per-sub-step loop) or ``"auto"`` (the interval path whenever
-    the env has a spec for it). ``scan_unroll`` and ``pallas_tile_b`` are TPU
+    the env has a spec for it and, for a state on the card, the row is within
+    the reach of the TPU kernel that the JAX package's ``"auto"`` picks; else
+    the eager path). ``scan_unroll`` and ``pallas_tile_b`` are TPU
     tuning knobs; they are accepted so that configs port verbatim, and not read.
     """
 
@@ -344,9 +351,17 @@ class Boundary1DEnv(FunctionalEnv):
         """Step the batch through the interval path when ``backend`` is
         ``"kernel"`` or ``"auto"``, the env has a spec and the reward needs
         neither the previous row nor an auxiliary norm ring (the interval
-        computes L2 norms only); else through :meth:`step`."""
+        computes L2 norms only); else through :meth:`step`. On the card,
+        ``"auto"`` steps eagerly past the reach of the TPU kernel, as the JAX
+        package's ``"auto"`` picks its kernel per size, decided from the spec
+        before any launch (``auto_steps_eagerly``); within that reach a row
+        that no CUDA kernel takes yet raises, as ``"kernel"`` does past a
+        kernel's reach."""
         eager = self.config.backend == "eager" or self._needs_prev or self._needs_aux
         spec = None if eager else self.interval_spec()
+        if spec is not None and self.config.backend == "auto" \
+                and state.u.device.type == "cuda" and auto_steps_eagerly(spec[0]):
+            spec = None
         if spec is None:
             return self.step(state, actions, generator)
         spec, ctrl_transform = spec

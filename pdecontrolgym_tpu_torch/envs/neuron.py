@@ -427,7 +427,10 @@ class NeuronEnv(FunctionalEnv):
         truncation, and ``reward=None`` at any K or the stock NormReward at
         K > 1 (the block evaluates the per-dt norm ring in the reward's ord;
         other rewards may read per-dt extras like ``control`` that the block
-        does not surface). ``backend="kernel"`` raises when ineligible."""
+        does not surface). ``backend="kernel"`` raises when ineligible. The
+        size is not tested: the JAX package's ``"auto"`` runs its kernel at
+        every M, so on the card a row past ``MAX_M`` raises in the wrapper
+        until a kernel takes it, under ``"auto"`` as under ``"kernel"``."""
         c = self.config
         if c.backend == "eager":
             return False

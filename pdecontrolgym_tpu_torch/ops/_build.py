@@ -23,13 +23,15 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (
     _PKG / "csrc" / "interval1d.cu",
+    _PKG / "csrc" / "interval1d_wide.cu",
     _PKG / "csrc" / "interval1d_pcr.cu",
     _PKG / "csrc" / "ns_fused.cu",
     _PKG / "csrc" / "neuron_interval.cu",
     _PKG / "csrc" / "brain_tumor_field.cu",
     _PKG / "csrc" / "exact_div.cu",
 )
-HEADERS = (_PKG / "csrc" / "interval1d_common.cuh", _PKG / "csrc" / "exact_div.cuh")
+HEADERS = (_PKG / "csrc" / "interval1d_common.cuh", _PKG / "csrc" / "interval1d_bodies.cuh",
+           _PKG / "csrc" / "exact_div.cuh")
 BUILD_DIR = _PKG / "_build"
 # -fmad=false: no FMA contraction, so the kernels round as the plain PyTorch
 # version does (see csrc/interval1d.cu, point 4). Division and square root stay
@@ -122,8 +124,9 @@ def load() -> ctypes.CDLL:
         ]
         tail = [i, p]  # device, stream
         # body, neumann, c0..c3
-        lib.interval1d_launch.argtypes = common + [i, i, f, f, f, f] + tail
-        lib.interval1d_launch.restype = ctypes.c_int
+        for fn in (lib.interval1d_launch, lib.interval1d_wide_launch):
+            fn.argtypes = common + [i, i, f, f, f, f] + tail
+            fn.restype = ctypes.c_int
         # neumann, has_eb, dt, 2F, th, -th*F, 1-th, (1-th)*F, dx
         lib.interval1d_pcr_launch.argtypes = common + [i, i] + [f] * 7 + tail
         lib.interval1d_pcr_launch.restype = ctypes.c_int

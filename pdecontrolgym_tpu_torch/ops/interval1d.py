@@ -29,15 +29,23 @@ Two implementations, one contract:
 - ``csrc/interval1d.cu``, CUDA C++ for ``sm_90a``: one warp per env, the row
   held in registers for the whole interval, row 0 and row nx-1 at fixed
   register slots, the sub-steps unrolled between the norm positions (see the
-  note at the top of that file for the layout and what bounds it on the card).
-  It serves the explicit bodies; the implicit θ-scheme body, whose sub-step is
-  a parallel-cyclic-reduction solve, has a kernel of its own,
+  note at the top of that file for the layout and what bounds it on the
+  card). It serves the explicit bodies at rows of up to ``MAX_NX`` points;
+  ``csrc/interval1d_wide.cu`` serves them at ``MAX_NX + 1`` to
+  ``MAX_NX_WIDE`` points, the reach of the TPU kernel: one block per env, the
+  row spread over its warps, one barrier a sub-step. The implicit θ-scheme body, whose sub-step is a
+  parallel-cyclic-reduction solve, has a kernel of its own,
   ``csrc/interval1d_pcr.cu`` (one warp per env, the state and right-hand side
-  in registers, the elimination factors in shared memory).
+  in registers, the elimination factors in shared memory), for rows of up to
+  ``MAX_NX`` points.
 
 :func:`interval` dispatches on the tensors' device: the plain version for CPU
 tensors, the kernel for CUDA tensors. It never falls back from one to the
-other.
+other: a CUDA row past the body's reach raises. :func:`kernel_takes` says,
+from the spec alone, whether a kernel takes it. An env's ``backend="auto"``
+on the card steps eagerly only past ``body.auto_max_nx``, where the TPU
+kernel does not reach either; at and below it the interval path runs, and a
+row no CUDA kernel takes yet (implicit rows of 513 to 8192 points) raises.
 
 The body constants are rounded to float32 exactly as the JAX kernel rounds its
 Python scalars (a product of two scalars such as ``dt/dx``, ``0.5*dt/dx`` or
@@ -53,8 +61,12 @@ A body is a frozen dataclass with this contract:
   :func:`interval_plain` on ``(B, nx)`` rows, ``boundary`` being ``(B, 1)``;
 - ``boundary_const``: whether the boundary value is ``ctrl`` for the whole
   interval;
-- ``kernel``: the name of the C function that launches its CUDA kernel, and
-  ``consts()``: that function's arguments after the common ones.
+- ``kernel``: the name of the C function that launches its CUDA kernel at
+  rows of up to ``MAX_NX`` points, ``wide_kernel`` the one above (or None),
+  ``max_nx`` the widest row a kernel takes, ``auto_max_nx`` the widest row
+  that ``backend="auto"`` steps through the interval path on the card (the
+  reach of the TPU kernel that the JAX package's ``"auto"`` picks), and
+  ``consts()``: the launch function's arguments after the common ones.
 """
 
 from __future__ import annotations
@@ -67,11 +79,14 @@ import torch
 
 from pdecontrolgym_tpu_torch.ops.tridiag import pcr_steps, shift
 
-# Launches of the CUDA kernel since import (or since a caller reset it).
+# Launches of the CUDA kernels since import (or since a caller reset it): all
+# of them, and those of the block-per-env kernel for wide rows.
 LAUNCHES = 0
+WIDE_LAUNCHES = 0
 
 MAX_POSITIONS = 64  # norm positions passed by value; see csrc/interval1d.cu
-MAX_NX = 512  # one warp holds a row of at most 32 * 16 points (ROADMAP A2)
+MAX_NX = 512  # one warp holds a row of at most 32 * 16 points
+MAX_NX_WIDE = 16384  # one block of 32 warps holds 32 * 32 * 16 points
 
 _BODY_TRANSPORT, _BODY_GODUNOV, _BODY_RUSANOV, _BODY_FTCS = 0, 1, 2, 3
 
@@ -91,6 +106,9 @@ class TransportBody:
 
     boundary_const = True
     kernel = "interval1d_launch"
+    wide_kernel = "interval1d_wide_launch"
+    max_nx = MAX_NX_WIDE
+    auto_max_nx = MAX_NX_WIDE
 
     @property
     def dtdx(self) -> float:
@@ -125,6 +143,9 @@ class BurgersBody:
     flux: str = "godunov"
 
     kernel = "interval1d_launch"
+    wide_kernel = "interval1d_wide_launch"
+    max_nx = MAX_NX_WIDE
+    auto_max_nx = MAX_NX_WIDE
 
     def __post_init__(self):
         if self.flux not in ("godunov", "rusanov"):
@@ -176,6 +197,9 @@ class ReactionDiffusionBody:
     neumann: bool
 
     kernel = "interval1d_launch"
+    wide_kernel = "interval1d_wide_launch"
+    max_nx = MAX_NX_WIDE
+    auto_max_nx = MAX_NX_WIDE
 
     @property
     def boundary_const(self) -> bool:
@@ -221,6 +245,9 @@ class ReactionDiffusionImplicitBody:
     neumann: bool
 
     kernel = "interval1d_pcr_launch"
+    wide_kernel = None
+    max_nx = MAX_NX  # ROADMAP: its rows of 513 to 8192 points are next
+    auto_max_nx = 8192
 
     @property
     def boundary_const(self) -> bool:
@@ -352,29 +379,59 @@ def interval_plain(spec: IntervalSpec, u, beta, ctrl, t0):
     return u, norms, bsum, t_out[:, None].to(torch.int32)
 
 
+def _kernel_positions(spec: IntervalSpec) -> tuple:
+    """The norm positions as the kernels take them: sorted, distinct and inside
+    [0, S); the others name no sub-step, and the plain version ignores them
+    too."""
+    S = spec.sample_rate
+    return tuple(sorted({int(j) for j in spec.norm_positions if 0 <= int(j) < S}))
+
+
+def kernel_takes(spec: IntervalSpec) -> bool:
+    """Whether a CUDA kernel takes ``spec``: its row within the body's reach
+    (``body.max_nx``: 16384 points for the explicit bodies, 512 for the
+    implicit one) and at most ``MAX_POSITIONS`` norm positions. Decided from
+    the spec alone, before any launch."""
+    return (3 <= spec.state_dim <= spec.body.max_nx
+            and len(_kernel_positions(spec)) <= MAX_POSITIONS)
+
+
+def auto_steps_eagerly(spec: IntervalSpec) -> bool:
+    """Whether an env's ``backend="auto"`` steps ``spec`` eagerly on the card:
+    where no CUDA kernel takes it and its row is past ``body.auto_max_nx``,
+    which the TPU kernel does not reach either. A row that the TPU kernel
+    reaches and no CUDA kernel takes yet (implicit rows of 513 to 8192 points)
+    keeps the interval path, whose wrapper raises. Decided from the spec
+    alone, before any launch."""
+    return not kernel_takes(spec) and spec.state_dim > spec.body.auto_max_nx
+
+
 def _interval_cuda(spec: IntervalSpec, u, beta, ctrl, t0):
-    """Launch the body's CUDA kernel on the tensors' stream. Raises on anything
-    the kernel does not take; allocates the outputs; does not synchronise."""
-    global LAUNCHES
+    """Launch the body's CUDA kernel on the tensors' stream: the warp kernel
+    at rows of up to ``MAX_NX`` points, the wide one above. Raises on anything
+    the kernels do not take; allocates the outputs; does not synchronise."""
+    global LAUNCHES, WIDE_LAUNCHES
     from pdecontrolgym_tpu_torch.ops import _build
 
     B, nx = u.shape
-    if nx > MAX_NX:
+    body = spec.body
+    if nx > body.max_nx:
         raise ValueError(
-            f"interval kernel: state_dim {nx} > {MAX_NX} (one warp per env holds "
-            "at most 16 points a lane); wider rows are ROADMAP A2's crossover work"
+            f"interval kernel: state_dim {nx} > {body.max_nx}, the reach of the "
+            f"{type(body).__name__} kernels; no CUDA kernel takes wider rows yet "
+            "(backend='eager' steps them)"
         )
-    # the kernels take the positions sorted, distinct and inside [0, S): the
-    # others name no sub-step, and the plain version ignores them too
     S = spec.sample_rate
-    positions = tuple(sorted({int(j) for j in spec.norm_positions if 0 <= int(j) < S}))
+    positions = _kernel_positions(spec)
     if len(positions) > MAX_POSITIONS:
         raise ValueError(
             f"interval kernel: {len(positions)} norm positions > {MAX_POSITIONS}"
         )
     if not all(x.is_contiguous() for x in (u, beta, ctrl, t0)):
         raise ValueError("interval kernel: inputs must be contiguous")
-    launch = getattr(_build.load(), spec.body.kernel)
+    wide = nx > MAX_NX
+    name = body.wide_kernel if wide else body.kernel
+    launch = getattr(_build.load(), name)
     u_out = torch.empty_like(u)
     norms = torch.zeros((B, spec.wp), dtype=u.dtype, device=u.device)
     bsum = torch.empty((B, 1), dtype=u.dtype, device=u.device)
@@ -385,14 +442,14 @@ def _interval_cuda(spec: IntervalSpec, u, beta, ctrl, t0):
         u_out.data_ptr(), norms.data_ptr(), bsum.data_ptr(), t_out.data_ptr(),
         B, nx, S, spec.nt, spec.wp,
         pos_arr, len(positions),
-        *spec.body.consts(),
+        *body.consts(),
         u.device.index if u.device.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(u.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(
-            f"{spec.body.kernel} failed: "
-            f"{_build.load().interval1d_error_string(err).decode()}"
+            f"{name} failed: {_build.load().interval1d_error_string(err).decode()}"
         )
     LAUNCHES += 1
+    WIDE_LAUNCHES += wide
     return u_out, norms, bsum, t_out

@@ -244,7 +244,7 @@ def _neuron_interval_cuda(spec, u, Z, L, t, steps, window, ring_ord, need_prev):
     if M > MAX_M:
         raise ValueError(
             f"neuron_interval kernel: M {M} > {MAX_M} (at most 16 points a lane of "
-            "a warp)"
+            "a warp); no CUDA kernel takes longer rows yet (backend='eager' steps them)"
         )
     if not all(x.is_contiguous() for x in (u, Z, L, t, spec.pB, spec.p)):
         raise ValueError("neuron_interval kernel: inputs must be contiguous")

@@ -213,14 +213,16 @@ EXPLICIT_BODIES = (("transport", False), ("godunov", False), ("godunov", True),
 
 def explicit_body(name, n, neumann, viscosity=1e-3):
     """``(body, family of inputs)`` of the explicit kernel at ``n`` points on
-    [0, 1], with a stable step: transport dt = dx/2, Burgers dt = dx/5, FTCS
+    [0, 1], with a stable step: transport dt = dx/2, Burgers dt = dx/5 (and
+    at most 0.2 dx^2/viscosity, which binds above 1000 points), FTCS
     F = dt/dx^2 = 0.4. Transport's boundary is ``ctrl`` under either control
     type, so it has no Neumann form."""
     dx = 1.0 / (n - 1)
     if name == "transport":
         return TransportBody(0.5 * dx, dx), "transport"
     if name in ("godunov", "rusanov"):
-        return BurgersBody(0.2 * dx, dx, viscosity, neumann, name), "burgers"
+        dt = min(0.2 * dx, 0.2 * dx * dx / viscosity) if viscosity else 0.2 * dx
+        return BurgersBody(dt, dx, viscosity, neumann, name), "burgers"
     return ReactionDiffusionBody(0.4 * dx * dx, dx, neumann), "rd"
 
 
