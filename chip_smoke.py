@@ -80,7 +80,31 @@ JAX package), builds the CUDA kernels from ``csrc/`` and runs:
                 env has ended; the ``therapy`` workload (TherapyEnv,
                 t_benchmark=300, dose fraction 0.03, until every env ends) at
                 4096 envs, and at B=8 on both paths.
-14. times    -- CUDA events, median of 3 after a warm-up (eager episodes: one
+14. pcr_wide -- (run after phase 3) the block-per-env PCR kernel for implicit
+                rows of 513 to 8192 points against its plain version on the
+                card, to the bit: B=4096 at n=513, 1025, 2049 (factor rows in
+                shared memory) and 4097, B=1024 at n=8192 (factor rows in
+                device memory); Dirichlet and Neumann, theta=0.5 and 1, fast
+                and masked paths; a batch with NaN and infinite values. Then
+                (after phase 7) the rd_implicit_wide episode: nx=2048 (2049
+                points), theta=0.5, dt=4e-4, 4096 envs, 100 actions x 25
+                sub-steps through backend="auto", 100 launches of that kernel,
+                its first interval held to the bit against the plain version.
+15. neuron_wide -- (after phases 10 and 12) the block-per-env K-step kernel
+                for neuron rows past M=512 against its plain version: M=601,
+                1201, 4801 at B=4096 and 16384 at B=1024 (the stock domain on
+                a finer grid, dt scaled by dx^2 to keep the explicit update as
+                stable as the stock one), K=100, spread tips, the episode's
+                state, norm windows; the neuron_wide episode (dx=0.001,
+                M=1201, 4096 envs, 10 calls of 100 dt-steps, 10 launches) and
+                at B=8 the kernel path against the eager path.
+16. traffic  -- the ARZ traffic env in outlet mode, float32, 4096 envs, under
+                the tutorial's outlet backstepping law (written out here as
+                examples/traffic_backstepping.py writes it) for the full
+                960-step episode: its return, held to a float64 run of the
+                same episode (rtol 1e-4). No kernel: it is timed and traced
+                with the episodes.
+17. times    -- CUDA events, median of 3 after a warm-up (eager episodes: one
                 run after a warm-up): one projection step
                 or one interval, kernel (per call, 20 back to back) against
                 plain version, and the kernel's device time by
@@ -430,14 +454,15 @@ def _interval_inputs(torch, env, t0_range, gen, u_fn, act_scale, beta_spread,
 
 
 def interval_case(torch, label, env, t0_range, gen, u_fn, act_scale,
-                  beta_spread=0.0, u_tol=U_TOL):
+                  beta_spread=0.0, u_tol=U_TOL, num_envs=None):
     """One interval through the kernel and through the plain version, on the
-    same inputs on the card. ``beta_spread`` adds a per-env U(-spread, spread)
-    part to the env's plant parameter. Returns (max abs err of u_out, inputs)."""
+    same inputs on the card, for ``num_envs`` (default NUM_ENVS) envs.
+    ``beta_spread`` adds a per-env U(-spread, spread) part to the env's plant
+    parameter. Returns (max abs err of u_out, inputs)."""
     from pdecontrolgym_tpu_torch.ops import interval1d
 
     spec, u, beta, ctrl, t0 = _interval_inputs(torch, env, t0_range, gen, u_fn, act_scale,
-                                               beta_spread)
+                                               beta_spread, num_envs)
     B, nx = u.shape
     before = interval1d.LAUNCHES
     k_out = interval1d.interval(spec, u, beta, ctrl, t0)
@@ -1075,9 +1100,10 @@ def neuron_state(torch, env, B, lo, seed, every=None):
 
 
 def neuron_kernel_case(torch, label, env, state, K, window=0, ring_ord="2",
-                       need_prev=False):
+                       need_prev=False, tips_move=False):
     """One K-step block through the kernel and through the plain version on the
-    same inputs on the card. Returns (max abs err of u', inputs)."""
+    same inputs on the card; with ``tips_move``, fails unless some env's tip
+    moved in the block. Returns (max abs err of u', inputs)."""
     from pdecontrolgym_tpu_torch.ops import neuron_interval as ni
 
     args = (env.spec, state.u, state.Z, state.L, state.time_index)
@@ -1107,6 +1133,8 @@ def neuron_kernel_case(torch, label, env, state, K, window=0, ring_ord="2",
                          NEURON_U_ATOL)
         note += f" prev_u={err_p:.3e}"
     moved = int((k_out[2] != state.L).sum())
+    if tips_move and moved == 0:
+        raise AssertionError(f"{label}: no tip moved in the block")
     z_bits = int((k_out[1].view(torch.int32) != p_out[1].view(torch.int32)).any(1).sum())
     log(f"[neuron_kernel] {label}: B={state.u.shape[0]} M={env.M} K={K} W={window} "
         f"ord={ring_ord} prev={need_prev} L_moved={moved} "
@@ -1164,9 +1192,10 @@ def phase_neuron_kernel(torch, device):
         neuron_kernel_case(torch, "another width", other, state, 100, window=2,
                            need_prev=True)
 
-    # above its cap the wrapper raises; it never serves a CUDA tensor with the
-    # plain version
-    wide = neuron_setup(torch, device, X=60e-6, LSubS=60e-6)[0]
+    # past the kernels' reach (16384 rows: the warp kernel to 512, the
+    # block-per-env one above) the wrapper raises; it never serves a CUDA
+    # tensor with the plain version
+    wide = neuron_setup(torch, device, dx=1.2 / 16383.5)[0]
     s, _ = wide.init_batch(2)
     try:
         ni.neuron_interval(wide.spec, s.u, s.Z, s.L, s.time_index, steps=1)
@@ -1624,6 +1653,342 @@ def family_episode_times(torch, device, card, traced):
     bt.LAUNCHES = 0
 
 
+# -- the wide rows and traffic: phases 14 to 18 --------------------------------------
+
+# The block-per-env PCR kernel's cases (envs, points): its factor rows in
+# shared memory (513, 1025, 2049) and in device memory (4097, 8192, the reach)
+PCR_WIDE_CASES = ((NUM_ENVS, 513), (NUM_ENVS, 1025), (NUM_ENVS, 2049), (NUM_ENVS, 4097),
+                  (1024, 8192))
+# (control type, theta, clocks): fast and masked paths, Crank-Nicolson and
+# backward Euler, Dirichlet and Neumann
+PCR_WIDE_KINDS = (("Dirchilet", 0.5, "fast"), ("Neumann", 1.0, "terminal"),
+                  ("Neumann", 0.5, "fast"), ("Dirchilet", 1.0, "terminal"))
+
+
+def pcr_wide_env(torch, device, n, **overrides):
+    """The bench row's implicit reaction-diffusion env (theta=0.5, dt=4e-4,
+    S=25) on a row of ``n`` points."""
+    return rd_implicit_setup(torch, device, dx=1.0 / (n - 1), **overrides)
+
+
+def phase_pcr_wide_kernel(torch, device):
+    """The block-per-env PCR kernel against the plain version on the card at
+    PCR_WIDE_CASES, each kind, to the bit, and a batch with NaN and infinite
+    values. Returns (max abs err of u_out, the rd_implicit_wide row's inputs)."""
+    from pdecontrolgym_tpu_torch.ops import interval1d
+
+    gen = torch.Generator(device=device).manual_seed(20)
+    err, inputs = 0.0, None
+    launches_before = interval1d.LAUNCHES, interval1d.WIDE_LAUNCHES
+    for B, n in PCR_WIDE_CASES:
+        for ct, theta, kind in PCR_WIDE_KINDS:
+            env = pcr_wide_env(torch, device, n, control_type=ct, theta=theta)[0]
+            nt, S = env.config.nt, env.config.sample_rate
+            t0 = (0, nt - 1 - S) if kind == "fast" else (nt - 1 - S - 5, nt - 1)
+            label = f"rd implicit wide theta={theta} n={n} {ct} {kind}"
+            e, inp = interval_case(torch, label, env, t0, gen, flat_noisy, 1.0,
+                                   beta_spread=5.0, num_envs=B)
+            err = max(err, e)
+            if n == 2049 and kind == "fast" and ct == "Dirchilet":
+                inputs = inp
+        # a batch with NaN and infinite values in u and beta: the plain
+        # version's NaN where it has NaN, its values elsewhere
+        env = pcr_wide_env(torch, device, n, control_type="Neumann")[0]
+        nt, S = env.config.nt, env.config.sample_rate
+        spec, u, beta, ctrl, t0 = _interval_inputs(
+            torch, env, (nt - 1 - S - 5, nt - 1), gen, flat_noisy, 1.0, 5.0, num_envs=8)
+        u[0, n // 3], u[1, 1], u[2, n - 2] = float("nan"), float("inf"), -float("inf")
+        beta[3, n // 2], beta[4, 0] = float("inf"), float("nan")
+        got = interval1d.interval(spec, u, beta, ctrl, t0)
+        want = interval1d.interval_plain(spec, u, beta, ctrl, t0)
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=0, equal_nan=True)
+        if not torch.equal(got[3], want[3]) or bool(torch.isfinite(got[0][:4]).all()):
+            raise AssertionError(f"rd implicit wide n={n}: non-finite rows differ")
+        log(f"[kernel] rd implicit wide n={n} non-finite rows: B=8 state equal to the "
+            "plain version's to the bit, NaN where it has NaN")
+    # comparison launches do not count
+    interval1d.LAUNCHES, interval1d.WIDE_LAUNCHES = launches_before
+    return err, inputs
+
+
+def phase_rd_wide(torch, device):
+    """The rd_implicit_wide episode through backend="auto": nx=2048 (2049
+    points), theta=0.5, dt=4e-4, 100 actions x 25 sub-steps, as the bench row
+    otherwise: every interval on the block-per-env PCR kernel, the first one
+    held to the bit against the plain version on the episode's own initial
+    rows and first action."""
+    from pdecontrolgym_tpu_torch.ops import interval1d
+
+    workload = pcr_wide_env(torch, device, 2049)
+    env, policy, steps, S = workload
+    state, obs = env.init_batch(NUM_ENVS, torch.Generator(device=device).manual_seed(7))
+    spec, ctrl_transform = env.interval_spec()
+    ctrl = ctrl_transform(policy(obs, None))[:, None].contiguous()
+    args = (spec, state.u, state.beta, ctrl, state.time_index[:, None])
+    got, want = interval1d.interval(*args), interval1d.interval_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)):
+        raise AssertionError("rd implicit wide: the first interval differs from the plain "
+                             "version")
+    interval1d.WIDE_LAUNCHES = 0
+    outs, launches, _ = run_episode(torch, workload, seed=7)
+    wide = interval1d.WIDE_LAUNCHES
+    _check_episode(torch, "rd implicit wide", outs, launches, steps)
+    if wide != steps:
+        raise AssertionError(f"rd implicit wide: {wide} wide-kernel launches, expected {steps}")
+    log(f"[rd_wide] implicit theta=0.5 n={env.state_dim}: {NUM_ENVS} envs x {steps} actions "
+        f"x {S} sub-steps (backend=auto): {wide} launches of the block-per-env PCR "
+        f"kernel, first interval equal to the plain version to the bit, mean return "
+        f"{outs.reward.sum(0).mean().item():.4f}")
+    return wide
+
+
+def neuron_wide_fields(M):
+    """The stock neuron config on a grid of M points: dx from the stock
+    length 1.2 (0.002 at M=601, 0.001 at M=1201), dt = 5e-6 (dx/0.01)^2, so
+    that D dt / dxreal^2 keeps its stock value (0.5 at the episode's first tip;
+    at the stock dt a finer grid makes the explicit interior update
+    unstable). At these dt Z1 grows by less than half its float32 ulp a
+    dt-step (0.012 ulp at M=1201), so an episode's tip stays where it
+    starts."""
+    dx = {601: 0.002, 1201: 0.001, 4801: 0.00025}.get(M, 1.2 / (M - 1.5))
+    return dict(dx=dx, dt=5e-6 * (dx / 0.01) ** 2)
+
+
+# the block-per-env K-step kernel's rows (envs, points)
+NEURON_WIDE_CASES = ((NUM_ENVS, 601), (NUM_ENVS, 1201), (NUM_ENVS, 4801), (1024, 16384))
+
+
+def phase_neuron_wide_kernel(torch, device):
+    """The block-per-env K-step kernel against the plain version on the card
+    at NEURON_WIDE_CASES, K=100: tips spread from the episode's first one to
+    M-1, with and without the reward's norm window, and the episode's own
+    state. At these dt a tip grows by less than half of Z1's float32 ulp a
+    dt-step, so the episode's tips never move; the spread tips of every
+    other env start on a rounding boundary, and these cases fail unless some
+    tip moved, so that the tip's hand-off between slots and warps runs.
+    Returns (max abs err of u', the neuron_wide row's inputs)."""
+    from pdecontrolgym_tpu_torch.ops import neuron_interval as ni
+
+    err, inputs = 0.0, None
+    wide_before = ni.WIDE_LAUNCHES
+    for B, M in NEURON_WIDE_CASES:
+        env = neuron_setup(torch, device, **neuron_wide_fields(M))[0]
+        if env.M != M:
+            raise AssertionError(f"neuron wide: M={env.M}, expected {M}")
+        lo = int(env.init_batch(1)[0].L[0])
+        spread = neuron_state(torch, env, B, lo, seed=M)
+        for label, state, kw in (
+                ("spread tips", spread, {}),
+                ("spread tips, reward window", spread, dict(window=1, need_prev=True)),
+                ("the episode's state, reward window", env.init_batch(B)[0], dict(window=1)),
+                ("spread tips, L1 window", spread, dict(window=5, ring_ord="1"))):
+            e, inp = neuron_kernel_case(torch, f"wide M={M} {label}", env, state, 100,
+                                        tips_move=state is spread, **kw)
+            err = max(err, e)
+            if M == 1201 and label.startswith("the episode"):
+                inputs = inp
+    ni.WIDE_LAUNCHES = wide_before  # comparison launches do not count
+    return err, inputs
+
+
+def phase_neuron_wide(torch, device):
+    """The neuron_wide episode: the stock neuron at dx=0.001 (M=1201), K=100,
+    10 calls, 4096 envs, backend="auto": every call on the block-per-env
+    kernel; and at B=8 the kernel path against the eager path over the same
+    1000 dt-steps with the reward row's reward."""
+    import dataclasses
+
+    from pdecontrolgym_tpu_torch.ops import neuron_interval as ni
+
+    fields = neuron_wide_fields(1201)
+    workload = neuron_setup(torch, device, **fields)
+    env, _, calls, K = workload
+    L0 = env.init_batch(1)[0].L[0]
+    ni.WIDE_LAUNCHES = 0
+    state, outs, launches = run_neuron_episode(torch, workload, NUM_ENVS, seed=16)
+    wide = ni.WIDE_LAUNCHES
+    if launches != calls or wide != calls:
+        raise AssertionError(f"neuron wide: {launches} launches ({wide} of the wide "
+                             f"kernel), expected {calls}")
+    for field in dataclasses.fields(state):
+        if not bool(torch.isfinite(getattr(state, field.name)).all()):
+            raise AssertionError(f"neuron wide: non-finite {field.name}")
+    if bool((state.L < L0).any()) or bool(outs.terminated.any()):
+        raise AssertionError("neuron wide: the domain shrank or an episode ended")
+
+    kernel_env = neuron_setup(torch, device, reward=True, **fields)[0]
+    eager_env = neuron_setup(torch, device, reward=True, backend="eager", **fields)[0]
+    sk = se = neuron_state(torch, kernel_env, 8, int(L0), seed=17)
+    rk, re_ = [], []
+    for _ in range(10):
+        sk, ok = kernel_env.step_batch(sk)
+        se, oe = eager_env.step_batch(se)
+        rk.append(ok.reward)
+        re_.append(oe.reward)
+    torch.cuda.synchronize()
+    if not (torch.equal(sk.L, se.L) and torch.equal(sk.time_index, se.time_index)):
+        raise AssertionError("neuron wide: L or the clock differs between kernel and eager "
+                             "path")
+    err_u = _max_err("neuron wide, kernel against eager, u", sk.u, se.u, NEURON_EPISODE_RTOL,
+                     NEURON_U_ATOL)
+    err_r = _max_err("neuron wide, kernel against eager, rewards", torch.stack(rk),
+                     torch.stack(re_), NEURON_EPISODE_RTOL, NEURON_U_ATOL)
+    log(f"[neuron_wide] M={env.M} dx={fields['dx']} dt={fields['dt']:.3e}: {NUM_ENVS} envs x "
+        f"{calls} calls x {K} dt-steps (backend=auto): {wide} launches of the block-per-env "
+        f"kernel, L {int(L0)} -> {int(state.L.min())}..{int(state.L.max())}, "
+        f"|u| <= {float(state.u.abs().max()):.6f}; kernel path against eager path, B=8, "
+        f"1000 dt-steps, reward row: L equal, max_abs_err u={err_u:.3e} rewards={err_r:.3e}")
+    return wide
+
+
+def traffic_setup(torch, device, dtype=None):
+    """bench_families.py's traffic row: the ARZ env in outlet mode (float32
+    unless ``dtype``), stock config, under the tutorial's outlet backstepping
+    law, written out as examples/traffic_backstepping.py writes it, for the
+    full 960-step episode (T = 240 s at dt = 0.25 s). Returns (env, policy,
+    steps)."""
+    from pdecontrolgym_tpu_torch.envs.traffic_arz import TrafficARZConfig, TrafficARZEnv
+    from pdecontrolgym_tpu_torch.rewards.traffic import TrafficARZReward
+
+    dtype = dtype or torch.float32
+    cfg = TrafficARZConfig(simulation_type="outlet", dtype=dtype)
+    env = TrafficARZEnv(cfg, TrafficARZReward(), device=device)
+    M = cfg.M
+    vs, rs, vm, rm, tau, qs, ps = 10.0, 0.12, cfg.v_max, cfg.ro_max, cfg.tau, 1.2, env.ps
+    x = torch.arange(0, cfg.X + cfg.dx, cfg.dx, dtype=dtype, device=device)
+    lam2 = vs + rs * (-vm / rm)
+    K = -(1 / ps) * (-1 / tau) * torch.exp(-x / (tau * vs))
+    cv = -K + (lam2 / vs) * K * torch.exp(x / (vs * tau))
+    cq = ((vs - lam2) / vs) * K * torch.exp(x / (vs * tau))
+
+    def policy(obs, _generator):
+        r, v = obs[:, :M], obs[:, M:]
+        iv = torch.trapezoid(cv * (v - vs), dx=cfg.dx, dim=-1)
+        iq = torch.trapezoid(cq * (r * v - qs), dx=cfg.dx, dim=-1)
+        return (qs + rs * iv + iq)[:, None]
+
+    return env, policy, int(round(cfg.T / cfg.dt))
+
+
+def run_traffic_episode(torch, workload, num_envs, steps=None):
+    """One closed-loop episode of ``steps`` (default: all) from init_batch,
+    without autoreset. Returns the (steps, B) rewards."""
+    env, policy, n = workload
+    state, obs = env.init_batch(num_envs)
+    rewards = []
+    for _ in range(steps or n):
+        state, out = env.step_batch(state, policy(obs, None))
+        obs = out.obs
+        rewards.append(out.reward)
+    return torch.stack(rewards)
+
+
+def phase_traffic(torch, device):
+    """The traffic episode at 4096 envs in float32 on the card: every return
+    finite and equal across the batch (a deterministic law from one initial
+    state), the tracking error driven down more than 10x, and the return held
+    to a float64 run of the same episode on the card (rtol 1e-4). The return is
+    the float64 sum of the 960 per-step rewards."""
+    rewards = run_traffic_episode(torch, traffic_setup(torch, device), NUM_ENVS)
+    ref = run_traffic_episode(torch, traffic_setup(torch, device, torch.float64), 2)
+    torch.cuda.synchronize()
+    returns = rewards.double().sum(0)
+    want = float(ref.sum(0)[0])
+    if not bool(torch.isfinite(rewards).all()):
+        raise AssertionError("traffic: non-finite rewards")
+    if float(returns.max() - returns.min()) != 0.0:
+        raise AssertionError("traffic: the envs of one deterministic episode differ")
+    got = float(returns[0])
+    if not abs(got - want) <= 1e-4 * abs(want):
+        raise AssertionError(f"traffic: float32 return {got} against float64 {want}")
+    first, last = float(rewards[0, 0]), float(rewards[-1, 0])
+    if not last > first / 10:
+        raise AssertionError(f"traffic: reward {first} -> {last}, not driven down 10x")
+    log(f"[traffic] outlet backstepping, {NUM_ENVS} envs x {rewards.shape[0]} steps, "
+        f"float32: return {got:.4f} (float64 sum of the per-step rewards; float64 "
+        f"episode {want:.4f}), reward {first:.5f} -> {last:.5f}")
+    return got
+
+
+def wide_kernel_times(torch, device, pcr_inputs, neuron_inputs, card):
+    """The two block-per-env kernels of this slice alone: the PCR kernel at
+    every row of PCR_WIDE_CASES on the fast path (theta=0.5, Dirichlet), the
+    K-step kernel on the neuron_wide row's state (K=100, the reward's window)
+    and at every row of NEURON_WIDE_CASES on spread tips. Returns the
+    kernels-line times of the main rows."""
+    from pdecontrolgym_tpu_torch.ops import interval1d
+    from pdecontrolgym_tpu_torch.ops import neuron_interval as ni
+
+    launches_before = (interval1d.LAUNCHES, interval1d.WIDE_LAUNCHES, ni.LAUNCHES,
+                       ni.WIDE_LAUNCHES)
+    gen = torch.Generator(device=device).manual_seed(21)
+    for B, n in PCR_WIDE_CASES:
+        env = pcr_wide_env(torch, device, n)[0]
+        nt, S = env.config.nt, env.config.sample_rate
+        spec, u, beta, ctrl, t0 = _interval_inputs(torch, env, (0, nt - 1 - S), gen,
+                                                   flat_noisy, 1.0, 5.0, num_envs=B)
+        call = lambda: interval1d.interval(spec, u, beta, ctrl, t0)  # noqa: E731
+        dev, _ = device_ms(torch, call, "interval_wide_kernel")
+        bound, bound_by, nbytes, flops = interval_bound(spec, *body_operations(spec), B)
+        log(f"[times] one implicit interval on the block-per-env PCR kernel B={B} n={n} "
+            f"S={S}: {dev:.4f} ms on the device (torch.profiler), "
+            f"{cuda_ms(torch, call, calls=5):.4f} ms per call; bound {bound:.5f} ms by "
+            f"{bound_by} ({nbytes} bytes, {flops} operations), share {bound / dev:.3f}; "
+            f"factor rows in {'device' if n > 2100 else 'shared'} memory ({card})")
+
+    times = {}
+    spec, u, Z, L, t, kw = neuron_inputs
+    call = lambda: ni.neuron_interval(spec, u, Z, L, t, **kw)  # noqa: E731
+    k = cuda_ms(torch, call, calls=20)
+    dev, _ = device_ms(torch, call, "neuron_interval_wide_kernel")
+    p = cuda_ms(torch, lambda: ni.neuron_interval_plain(spec, u, Z, L, t, **kw))
+    live = neuron_live_rows(torch, spec, u, Z, L, t, kw["steps"])
+    bound, bound_by, nbytes, flops = neuron_bound(
+        spec, u.shape[0], kw["steps"], kw["window"], kw["need_prev"], live)
+    times["neuron_wide"] = {"ms": k, "device_ms": dev, "plain_ms": p, "bound_ms": bound,
+                            "bound_by": bound_by, "library_ms": None}
+    log(f"[times] one neuron block on the block-per-env kernel, the neuron_wide row's "
+        f"state B={u.shape[0]} M={spec.M} K={kw['steps']}: kernel {k:.4f} ms per call (20 "
+        f"back to back), {dev:.4f} ms on the device (torch.profiler); plain {p:.4f} ms; "
+        f"bound {bound:.5f} ms by {bound_by} ({nbytes} bytes, {flops} operations over "
+        f"{live} interior point updates), share {bound / dev:.3f} ({card})")
+    for B, M in NEURON_WIDE_CASES:
+        env = neuron_setup(torch, device, **neuron_wide_fields(M))[0]
+        s = neuron_state(torch, env, B, int(env.init_batch(1)[0].L[0]), seed=M)
+        args = (env.spec, s.u, s.Z, s.L, s.time_index)
+        call = lambda: ni.neuron_interval(*args, steps=100)  # noqa: E731
+        dev, _ = device_ms(torch, call, "neuron_interval_wide_kernel")
+        live = neuron_live_rows(torch, *args, 100)
+        bound, bound_by = neuron_bound(env.spec, B, 100, 0, False, live)[:2]
+        log(f"[times] one neuron block on the block-per-env kernel, spread tips B={B} "
+            f"M={M} K=100: {dev:.4f} ms on the device (torch.profiler); bound {bound:.5f} "
+            f"ms by {bound_by} over {live} interior point updates, share {bound / dev:.3f} "
+            f"({card})")
+    (interval1d.LAUNCHES, interval1d.WIDE_LAUNCHES, ni.LAUNCHES,
+     ni.WIDE_LAUNCHES) = launches_before  # timing launches do not count
+    return times
+
+
+def wide_episode_times(torch, device, card):
+    """The neuron_wide and traffic episodes on the card, each timed (median of
+    3) and traced (torch.profiler's busy time: the whole neuron episode, the
+    first 100 steps of the traffic one)."""
+    from pdecontrolgym_tpu_torch.ops import neuron_interval as ni
+
+    workload = neuron_setup(torch, device, **neuron_wide_fields(1201))
+    episode = lambda: run_neuron_episode(torch, workload, NUM_ENVS, seed=3)  # noqa: E731
+    _episode_line(torch, "neuron_wide (M=1201)", "K-step kernel", episode,
+                  NUM_ENVS * workload[2] * workload[3], "dt-steps/s", card,
+                  (episode, workload[2]))
+    ni.LAUNCHES = ni.WIDE_LAUNCHES = 0  # timing launches do not count
+    workload = traffic_setup(torch, device)
+    episode = lambda: run_traffic_episode(torch, workload, NUM_ENVS)  # noqa: E731
+    window = lambda: run_traffic_episode(torch, workload, NUM_ENVS, 100)  # noqa: E731
+    _episode_line(torch, "traffic (outlet backstepping)", "eager, no kernel", episode,
+                  NUM_ENVS * workload[2], "env-steps/s", card, (window, 100))
+
+
 # -- the times phases ----------------------------------------------------------------
 
 
@@ -1769,14 +2134,16 @@ def interval_episode_times(torch, device, card, backend):
     rates = {}
     # the eager path runs every sub-step as separate PyTorch operations: it is
     # timed once, and for reaction-diffusion on an episode cut to 10 actions;
-    # the wide Burgers episode only on the interval kernel
+    # the wide Burgers and implicit episodes only on the interval kernels
     workloads = (("transport", transport_setup, None), ("burgers", burgers_setup, None),
                  ("burgers wide", burgers_wide_setup, None),
                  ("rd implicit", rd_implicit_setup, 0.1),
+                 ("rd implicit wide (n=2049)",
+                  lambda torch, device, **kw: pcr_wide_env(torch, device, 2049, **kw), None),
                  ("rd explicit", rd_explicit_setup, 0.01))
     path = "interval kernel" if backend == "auto" else "eager"
     for name, setup, eager_T in workloads:
-        if backend == "eager" and name == "burgers wide":
+        if backend == "eager" and "wide" in name:
             continue
         kw, note, runs = {"backend": backend}, "", 3 if backend == "auto" else 1
         if backend == "eager" and eager_T is not None:
@@ -1924,6 +2291,32 @@ def ns_eager_times(torch, device, card):
 # -- comparing copies of the port ---------------------------------------------------
 
 
+# the block-per-env K-step kernel's rows in time_kernels: (name, envs, points,
+# tips spread as phase_neuron_wide_kernel's first case, else the episode's own)
+B7_WIDE_ROWS = (("b7_wide_601", NUM_ENVS, 601, False), ("b7_wide_1201", NUM_ENVS, 1201, False),
+                ("b7_wide_4801", NUM_ENVS, 4801, False),
+                ("b7_wide_601_spread", NUM_ENVS, 601, True),
+                ("b7_wide_1201_spread", NUM_ENVS, 1201, True),
+                ("b7_wide_4801_spread", NUM_ENVS, 4801, True),
+                ("b7_wide_12001_spread", 1024, 12001, True))
+
+
+def _compared_row(torch, has_kernel, kernel, plain, kernel_name, runs, calls):
+    """One row of :func:`time_kernels` on a kernel that a compared root may
+    predate. Whether the root has it is read from its module's reach constant,
+    never from an error: a root that has the kernel times its wrapper, and any
+    error the wrapper raises stops the timing; a root without it times the
+    plain version on the card ("path": "plain", no error to report)."""
+    if not has_kernel:
+        return {"ms": cuda_ms(torch, plain, runs=runs, calls=1),
+                "device_ms": device_ms(torch, plain)[0], "max_abs_err": None,
+                "path": "plain"}
+    err = float((kernel()[0] - plain()[0]).abs().max())
+    return {"ms": cuda_ms(torch, kernel, runs=runs, calls=calls),
+            "device_ms": device_ms(torch, kernel, kernel_name)[0], "max_abs_err": err,
+            "path": "kernel"}
+
+
 def time_kernels(torch, device):
     """B2 to B6 of the package this process imported, alone at their main
     paths' shapes, on inputs made as phase_kernel makes its first case of
@@ -1940,8 +2333,12 @@ def time_kernels(torch, device):
     in every env (no row is dead); B8 one brain-tumor field pass at 4096 x 201
     on phase_brain_kernel's first case. The wide kernel on inviscid Burgers
     rows: "wide_4096" (4096 envs x 4096 points, the burgers_wide row) and
-    "wide_16384" (1024 x 16384); a package without it times its eager
-    interval (the plain version) there, with "path": "plain".
+    "wide_16384" (1024 x 16384); the block-per-env PCR kernel's rows
+    "b5_wide_513", "b5_wide_2049" (the rd_implicit_wide row), "b5_wide_4097"
+    (4096 envs each, S=25, theta=0.5) and "b5_wide_8192" (1024 envs); the
+    block-per-env K-step kernel's B7_WIDE_ROWS (K=100, the reward's window).
+    A package that predates one of these kernels times the plain version
+    there, with "path": "plain" (:func:`_compared_row`).
     Returns {name: {"ms", "device_ms", "max_abs_err"}}: ms per call of 20
     back to back (CUDA events, median of 5; below ~0.1 ms this is the
     wrapper's host time, not the kernel's), the kernel's device time per
@@ -1969,9 +2366,7 @@ def time_kernels(torch, device):
                      "device_ms": device_ms(torch, call, "interval_kernel")[0],
                      "max_abs_err": float(err)}
     # the wide kernel on inviscid Burgers rows: 4096 x 4096 (the burgers_wide
-    # row) and 1024 x 16384 (dt 2.5e-5, CFL <= 0.82, S = 100). A package
-    # without the wide kernel raises there: its eager interval, the plain
-    # version on the card, is timed instead ("path": "plain").
+    # row) and 1024 x 16384 (dt 2.5e-5, CFL <= 0.82, S = 100)
     for name, nx, B, dt in (("wide_4096", 4096, NUM_ENVS, 1e-4),
                             ("wide_16384", 16384, 1024, 2.5e-5)):
         env = burgers_wide_setup(torch, device, dx=1.0 / nx, dt=dt,
@@ -1979,17 +2374,29 @@ def time_kernels(torch, device):
         nt, S = env.config.nt, env.config.sample_rate
         args = _interval_inputs(torch, env, (0, nt - 1 - S), gen, sine_noisy, 0.5, 0.0,
                                 num_envs=B)
-        try:
-            got = interval1d.interval(*args)
-            call = lambda a=args: interval1d.interval(*a)  # noqa: E731
-            err, kernel, calls = float((got[0] - interval1d.interval_plain(*args)[0]).abs().max()), \
-                "interval_wide_kernel", 20
-        except ValueError:
-            call = lambda a=args: interval1d.interval_plain(*a)  # noqa: E731
-            err, kernel, calls = 0.0, None, 1
-        out[name] = {"ms": cuda_ms(torch, call, runs=5, calls=calls),
-                     "device_ms": device_ms(torch, call, kernel)[0], "max_abs_err": err,
-                     "path": "kernel" if kernel else "plain"}
+        out[name] = _compared_row(
+            torch, hasattr(interval1d, "MAX_NX_WIDE"), lambda a=args: interval1d.interval(*a),
+            lambda a=args: interval1d.interval_plain(*a), "interval_wide_kernel", 5, 20)
+    for B, n in PCR_WIDE_CASES:
+        if n == 1025:
+            continue
+        env = pcr_wide_env(torch, device, n)[0]
+        nt, S = env.config.nt, env.config.sample_rate
+        args = _interval_inputs(torch, env, (0, nt - 1 - S), gen, flat_noisy, 1.0, 5.0,
+                                num_envs=B)
+        out[f"b5_wide_{n}"] = _compared_row(
+            torch, hasattr(interval1d, "MAX_NX_PCR"), lambda a=args: interval1d.interval(*a),
+            lambda a=args: interval1d.interval_plain(*a), "interval_wide_kernel", 3, 5)
+    for name, B, M, spread in B7_WIDE_ROWS:
+        env = neuron_setup(torch, device, **neuron_wide_fields(M))[0]
+        state = (neuron_state(torch, env, B, int(env.init_batch(1)[0].L[0]), seed=M)
+                 if spread else env.init_batch(B)[0])
+        args = (env.spec, state.u, state.Z, state.L, state.time_index)
+        out[name] = _compared_row(
+            torch, hasattr(neuron_interval, "MAX_M_WIDE"),
+            lambda a=args: neuron_interval.neuron_interval(*a, steps=100, window=1),
+            lambda a=args: neuron_interval.neuron_interval_plain(*a, steps=100, window=1),
+            "neuron_interval_wide", 3, 20)
     for name, n, B, precision in (("b6_64", 64, NUM_ENVS, "highest"),
                                   ("b6_64_high", 64, NUM_ENVS, "high"),
                                   ("b6_64_default", 64, NUM_ENVS, "default"),
@@ -2292,26 +2699,34 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     phase_build()
     errs, inputs = phase_kernel(torch, device)
+    errs["rd_implicit_wide"], inputs["rd_implicit_wide"] = phase_pcr_wide_kernel(torch, device)
     transport_launches = phase_transport(torch, device)
     phase_goldens(torch, device)
     phase_goldens_parabolic(torch, device)
     burgers_launches = phase_burgers(torch, device)
     wide_launches = phase_burgers_wide(torch, device)
     explicit_launches, implicit_launches = phase_rd(torch, device)
+    pcr_wide_launches = phase_rd_wide(torch, device)
     ns_err, ns_inputs = phase_ns_kernel(torch, device)
     ns_launches = phase_ns(torch, device)
     neuron_err, neuron_inputs = phase_neuron_kernel(torch, device)
+    neuron_wide_err, neuron_wide_inputs = phase_neuron_wide_kernel(torch, device)
     brain_err, brain_inputs = phase_brain_kernel(torch, device)
     neuron_launches = phase_neuron(torch, device)
+    neuron_wide_launches = phase_neuron_wide(torch, device)
     brain_launches = phase_brain(torch, device)
+    phase_traffic(torch, device)
     # times: the kernels alone first (their traces hold a few launches each),
     # then the episodes that are traced, the longest trace last, then the
     # episodes that are not (see device_rows)
     ns_ms = ns_kernel_times(torch, device, ns_inputs, card)
     family_ms = family_kernel_times(torch, device, neuron_inputs, brain_inputs, card)
     interval_ms = interval_kernel_times(torch, device, inputs, card)
+    wide_ms = wide_kernel_times(torch, device, inputs["rd_implicit_wide"],
+                                neuron_wide_inputs, card)
     ns_episode_times(torch, device, card)
     family_episode_times(torch, device, card, traced=True)
+    wide_episode_times(torch, device, card)
     interval_episode_times(torch, device, card, "auto")
     ns_eager_times(torch, device, card)
     family_episode_times(torch, device, card, traced=False)
@@ -2332,7 +2747,9 @@ def main():
          f"{PKG}/csrc/interval1d_pcr.cu", 327, implicit_launches),
     )
     rows += (("burgers_wide", "interval1d_wide<burgers>", f"{PKG}/csrc/interval1d_wide.cu",
-              221, wide_launches),)
+              221, wide_launches),
+             ("rd_implicit_wide", "interval1d_pcr_wide<reaction_diffusion_implicit>",
+              f"{PKG}/csrc/interval1d_pcr_wide.cu", 327, pcr_wide_launches))
     kernels = [
         {"name": name, "route": "cuda", "source": source,
          "replaces": f"pdecontrolgym_tpu/ops/pallas1d.py:{line}",
@@ -2340,7 +2757,7 @@ def main():
         for key, name, source, line, launches in rows
     ]
     # the wide kernel's other bodies, checked in phase_kernel and not timed
-    kernels[-1]["other_bodies_max_abs_err"] = {
+    kernels[-2]["other_bodies_max_abs_err"] = {
         "transport": errs["transport_wide"], "reaction_diffusion": errs["rd_explicit_wide"]}
     kernels.append(
         {"name": "ns_step", "route": "cuda", "source": f"{PKG}/csrc/ns_fused.cu",
@@ -2351,6 +2768,12 @@ def main():
          "source": f"{PKG}/csrc/neuron_interval.cu",
          "replaces": "pdecontrolgym_tpu/ops/neuron_interval.py:235",
          "launches": neuron_launches, "max_abs_err": neuron_err, **family_ms["neuron"]})
+    kernels.append(
+        {"name": "neuron_interval_wide", "route": "cuda",
+         "source": f"{PKG}/csrc/neuron_interval_wide.cu",
+         "replaces": "pdecontrolgym_tpu/ops/neuron_interval.py:235",
+         "launches": neuron_wide_launches, "max_abs_err": neuron_wide_err,
+         **wide_ms["neuron_wide"]})
     kernels.append(
         {"name": "brain_tumor_field", "route": "cuda",
          "source": f"{PKG}/csrc/brain_tumor_field.cu",

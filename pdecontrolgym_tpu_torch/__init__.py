@@ -1,14 +1,17 @@
 """pdecontrolgym_tpu_torch — the PyTorch and CUDA port of pdecontrolgym_tpu.
 
 The JAX package ``pdecontrolgym_tpu`` is the reference this package is tested
-against. Ported so far: the 1D transport, Burgers and reaction-diffusion envs
-with TunedReward1D and NormReward, the 2D Navier-Stokes env with NSReward and
-its pressure solvers, the neuron-growth env, the brain-tumor env with
-BrainTumorReward and its therapy wrappers, the transport and parabolic
-backstepping controllers, the batched rollout, the tridiagonal solvers, and
-the kernels (``csrc/interval1d.cu`` for the explicit 1D sub-steps,
-``csrc/interval1d_pcr.cu`` for the implicit θ-scheme, ``csrc/ns_fused.cu`` for
-the Navier-Stokes projection step, ``csrc/neuron_interval.cu`` for K neuron
+against. Ported so far: the seven env families (1D transport, Burgers and
+reaction-diffusion with TunedReward1D and NormReward, the 2D Navier-Stokes env
+with NSReward and its pressure solvers, the neuron-growth env, the brain-tumor
+env with BrainTumorReward and its therapy wrappers, the ARZ traffic env with
+TrafficARZReward), the functional wrappers, the evaluation harness, the
+transport and parabolic backstepping controllers, the batched rollout, the
+tridiagonal solvers, and the kernels (``csrc/interval1d.cu`` and
+``csrc/interval1d_wide.cu`` for the explicit 1D sub-steps,
+``csrc/interval1d_pcr.cu`` and ``csrc/interval1d_pcr_wide.cu`` for the
+implicit θ-scheme, ``csrc/ns_fused.cu`` for the Navier-Stokes projection step,
+``csrc/neuron_interval.cu`` and ``csrc/neuron_interval_wide.cu`` for K neuron
 dt-steps, ``csrc/brain_tumor_field.cu`` for the brain-tumor day's field pass;
 CUDA C++ for the H100, built from source at first use). This package never
 imports JAX.
@@ -18,11 +21,12 @@ Layers:
                tridiagonal solvers, 2D field ops and pressure solvers
     core/      batch-first env protocol, sensing/actuation dispatch
     envs/      transport, Burgers, reaction-diffusion, Navier-Stokes, neuron
-               growth and brain tumor
+               growth, brain tumor and ARZ traffic; observation/action wrappers
     rewards/   plug-in reward functions
     parallel/  batched lockstep rollout with autoreset
     agents/    backstepping controllers
     utils/     carrying JAX configs and states across
+    eval.py    batched episode returns and controller tables
 """
 
 from pdecontrolgym_tpu_torch.core.base import FunctionalEnv, RewardCtx, StepOut

@@ -23,6 +23,11 @@ from pdecontrolgym_tpu_torch.envs.reaction_diffusion import (
     ReactionDiffusionConfig,
     ReactionDiffusionEnv,
 )
+from pdecontrolgym_tpu_torch.envs.traffic_arz import (
+    TrafficARZConfig,
+    TrafficARZEnv,
+    TrafficARZState,
+)
 from pdecontrolgym_tpu_torch.envs.transport import (
     TransportConfig,
     TransportEnv,
@@ -48,6 +53,9 @@ __all__ = [
     "ReactionDiffusionConfig",
     "ReactionDiffusionEnv",
     "TherapyEnv",
+    "TrafficARZConfig",
+    "TrafficARZEnv",
+    "TrafficARZState",
     "TransportConfig",
     "TransportEnv",
     "chebyshev_beta",

@@ -354,9 +354,8 @@ class Boundary1DEnv(FunctionalEnv):
         computes L2 norms only); else through :meth:`step`. On the card,
         ``"auto"`` steps eagerly past the reach of the TPU kernel, as the JAX
         package's ``"auto"`` picks its kernel per size, decided from the spec
-        before any launch (``auto_steps_eagerly``); within that reach a row
-        that no CUDA kernel takes yet raises, as ``"kernel"`` does past a
-        kernel's reach."""
+        before any launch (``auto_steps_eagerly``); within that reach a CUDA
+        kernel takes every row. ``"kernel"`` past a kernel's reach raises."""
         eager = self.config.backend == "eager" or self._needs_prev or self._needs_aux
         spec = None if eager else self.interval_spec()
         if spec is not None and self.config.backend == "auto" \

@@ -429,8 +429,9 @@ class NeuronEnv(FunctionalEnv):
         other rewards may read per-dt extras like ``control`` that the block
         does not surface). ``backend="kernel"`` raises when ineligible. The
         size is not tested: the JAX package's ``"auto"`` runs its kernel at
-        every M, so on the card a row past ``MAX_M`` raises in the wrapper
-        until a kernel takes it, under ``"auto"`` as under ``"kernel"``."""
+        every M, and on the card the kernels take rows of up to
+        ``MAX_M_WIDE`` points (about where the TPU kernel's VMEM runs out);
+        past it the wrapper raises, under ``"auto"`` as under ``"kernel"``."""
         c = self.config
         if c.backend == "eager":
             return False

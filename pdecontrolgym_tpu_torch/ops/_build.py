@@ -25,13 +25,15 @@ SOURCES = (
     _PKG / "csrc" / "interval1d.cu",
     _PKG / "csrc" / "interval1d_wide.cu",
     _PKG / "csrc" / "interval1d_pcr.cu",
+    _PKG / "csrc" / "interval1d_pcr_wide.cu",
     _PKG / "csrc" / "ns_fused.cu",
     _PKG / "csrc" / "neuron_interval.cu",
+    _PKG / "csrc" / "neuron_interval_wide.cu",
     _PKG / "csrc" / "brain_tumor_field.cu",
     _PKG / "csrc" / "exact_div.cu",
 )
 HEADERS = (_PKG / "csrc" / "interval1d_common.cuh", _PKG / "csrc" / "interval1d_bodies.cuh",
-           _PKG / "csrc" / "exact_div.cuh")
+           _PKG / "csrc" / "exact_div.cuh", _PKG / "csrc" / "neuron_interval_common.cuh")
 BUILD_DIR = _PKG / "_build"
 # -fmad=false: no FMA contraction, so the kernels round as the plain PyTorch
 # version does (see csrc/interval1d.cu, point 4). Division and square root stay
@@ -130,6 +132,11 @@ def load() -> ctypes.CDLL:
         # neumann, has_eb, dt, 2F, th, -th*F, 1-th, (1-th)*F, dx
         lib.interval1d_pcr_launch.argtypes = common + [i, i] + [f] * 7 + tail
         lib.interval1d_pcr_launch.restype = ctypes.c_int
+        # ... and the factor rows' scratch (null where they fit shared memory)
+        lib.interval1d_pcr_wide_launch.argtypes = common + [i, i] + [f] * 7 + [p] + tail
+        lib.interval1d_pcr_wide_launch.restype = ctypes.c_int
+        lib.interval1d_pcr_wide_scratch_floats.argtypes = [i]
+        lib.interval1d_pcr_wide_scratch_floats.restype = ctypes.c_longlong
         # u, v, act, consts, uref, vref, u_out, v_out, p_out, tsum; B, ny, nx,
         # np, prec; bc; 0.5/dx, 0.5/dy, 1/(dx*dy), dt, nu, -dx*dy*rho/dt, dt/rho
         lib.ns_fused_launch.argtypes = (
@@ -138,8 +145,9 @@ def load() -> ctypes.CDLL:
         # u, Z, L, t, pB, p, u_out, Z_out, L_out, t_out, done, norms, prev; B, M,
         # K, W, ord; dt, dx, D, a, g, LSubS, scale, RSubG, aT1, beta_c, nt, coeff,
         # H0, H1
-        lib.neuron_interval_launch.argtypes = [p] * 13 + [i] * 5 + [f] * 14 + tail
-        lib.neuron_interval_launch.restype = ctypes.c_int
+        for fn in (lib.neuron_interval_launch, lib.neuron_interval_wide_launch):
+            fn.argtypes = [p] * 13 + [i] * 5 + [f] * 14 + tail
+            fn.restype = ctypes.c_int
         # u, applied, can, u_out, treatment_radius, t1, has_t1; B, nx; dt, dx,
         # dx*dx, D, rho, k, -alpha, alpha/beta, thr_t1, thr_t2
         lib.brain_tumor_field_launch.argtypes = [p] * 7 + [i] * 2 + [f] * 10 + tail

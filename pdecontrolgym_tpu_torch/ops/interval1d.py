@@ -33,19 +33,22 @@ Two implementations, one contract:
   card). It serves the explicit bodies at rows of up to ``MAX_NX`` points;
   ``csrc/interval1d_wide.cu`` serves them at ``MAX_NX + 1`` to
   ``MAX_NX_WIDE`` points, the reach of the TPU kernel: one block per env, the
-  row spread over its warps, one barrier a sub-step. The implicit θ-scheme body, whose sub-step is a
-  parallel-cyclic-reduction solve, has a kernel of its own,
-  ``csrc/interval1d_pcr.cu`` (one warp per env, the state and right-hand side
-  in registers, the elimination factors in shared memory), for rows of up to
-  ``MAX_NX`` points.
+  row spread over its warps, one barrier a sub-step. The implicit θ-scheme
+  body, whose sub-step is a parallel-cyclic-reduction solve, has kernels of
+  its own: ``csrc/interval1d_pcr.cu`` (one warp per env, the state and
+  right-hand side in registers, the elimination factors in shared memory)
+  for rows of up to ``MAX_NX`` points, and ``csrc/interval1d_pcr_wide.cu``
+  (one block per env, the rounds that cross warps through shared memory, one
+  barrier a round) for rows of ``MAX_NX + 1`` to ``MAX_NX_PCR`` points, the
+  reach of the TPU kernel's PCR.
 
 :func:`interval` dispatches on the tensors' device: the plain version for CPU
 tensors, the kernel for CUDA tensors. It never falls back from one to the
 other: a CUDA row past the body's reach raises. :func:`kernel_takes` says,
 from the spec alone, whether a kernel takes it. An env's ``backend="auto"``
-on the card steps eagerly only past ``body.auto_max_nx``, where the TPU
-kernel does not reach either; at and below it the interval path runs, and a
-row no CUDA kernel takes yet (implicit rows of 513 to 8192 points) raises.
+on the card steps eagerly only past ``body.max_nx``, where the TPU kernel
+that the JAX package's ``"auto"`` picks does not reach either; at and below
+it a kernel runs.
 
 The body constants are rounded to float32 exactly as the JAX kernel rounds its
 Python scalars (a product of two scalars such as ``dt/dx``, ``0.5*dt/dx`` or
@@ -62,11 +65,12 @@ A body is a frozen dataclass with this contract:
 - ``boundary_const``: whether the boundary value is ``ctrl`` for the whole
   interval;
 - ``kernel``: the name of the C function that launches its CUDA kernel at
-  rows of up to ``MAX_NX`` points, ``wide_kernel`` the one above (or None),
-  ``max_nx`` the widest row a kernel takes, ``auto_max_nx`` the widest row
-  that ``backend="auto"`` steps through the interval path on the card (the
-  reach of the TPU kernel that the JAX package's ``"auto"`` picks), and
-  ``consts()``: the launch function's arguments after the common ones.
+  rows of up to ``MAX_NX`` points, ``wide_kernel`` the one above,
+  ``wide_scratch`` the C function that gives the floats of device scratch an
+  env needs there (None: no scratch),
+  ``max_nx`` the widest row a kernel takes (the reach of the TPU kernel that
+  the JAX package's ``"auto"`` picks), and ``consts()``: the launch
+  function's arguments after the common ones.
 """
 
 from __future__ import annotations
@@ -87,6 +91,7 @@ WIDE_LAUNCHES = 0
 MAX_POSITIONS = 64  # norm positions passed by value; see csrc/interval1d.cu
 MAX_NX = 512  # one warp holds a row of at most 32 * 16 points
 MAX_NX_WIDE = 16384  # one block of 32 warps holds 32 * 32 * 16 points
+MAX_NX_PCR = 8192  # the implicit body's reach, as the JAX package's PCR
 
 _BODY_TRANSPORT, _BODY_GODUNOV, _BODY_RUSANOV, _BODY_FTCS = 0, 1, 2, 3
 
@@ -107,8 +112,8 @@ class TransportBody:
     boundary_const = True
     kernel = "interval1d_launch"
     wide_kernel = "interval1d_wide_launch"
+    wide_scratch = None
     max_nx = MAX_NX_WIDE
-    auto_max_nx = MAX_NX_WIDE
 
     @property
     def dtdx(self) -> float:
@@ -144,8 +149,8 @@ class BurgersBody:
 
     kernel = "interval1d_launch"
     wide_kernel = "interval1d_wide_launch"
+    wide_scratch = None
     max_nx = MAX_NX_WIDE
-    auto_max_nx = MAX_NX_WIDE
 
     def __post_init__(self):
         if self.flux not in ("godunov", "rusanov"):
@@ -198,8 +203,8 @@ class ReactionDiffusionBody:
 
     kernel = "interval1d_launch"
     wide_kernel = "interval1d_wide_launch"
+    wide_scratch = None
     max_nx = MAX_NX_WIDE
-    auto_max_nx = MAX_NX_WIDE
 
     @property
     def boundary_const(self) -> bool:
@@ -245,9 +250,9 @@ class ReactionDiffusionImplicitBody:
     neumann: bool
 
     kernel = "interval1d_pcr_launch"
-    wide_kernel = None
-    max_nx = MAX_NX  # ROADMAP: its rows of 513 to 8192 points are next
-    auto_max_nx = 8192
+    wide_kernel = "interval1d_pcr_wide_launch"
+    wide_scratch = "interval1d_pcr_wide_scratch_floats"
+    max_nx = MAX_NX_PCR
 
     @property
     def boundary_const(self) -> bool:
@@ -389,7 +394,7 @@ def _kernel_positions(spec: IntervalSpec) -> tuple:
 
 def kernel_takes(spec: IntervalSpec) -> bool:
     """Whether a CUDA kernel takes ``spec``: its row within the body's reach
-    (``body.max_nx``: 16384 points for the explicit bodies, 512 for the
+    (``body.max_nx``: 16384 points for the explicit bodies, 8192 for the
     implicit one) and at most ``MAX_POSITIONS`` norm positions. Decided from
     the spec alone, before any launch."""
     return (3 <= spec.state_dim <= spec.body.max_nx
@@ -398,18 +403,17 @@ def kernel_takes(spec: IntervalSpec) -> bool:
 
 def auto_steps_eagerly(spec: IntervalSpec) -> bool:
     """Whether an env's ``backend="auto"`` steps ``spec`` eagerly on the card:
-    where no CUDA kernel takes it and its row is past ``body.auto_max_nx``,
-    which the TPU kernel does not reach either. A row that the TPU kernel
-    reaches and no CUDA kernel takes yet (implicit rows of 513 to 8192 points)
-    keeps the interval path, whose wrapper raises. Decided from the spec
-    alone, before any launch."""
-    return not kernel_takes(spec) and spec.state_dim > spec.body.auto_max_nx
+    where its row is past ``body.max_nx``, the reach of the body's CUDA
+    kernels and of the TPU kernel that the JAX package's ``"auto"`` picks.
+    Decided from the spec alone, before any launch."""
+    return spec.state_dim > spec.body.max_nx
 
 
 def _interval_cuda(spec: IntervalSpec, u, beta, ctrl, t0):
     """Launch the body's CUDA kernel on the tensors' stream: the warp kernel
     at rows of up to ``MAX_NX`` points, the wide one above. Raises on anything
-    the kernels do not take; allocates the outputs; does not synchronise."""
+    the kernels do not take; allocates the outputs and the wide kernel's
+    scratch; does not synchronise."""
     global LAUNCHES, WIDE_LAUNCHES
     from pdecontrolgym_tpu_torch.ops import _build
 
@@ -418,8 +422,7 @@ def _interval_cuda(spec: IntervalSpec, u, beta, ctrl, t0):
     if nx > body.max_nx:
         raise ValueError(
             f"interval kernel: state_dim {nx} > {body.max_nx}, the reach of the "
-            f"{type(body).__name__} kernels; no CUDA kernel takes wider rows yet "
-            "(backend='eager' steps them)"
+            f"{type(body).__name__} kernels (backend='eager' steps wider rows)"
         )
     S = spec.sample_rate
     positions = _kernel_positions(spec)
@@ -431,7 +434,14 @@ def _interval_cuda(spec: IntervalSpec, u, beta, ctrl, t0):
         raise ValueError("interval kernel: inputs must be contiguous")
     wide = nx > MAX_NX
     name = body.wide_kernel if wide else body.kernel
-    launch = getattr(_build.load(), name)
+    lib = _build.load()
+    launch = getattr(lib, name)
+    scratch = ()
+    if wide and body.wide_scratch:
+        # the implicit body's factor rows, where they do not fit shared memory
+        floats = getattr(lib, body.wide_scratch)(nx)
+        buf = torch.empty((B * floats,), dtype=u.dtype, device=u.device)
+        scratch = (buf.data_ptr() if floats else None,)
     u_out = torch.empty_like(u)
     norms = torch.zeros((B, spec.wp), dtype=u.dtype, device=u.device)
     bsum = torch.empty((B, 1), dtype=u.dtype, device=u.device)
@@ -442,14 +452,12 @@ def _interval_cuda(spec: IntervalSpec, u, beta, ctrl, t0):
         u_out.data_ptr(), norms.data_ptr(), bsum.data_ptr(), t_out.data_ptr(),
         B, nx, S, spec.nt, spec.wp,
         pos_arr, len(positions),
-        *body.consts(),
+        *body.consts(), *scratch,
         u.device.index if u.device.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(u.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(
-            f"{name} failed: {_build.load().interval1d_error_string(err).decode()}"
-        )
+        raise RuntimeError(f"{name} failed: {lib.interval1d_error_string(err).decode()}")
     LAUNCHES += 1
     WIDE_LAUNCHES += wide
     return u_out, norms, bsum, t_out

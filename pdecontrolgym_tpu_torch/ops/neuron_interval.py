@@ -34,10 +34,17 @@ Two implementations, one contract:
   K dt-steps, row ``i`` in group lane ``i % G``; a dt-step updates only the register slots that hold rows below
   the tip, and divides by the dt-step's divisors through a reciprocal and a
   correction that equal IEEE division to the bit (``csrc/exact_div.cuh``).
+  Rows of up to ``MAX_M`` points.
+- ``csrc/neuron_interval_wide.cu``, the same for rows of ``MAX_M + 1`` to
+  ``MAX_M_WIDE`` points: one block an env, each warp a contiguous stretch of
+  the row, the warps' parts of the control integral and their end rows
+  through shared memory behind one barrier a dt-step. ``WIDE_LAUNCHES``
+  counts its launches.
 
 :func:`neuron_interval` dispatches on the tensors' device: the plain version
 for CPU tensors, the kernel for CUDA tensors. It never falls back from one to
-the other.
+the other: a row past ``MAX_M_WIDE`` (about where the TPU kernel's VMEM
+runs out) raises on the card.
 
 Both apply the same float32 operations in the same order (the kernel is built
 without FMA contraction), and every read at the boundary index has one
@@ -53,10 +60,13 @@ import dataclasses
 
 import torch
 
-# Launches of the CUDA kernel since import (or since a caller reset it).
+# Launches of the CUDA kernels since import (or since a caller reset it): all
+# of them, and those of the block-per-env kernel for long rows.
 LAUNCHES = 0
+WIDE_LAUNCHES = 0
 
 MAX_M = 512  # a warp holds a row of at most 32 * 16 points
+MAX_M_WIDE = 16384  # a block of 16 warps holds 16 * 32 * 32 points
 RING_ORDS = {"1": 1, "2": 2, "inf": 0}
 
 
@@ -235,16 +245,18 @@ def neuron_interval_plain(spec: NeuronSpec, u, Z, L, t, *, steps: int, window: i
 
 
 def _neuron_interval_cuda(spec, u, Z, L, t, steps, window, ring_ord, need_prev):
-    """Launch the CUDA kernel on the tensors' stream. Raises on anything the
-    kernel does not take; allocates the outputs; does not synchronise."""
-    global LAUNCHES
+    """Launch the CUDA kernel on the tensors' stream: the warp kernel at rows
+    of up to ``MAX_M`` points, the wide one above. Raises on anything the
+    kernels do not take; allocates the outputs; does not synchronise."""
+    global LAUNCHES, WIDE_LAUNCHES
     from pdecontrolgym_tpu_torch.ops import _build
 
     B, M = u.shape
-    if M > MAX_M:
+    if M > MAX_M_WIDE:
         raise ValueError(
-            f"neuron_interval kernel: M {M} > {MAX_M} (at most 16 points a lane of "
-            "a warp); no CUDA kernel takes longer rows yet (backend='eager' steps them)"
+            f"neuron_interval kernel: M {M} > {MAX_M_WIDE}, the reach of the K-step "
+            "kernels (a block of 16 warps, 32 points a lane); backend='eager' steps "
+            "longer rows"
         )
     if not all(x.is_contiguous() for x in (u, Z, L, t, spec.pB, spec.p)):
         raise ValueError("neuron_interval kernel: inputs must be contiguous")
@@ -257,8 +269,10 @@ def _neuron_interval_cuda(spec, u, Z, L, t, steps, window, ring_ord, need_prev):
     def ptr(x):
         return None if x is None else x.data_ptr()
 
+    wide = M > MAX_M
+    name = "neuron_interval_wide_launch" if wide else "neuron_interval_launch"
     lib = _build.load()
-    err = lib.neuron_interval_launch(
+    err = getattr(lib, name)(
         u.data_ptr(), Z.data_ptr(), L.data_ptr(), t.data_ptr(),
         spec.pB.data_ptr(), spec.p.data_ptr(),
         u_out.data_ptr(), Z_out.data_ptr(), L_out.data_ptr(), t_out.data_ptr(),
@@ -269,10 +283,9 @@ def _neuron_interval_cuda(spec, u, Z, L, t, steps, window, ring_ord, need_prev):
         torch.cuda.current_stream(u.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(
-            f"neuron_interval_launch failed: {lib.interval1d_error_string(err).decode()}"
-        )
+        raise RuntimeError(f"{name} failed: {lib.interval1d_error_string(err).decode()}")
     LAUNCHES += 1
+    WIDE_LAUNCHES += wide
     out = (u_out, Z_out, L_out, t_out, done)
     if window:
         # unrotate to oldest..newest: the norm i places into the window sits in

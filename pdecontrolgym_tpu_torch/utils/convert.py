@@ -15,6 +15,7 @@ from pdecontrolgym_tpu_torch.envs.brain_tumor import BrainTumorState
 from pdecontrolgym_tpu_torch.envs.common import Boundary1DState
 from pdecontrolgym_tpu_torch.envs.navier_stokes import NavierStokesState
 from pdecontrolgym_tpu_torch.envs.neuron import NeuronEnv, NeuronState
+from pdecontrolgym_tpu_torch.envs.traffic_arz import TrafficARZState
 
 # the JAX package's backend names and the port's
 _BACKENDS = {"pallas": "kernel", "xla": "eager"}
@@ -101,6 +102,13 @@ def brain_tumor_state_from_numpy(leaves: dict, device) -> BrainTumorState:
     batched = np.asarray(leaves["u"]).ndim == 2
     ints = tuple(name for name in leaves if name not in ("u", "remaining_dosage"))
     return BrainTumorState(**_leaves(leaves, batched, device, int_fields=ints))
+
+
+def traffic_state_from_numpy(leaves: dict, device) -> TrafficARZState:
+    """Build a :class:`TrafficARZState` from numpy arrays ``r``, ``y``,
+    ``time_index``, ``rs``, ``vs`` and ``qs``."""
+    batched = np.asarray(leaves["r"]).ndim == 2
+    return TrafficARZState(**_leaves(leaves, batched, device))
 
 
 def neuron_tables_from_numpy(env: NeuronEnv, tables: dict) -> NeuronEnv:

@@ -41,6 +41,7 @@ from pdecontrolgym_tpu_torch.envs.transport import TransportEnv
 from pdecontrolgym_tpu_torch.ops import interval1d
 from pdecontrolgym_tpu_torch.ops.interval1d import (
     MAX_NX,
+    MAX_NX_PCR,
     MAX_NX_WIDE,
     BurgersBody,
     IntervalSpec,
@@ -131,12 +132,14 @@ def test_wide_explicit_rd_step_batch_matches_jax(control_type):
 
 
 @pytest.mark.parametrize("nx,explicit,implicit", [
-    (3, True, True), (512, True, True), (513, True, False), (4096, True, False),
-    (MAX_NX_WIDE, True, False), (MAX_NX_WIDE + 1, False, False)])
+    (3, True, True), (513, True, True), (MAX_NX_PCR, True, True),
+    (MAX_NX_PCR + 1, True, False), (MAX_NX_WIDE, True, False),
+    (MAX_NX_WIDE + 1, False, False)])
 def test_kernel_takes_rows_within_each_body_reach(nx, explicit, implicit):
     """The explicit bodies reach 16384 points (the warp kernel to 512, the
-    wide one above), the implicit PCR body 512; more than MAX_POSITIONS norm
-    positions no kernel takes."""
+    wide one above), the implicit PCR body 8192 (the warp kernel to 512, the
+    block kernel above); more than MAX_POSITIONS norm positions no kernel
+    takes."""
     dx = 1.0 / (nx - 1)
     for body, want in ((BurgersBody(1e-5, dx, 0.0, False), explicit),
                        (ReactionDiffusionImplicitBody(1e-5, dx, 0.5, False), implicit)):
@@ -149,8 +152,9 @@ def test_kernel_takes_rows_within_each_body_reach(nx, explicit, implicit):
 def test_auto_on_the_cpu_keeps_the_interval_path_past_the_kernels_reach():
     """On the CPU ``"auto"`` still steps a row past every kernel's reach
     through the interval path's plain version: the reach binds on the card
-    only. The implicit env at 1025 points equals its ``"kernel"`` twin."""
-    cfg = ReactionDiffusionConfig(T=0.012, dt=4e-4, dx=1.0 / 1024, control_sample_rate=4e-3,
+    only. The implicit env at 8193 points (past the PCR kernels' 8192)
+    equals its ``"kernel"`` twin."""
+    cfg = ReactionDiffusionConfig(T=0.012, dt=4e-4, dx=1.0 / 8192, control_sample_rate=4e-3,
                                   scheme="implicit", theta=0.5)
     auto = ReactionDiffusionEnv(cfg, TunedReward1D(cfg.nt), device="cpu")
     kernel = ReactionDiffusionEnv(dataclasses.replace(cfg, backend="kernel"),
@@ -170,12 +174,15 @@ def test_auto_on_the_cpu_keeps_the_interval_path_past_the_kernels_reach():
 def test_auto_steps_eagerly_only_past_the_tpu_kernels_reach(nx, implicit, explicit):
     """On the card ``"auto"`` leaves the interval path only past the reach of
     the TPU kernel that the JAX package's ``"auto"`` picks: 8192 points for
-    the implicit body, 16384 for the explicit ones. Implicit rows of 513 to
-    8192 points keep the interval path, whose wrapper raises there."""
+    the implicit body, 16384 for the explicit ones, which are also the reach
+    of the CUDA kernels: every row ``"auto"`` keeps on the interval path a
+    kernel takes."""
     dx = 1.0 / (nx - 1)
     for body, want in ((ReactionDiffusionImplicitBody(1e-5, dx, 0.5, False), implicit),
                        (BurgersBody(1e-5, dx, 0.0, False), explicit)):
-        assert interval1d.auto_steps_eagerly(IntervalSpec(body, 20, 100, nx, 8, (19,))) is want
+        spec = IntervalSpec(body, 20, 100, nx, 8, (19,))
+        assert interval1d.auto_steps_eagerly(spec) is want
+        assert interval1d.kernel_takes(spec) is not want
 
 
 def test_brain_tumor_and_neuron_eligibility_follow_the_kernel_reach():
@@ -184,7 +191,8 @@ def test_brain_tumor_and_neuron_eligibility_follow_the_kernel_reach():
     ``"auto"`` never picks that kernel); under ``"kernel"`` it stays eligible,
     so the wrapper raises there on the card. The K-step neuron block stays
     eligible past 512 under both, since the JAX package's ``"auto"`` runs its
-    kernel at every M: on the card its wrapper raises there."""
+    kernel at every M: on the card the block-per-env kernel takes rows of
+    513 to 16384 points."""
     wide = dict(T=20.0, dt=1.0, X=600.0, dx=1.0)
     assert BrainTumorConfig(**wide).nx == 601
     assert not BrainTumorEnv(BrainTumorConfig(**wide), BrainTumorReward(),

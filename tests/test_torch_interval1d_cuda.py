@@ -194,14 +194,19 @@ def test_cuda_pcr_kernel_equals_plain_version_to_the_bit(n, theta, neumann, kind
 
 @pytest.mark.cuda
 def test_cuda_pcr_kernel_rejects_rows_above_its_cap():
+    """Past the 8192 points of the PCR kernels' reach (the warp kernel to
+    ``MAX_NX``, the block kernel above) the wrapper raises and launches
+    nothing."""
     _need_card()
-    n = interval1d.MAX_NX + 1
+    n = interval1d.MAX_NX_PCR + 1
     body = ReactionDiffusionImplicitBody(4e-4, 1.0 / (n - 1), 0.5, False)
     spec = IntervalSpec(body, 5, 100, n, 2, (4,))
     u = torch.zeros((2, n), device="cuda")
-    with pytest.raises(ValueError, match="state_dim"):
+    before = interval1d.LAUNCHES
+    with pytest.raises(ValueError, match="state_dim 8193 > 8192"):
         interval1d.interval(spec, u, u.clone(), torch.zeros((2, 1), device="cuda"),
                             torch.zeros((2, 1), dtype=torch.int32, device="cuda"))
+    assert interval1d.LAUNCHES == before
 
 
 # rows of every points-a-lane P = 1 .. 16 of the explicit kernel, with and

@@ -14,8 +14,8 @@ state equals the plain version's to the bit (non-finite rows included),
 zero elsewhere, ``bsum_add`` rtol 1e-4, as in
 ``tests/test_torch_interval1d_cuda.py``. Under ``"auto"`` an env steps eagerly
 only where the JAX package's ``"auto"`` runs no kernel either (held equal to
-the ``"eager"`` env there); a row that the TPU kernel reaches and no CUDA
-kernel takes yet raises.
+the ``"eager"`` env there); within that reach a kernel runs (held to the
+``"eager"`` env in its band), and ``"kernel"`` past a kernel's reach raises.
 """
 
 import dataclasses
@@ -165,23 +165,45 @@ def _assert_same_states(a, e):
 @pytest.mark.cuda
 def test_cuda_auto_implicit_rd_within_the_tpu_reach_raises_past_the_pcr_reach():
     """The implicit reaction-diffusion env with a 1025-point row (past the
-    PCR kernel's 512, within the 8192 that the TPU kernel reaches) raises
-    under ``"auto"`` on the card, as under ``"kernel"``, naming the reach: no
-    CUDA kernel takes it yet and the plain version does not stand in for
-    one."""
+    warp kernel's 512, within the 8192 that the TPU kernel reaches) steps
+    under ``"auto"`` on the card through the block-per-env PCR kernel, one
+    launch a step, over a whole episode of 5 intervals (the last one
+    masked), and agrees with the ``"eager"`` env: time index equal, state
+    rtol 1e-4 atol 1e-3 (rows of order 10), rewards rtol 1e-3. The bands are
+    the two paths' formulations, not the kernel's: the eager path forms the
+    right-hand side as ``u + (1-θ)(F Δu + dt β u)`` and eliminates every
+    sub-step, the interval path folds it as ``u eb + (1-θ)F (u[i-1] +
+    u[i+1])``, and at F = dt/dx^2 = 419 their rounding parts by up to 7.6e-5
+    of the row's scale in 50 sub-steps (measured on the CPU, where the plain
+    version stands in for the kernel, which equals it to the bit). Past the
+    PCR reach (8193 points) ``"kernel"`` raises a ValueError that names it."""
     _need_card()
     cfg = ReactionDiffusionConfig(T=0.02, dt=4e-4, dx=1.0 / 1024, control_sample_rate=4e-3,
                                   scheme="implicit", theta=0.5)
+    auto = ReactionDiffusionEnv(cfg, TunedReward1D(cfg.nt), device="cuda")
+    eager = ReactionDiffusionEnv(dataclasses.replace(cfg, backend="eager"),
+                                 TunedReward1D(cfg.nt), device="cuda")
+    assert auto.state_dim == 1025 and interval1d.kernel_takes(auto.interval_spec()[0])
     gen = torch.Generator(device="cuda")
-    before = interval1d.LAUNCHES
-    for backend in ("auto", "kernel"):
-        env = ReactionDiffusionEnv(dataclasses.replace(cfg, backend=backend),
-                                   TunedReward1D(cfg.nt), device="cuda")
-        assert env.state_dim == 1025 and not interval1d.kernel_takes(env.interval_spec()[0])
-        state, _ = env.init_batch(3, gen.manual_seed(0))
-        with pytest.raises(ValueError, match="state_dim 1025 > 512"):
-            env.step_batch(state, torch.full((3,), 0.5, device="cuda"))
-    assert interval1d.LAUNCHES == before
+    sa, _ = auto.init_batch(3, gen.manual_seed(0))
+    se, _ = eager.init_batch(3, gen.manual_seed(0))
+    before, wide = interval1d.LAUNCHES, interval1d.WIDE_LAUNCHES
+    for a in (0.5, -0.5, 0.25, 0.0, 1.0):
+        act = torch.full((3,), a, device="cuda")
+        sa, oa = auto.step_batch(sa, act)
+        se, oe = eager.step_batch(se, act)
+        assert torch.equal(sa.time_index, se.time_index)
+        torch.testing.assert_close(sa.u, se.u, rtol=1e-4, atol=1e-3)
+        torch.testing.assert_close(oa.reward, oe.reward, rtol=1e-3, atol=1e-3)
+    assert bool(oa.terminated.all())
+    assert interval1d.LAUNCHES == before + 5 and interval1d.WIDE_LAUNCHES == wide + 5
+    past = dataclasses.replace(cfg, dx=1.0 / 8192, backend="kernel")
+    env = ReactionDiffusionEnv(past, TunedReward1D(past.nt), device="cuda")
+    assert env.state_dim == 8193
+    state, _ = env.init_batch(3, gen.manual_seed(0))
+    with pytest.raises(ValueError, match="state_dim 8193 > 8192"):
+        env.step_batch(state, torch.full((3,), 0.5, device="cuda"))
+    assert interval1d.LAUNCHES == before + 5
 
 
 @pytest.mark.cuda
@@ -254,21 +276,32 @@ def test_cuda_auto_brain_tumor_past_the_kernel_reach_steps_eagerly():
 
 @pytest.mark.cuda
 def test_cuda_auto_neuron_past_the_kernel_reach_raises():
-    """A 601-point neuron row (past the K-step block's 512) raises under
-    ``"auto"`` on the card, as under ``"kernel"``: the JAX package's ``"auto"``
-    runs its kernel at every M, and no CUDA kernel takes the row yet. The
-    ``"eager"`` env steps it."""
+    """A 601-point neuron row (past the warp kernel's 512) steps under
+    ``"auto"`` on the card through the block-per-env K-step kernel, as the
+    JAX package's ``"auto"`` runs its kernel at every M, and agrees with the
+    ``"eager"`` env over 4 calls (``L`` equal, ``u`` rtol 1e-5 atol 1e-7).
+    Past the kernels' reach (M = 16385) ``"auto"`` and ``"kernel"`` raise a
+    ValueError that names it."""
     _need_card()
     cfg = NeuronConfig(dtype=torch.float32, X=60e-6, LSubS=60e-6, steps_per_call=5)
-    before = tni.LAUNCHES
-    for backend in ("auto", "kernel"):
-        env = NeuronEnv(dataclasses.replace(cfg, backend=backend), device="cuda")
-        assert env.M == 601
-        state, _ = env.init_batch(3)
-        with pytest.raises(ValueError, match="M 601 > 512"):
-            env.step_batch(state)
-    assert tni.LAUNCHES == before
+    auto = NeuronEnv(cfg, device="cuda")
     eager = NeuronEnv(dataclasses.replace(cfg, backend="eager"), device="cuda")
-    state, _ = eager.init_batch(3)
-    state, _ = eager.step_batch(state)
-    assert bool(torch.isfinite(state.u).all())
+    assert auto.M == 601
+    sa, _ = auto.init_batch(3)
+    se, _ = eager.init_batch(3)
+    before, wide = tni.LAUNCHES, tni.WIDE_LAUNCHES
+    for _ in range(4):
+        sa, _ = auto.step_batch(sa)
+        se, _ = eager.step_batch(se)
+        assert torch.equal(sa.L, se.L)
+        torch.testing.assert_close(sa.u, se.u, rtol=1e-5, atol=1e-7)
+    assert bool(torch.isfinite(sa.u).all())
+    assert tni.LAUNCHES == before + 4 and tni.WIDE_LAUNCHES == wide + 4
+    past = dataclasses.replace(cfg, X=12e-6, LSubS=12e-6, dx=1.2 / 16383.5)
+    for backend in ("auto", "kernel"):
+        env = NeuronEnv(dataclasses.replace(past, backend=backend), device="cuda")
+        assert env.M == 16385
+        state, _ = env.init_batch(3)
+        with pytest.raises(ValueError, match="M 16385 > 16384"):
+            env.step_batch(state)
+    assert tni.LAUNCHES == before + 4

@@ -110,11 +110,14 @@ def test_cuda_time_reset_fires_inside_a_block():
 
 @pytest.mark.cuda
 def test_cuda_wrapper_raises_above_its_cap():
+    """Past the 16384 points of the K-step kernels' reach (the warp kernel
+    to ``MAX_M``, the block kernel above) the wrapper raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    env = NeuronEnv(NeuronConfig(dtype=torch.float32, X=60e-6, LSubS=60e-6))  # M = 601
+    env = NeuronEnv(NeuronConfig(dtype=torch.float32, dx=1.2 / 16383.5))
+    assert env.M == tni.MAX_M_WIDE + 1
     s, _ = env.init_batch(2)
-    with pytest.raises(ValueError, match="512"):
+    with pytest.raises(ValueError, match="16384"):
         tni.neuron_interval(env.spec, s.u, s.Z, s.L, s.time_index, steps=1)
 
 
