@@ -45,7 +45,12 @@ JAX package), builds the CUDA kernels from ``csrc/`` and runs:
                 64x64; mixed boundary conditions; 16x16, 21x21, 24x40; 128x128
                 at B=1024; with and without the tracking sum; the three
                 spectral precisions, each also on a fresh episode's fields at
-                B=4096, 64x64; the autograd function's gradients.
+                B=4096, 64x64; the autograd function's gradients; past
+                128x128 the multi-pass step (B6w) at NS_WIDE_CASES (129x129,
+                160x200, 256x256 at B=1024, 512x512, and 1024x1024, the
+                reach), lid and mixed, the reduced precisions at 256x256,
+                its gradients, in the band times the products' length factor
+                np/128; one past the reach the wrapper raises.
 9. ns        -- the bench_families.py ``ns_fast`` workload through the port's
                 rollout: 4096 envs, 64x64, float32, direct pressure solve,
                 lid-driven cavity, NSReward(0.1), constant policy 2.0, one
@@ -53,7 +58,10 @@ JAX package), builds the CUDA kernels from ``csrc/`` and runs:
                 path over the whole episode; two episodes back to back at
                 B=256 across a boundary reset; the drift of the "high" and
                 "default" precisions against "highest" over an episode at
-                B=256 (reported, not gated).
+                B=256 (reported, not gated); and ns_wide: 1024 envs x
+                256x256 (dx=1/255, dt=7.5e-5, 100 steps) through
+                step_backend="auto", 100 launches of the multi-pass step, at
+                B=8 the kernel path against the eager path over the episode.
 10. neuron_kernel -- the neuron K-step block against its plain PyTorch version
                 on the card: K = 1, 7, 100; reward-free; norm windows W = 1
                 and 5 in the L2, L1 and max norms; the previous row; B = 5 and
@@ -85,7 +93,9 @@ JAX package), builds the CUDA kernels from ``csrc/`` and runs:
                 card, to the bit: B=4096 at n=513, 1025, 2049 (factor rows in
                 shared memory) and 4097, B=1024 at n=8192 (factor rows in
                 device memory); Dirichlet and Neumann, theta=0.5 and 1, fast
-                and masked paths; a batch with NaN and infinite values. Then
+                and masked paths, with beta shared by every env (the shared
+                path), half shared (mixed groups) and spread (the per-env
+                path); a batch with NaN and infinite values. Then
                 (after phase 7) the rd_implicit_wide episode: nx=2048 (2049
                 points), theta=0.5, dt=4e-4, 4096 envs, 100 actions x 25
                 sub-steps through backend="auto", 100 launches of that kernel,
@@ -120,9 +130,11 @@ JAX package), builds the CUDA kernels from ``csrc/`` and runs:
                 which are not traced.
 
 ``python3 chip_smoke.py --compare ROOT [ROOT ...]`` times the interval kernels
-(B2 to B5, B3's row without viscosity, and the wide kernel at 4096 x 4096 and
-1024 x 16384), the
-projection-step kernel (B6), the neuron K-step block (B7, on three states) and
+(B2 to B5, B3's row without viscosity, the wide kernel at 4096 x 4096 and
+1024 x 16384, and the wide PCR kernel at its five rows on spread and on
+shared beta), the
+projection-step kernel (B6, and B6w at 1024 x 256x256 and 16 x 1024x1024), the
+neuron K-step block (B7, on three states) and
 the brain-tumor field pass (B8) of several copies of the port in one run
 instead, with the SASS instructions a sub-step of the explicit interval
 kernels and a dt-step of the neuron block (see :func:`compare`).
@@ -184,6 +196,15 @@ NS_FIELD_ATOL = 2e-5
 # ("default"), or by the rounding of the tail, 2^-16 ("high"). The band widens
 # by these factors.
 NS_PRECISION_BAND = {"highest": 1.0, "high": 8.0, "default": 400.0}
+# Past 128 x 128 the products run over np = max(ny, nx) rounded up to 64
+# terms, and a float32 sum of K terms errs by up to K units of rounding: the
+# band of u', v', p and the tracking sum against the plain version grows by
+# np / 128 there (tests/test_torch_ns_wide_cuda.py; at 1024 x 1024 the
+# largest share of the unscaled band was 3.0 on an H100).
+def ns_length_factor(spec):
+    return max(1.0, spec.padded / 128)
+
+
 NS_TSUM_RTOL = 1e-5
 NS_TSUM_PLAIN_RTOL = 1e-4
 NS_GRAD_RTOL = 1e-4
@@ -454,15 +475,18 @@ def _interval_inputs(torch, env, t0_range, gen, u_fn, act_scale, beta_spread,
 
 
 def interval_case(torch, label, env, t0_range, gen, u_fn, act_scale,
-                  beta_spread=0.0, u_tol=U_TOL, num_envs=None):
+                  beta_spread=0.0, u_tol=U_TOL, num_envs=None, beta_fn=None):
     """One interval through the kernel and through the plain version, on the
     same inputs on the card, for ``num_envs`` (default NUM_ENVS) envs.
     ``beta_spread`` adds a per-env U(-spread, spread) part to the env's plant
-    parameter. Returns (max abs err of u_out, inputs)."""
+    parameter; ``beta_fn`` then maps the (B, nx) plant parameter in place.
+    Returns (max abs err of u_out, inputs)."""
     from pdecontrolgym_tpu_torch.ops import interval1d
 
     spec, u, beta, ctrl, t0 = _interval_inputs(torch, env, t0_range, gen, u_fn, act_scale,
                                                beta_spread, num_envs)
+    if beta_fn is not None:
+        beta = beta_fn(beta.contiguous())
     B, nx = u.shape
     before = interval1d.LAUNCHES
     k_out = interval1d.interval(spec, u, beta, ctrl, t0)
@@ -825,6 +849,22 @@ def _ns_spec(ny, nx, bc=LID_BC, precision="highest"):
                       precision)
 
 
+# The multi-pass step's cases (envs, ny, nx): its smallest grid, a
+# rectangle, the ns_wide row, 512 x 512 and the reach
+NS_WIDE_CASES = ((256, 129, 129), (64, 160, 200), (1024, 256, 256), (16, 512, 512),
+                 (2, 1024, 1024))
+
+
+def _ns_wide_spec(ny, nx, bc=LID_BC, precision="highest"):
+    """The ns_wide row's constants (nu=0.05, dt within the stability guard:
+    0.3 of 0.5 min(dx, dy)^2 / nu) on a unit square of ny x nx points."""
+    from pdecontrolgym_tpu_torch.ops.ns_fused import NSStepSpec
+
+    dx, dy = 1.0 / (nx - 1), 1.0 / (ny - 1)
+    dt = 0.3 * 0.5 * min(dx, dy) ** 2 / 0.05
+    return NSStepSpec(ny, nx, dx, dy, dt, 0.05, 1.0, bc, precision)
+
+
 def _ns_inputs(torch, spec, B, gen, device, track, level=0.0):
     """Fields of noise of order 0.2 (the JAX package's test fields) around a
     U(-level, level) constant an env (level=5: a fresh episode of the main
@@ -850,14 +890,16 @@ def ns_kernel_case(torch, label, spec, B, gen, device, track, level=0.0):
     from pdecontrolgym_tpu_torch.ops import ns_fused
 
     inputs = _ns_inputs(torch, spec, B, gen, device, track, level)
-    before = ns_fused.LAUNCHES
+    before = ns_fused.LAUNCHES, ns_fused.WIDE_LAUNCHES
     k_out = ns_fused.ns_step(spec, *inputs)
     torch.cuda.synchronize()
-    if ns_fused.LAUNCHES != before + 1:
+    if (ns_fused.LAUNCHES, ns_fused.WIDE_LAUNCHES) != (before[0] + 1,
+                                                       before[1] + int(spec.wide)):
         raise AssertionError(f"{label}: the wrapper did not count its launch")
     p_out = ns_fused.ns_step_plain(spec, *inputs)
     torch.cuda.synchronize()
-    ns_fused.LAUNCHES = before  # comparison launches do not count
+    # comparison launches do not count
+    ns_fused.LAUNCHES, ns_fused.WIDE_LAUNCHES = before
 
     # the corrector subtracts (dt/rho) * (0.5/dx) * (a difference of p), so u'
     # and v' inherit the float32 rounding of a term of that size
@@ -866,7 +908,8 @@ def ns_kernel_case(torch, label, spec, B, gen, device, track, level=0.0):
     scales = (max(1.0, float(p_out[0].abs().max()), ccorr * chdx * p_max),
               max(1.0, float(p_out[1].abs().max()), ccorr * chdy * p_max),
               max(1.0, p_max))
-    atol = NS_FIELD_ATOL * NS_PRECISION_BAND[spec.spectral_precision]
+    band = NS_PRECISION_BAND[spec.spectral_precision] * ns_length_factor(spec)
+    atol = NS_FIELD_ATOL * band
     errs = [_max_err(f"{label} {name}", k, p, 0.0, atol * scale)
             for name, k, p, scale in zip(("u'", "v'", "p"), k_out, p_out, scales)]
     note = ""
@@ -875,8 +918,7 @@ def ns_kernel_case(torch, label, spec, B, gen, device, track, level=0.0):
         uref, vref = inputs[3], inputs[4]
         own = ((ku - uref) ** 2 + (kv - vref) ** 2).sum(dim=(1, 2))[:, None]
         e_own = _max_err(f"{label} tsum (its own fields)", ktsum, own, NS_TSUM_RTOL, 0.0)
-        _max_err(f"{label} tsum (plain)", ktsum, p_out[3],
-                 NS_TSUM_PLAIN_RTOL * NS_PRECISION_BAND[spec.spectral_precision], 0.0)
+        _max_err(f"{label} tsum (plain)", ktsum, p_out[3], NS_TSUM_PLAIN_RTOL * band, 0.0)
         note = f" tsum={e_own:.3e} (of {float(own.abs().max()):.3e})"
     share = max(e / (atol * x) for e, x in zip(errs, scales))
     log(f"[ns_kernel] {label}: B={B} {spec.ny}x{spec.nx} {spec.spectral_precision} "
@@ -947,9 +989,27 @@ def phase_ns_kernel(torch, device):
                        device, track=True)
     ns_gradient_case(torch, _ns_spec(64, 64, MIXED_BC), 64, gen, device)
 
-    # above its cap the wrapper raises; it never serves a CUDA tensor with the
-    # plain version
-    spec = _ns_spec(ns_fused.MAX_N + 1, 16)
+    # past 128 x 128: the multi-pass step (B6w) at NS_WIDE_CASES, lid and
+    # mixed, with and without the tracking sum, the reduced precisions at 256
+    wide_err = 0.0
+    for B, ny, nx in NS_WIDE_CASES:
+        for bc, name in ((LID_BC, "lid, a fresh episode's fields"), (MIXED_BC, "mixed")):
+            e, inp = ns_kernel_case(torch, name, _ns_wide_spec(ny, nx, bc), B, gen, device,
+                                    track=True, level=5.0)
+            wide_err = max(wide_err, e)
+            if bc is LID_BC and (ny, nx) in ((256, 256), (ns_fused.MAX_N_WIDE,) * 2):
+                inputs[f"ns {ny}x{nx}"] = inp
+    ns_kernel_case(torch, "lid, no tracking sum", _ns_wide_spec(160, 200), 64, gen, device,
+                   track=False)
+    for precision in ("high", "default"):
+        ns_kernel_case(torch, "lid, a fresh episode's fields",
+                       _ns_wide_spec(256, 256, precision=precision), 256, gen, device,
+                       track=True, level=5.0)
+    ns_gradient_case(torch, _ns_wide_spec(136, 144, MIXED_BC), 4, gen, device)
+
+    # past the TPU kernel's reach the wrapper raises; it never serves a CUDA
+    # tensor with the plain version
+    spec = _ns_spec(ns_fused.MAX_N_WIDE + 1, 16)
     big = _ns_inputs(torch, spec, 2, gen, device, track=False)
     try:
         ns_fused.ns_step(spec, *big)
@@ -957,7 +1017,7 @@ def phase_ns_kernel(torch, device):
         log(f"[ns_kernel] {spec.ny}x{spec.nx} raises ValueError: {exc}")
     else:
         raise AssertionError(f"ns_step took a {spec.ny}x{spec.nx} grid on the card")
-    return err, inputs
+    return err, wide_err, inputs
 
 
 def run_ns_episode(torch, workload, num_envs, episodes, seed, keep_obs=False,
@@ -970,7 +1030,7 @@ def run_ns_episode(torch, workload, num_envs, episodes, seed, keep_obs=False,
 
     env, policy, steps = workload
     gen = torch.Generator(device=env.device).manual_seed(seed)
-    ns_fused.LAUNCHES = 0
+    ns_fused.LAUNCHES = ns_fused.WIDE_LAUNCHES = 0
     (_state, obs), outs = rollout(env, policy, num_envs, num_steps or episodes * steps,
                                   gen, keep_obs=keep_obs)
     torch.cuda.synchronize()
@@ -1043,6 +1103,65 @@ def phase_ns(torch, device):
             f"({d_frame / scale:.3e} of max |frame| {scale:.3e}), largest relative return "
             f"difference {d_return:.3e}")
     return launches
+
+
+# the ns_wide row's envs
+NS_WIDE_ENVS = 1024
+
+
+def ns_wide_setup(torch, device, **overrides):
+    """The ns_fast row on a 256 x 256 grid (dx = dy = 1/255): dt = 7.5e-5,
+    since 1e-4 fails the env's stability guard there (stable_factor 0.5 times
+    0.5 dx^2 / nu = 7.69e-5), and T = 101 dt: 100 steps an episode."""
+    fields = dict(dx=1.0 / 255, dy=1.0 / 255, dt=7.5e-5, T=101 * 7.5e-5)
+    fields.update(overrides)
+    return ns_setup(torch, device, **fields)
+
+
+def phase_ns_wide(torch, device):
+    """The ns_wide episode: 1024 envs x 256 x 256 through step_backend="auto",
+    every step on the multi-pass step (B6w); at B=8 the kernel path against the
+    eager path over the whole episode."""
+    from pdecontrolgym_tpu_torch.ops import ns_fused
+
+    workload = ns_wide_setup(torch, device)
+    steps = workload[2]
+    obs, outs, launches = run_ns_episode(torch, workload, NS_WIDE_ENVS, 1, seed=11)
+    wide = ns_fused.WIDE_LAUNCHES
+    if not launches == wide == steps == 100:
+        raise AssertionError(f"ns_wide: {launches} launches ({wide} wide), {steps} steps, "
+                             "expected 100 of each")
+    if outs.obs is not None or tuple(outs.reward.shape) != (steps, NS_WIDE_ENVS):
+        raise AssertionError("ns_wide: the stacked result has the wrong shape")
+    if not (bool(torch.isfinite(outs.reward).all()) and bool(torch.isfinite(obs).all())):
+        raise AssertionError("ns_wide: non-finite rewards or observations")
+    term = outs.terminated
+    if bool(term[:-1].any()) or not bool(term[-1].all()) or bool(outs.truncated.any()):
+        raise AssertionError(f"ns_wide: episodes did not all end at step {steps}")
+    log(f"[ns_wide] {NS_WIDE_ENVS} envs x {steps} steps, 256x256 (step_backend=auto): "
+        f"{wide} launches of the multi-pass step, mean return "
+        f"{outs.reward.sum(0).mean().item():.4f}, mean last reward "
+        f"{outs.reward[-1].mean().item():.6f}")
+
+    # the kernel path against the eager path over the whole episode at B=8,
+    # in the ns row's band times the products' length factor
+    _, k_outs, _ = run_ns_episode(torch, workload, 8, 1, seed=12, keep_obs=True)
+    eager = ns_wide_setup(torch, device, step_backend="eager")
+    _, e_outs, e_launches = run_ns_episode(torch, eager, 8, 1, seed=12, keep_obs=True)
+    if e_launches != 0:
+        raise AssertionError("ns_wide: the eager path launched the kernel")
+    last = e_outs.obs[-2]  # the last step's obs is the fresh one
+    scale = max(1.0, float(last.abs().max()))
+    factor = ns_length_factor(workload[0]._fused_spec)
+    err = _max_err(f"ns_wide episode, kernel against eager, frame {steps - 1}",
+                   k_outs.obs[-2], last, 0.0, NS_EPISODE_RTOL * factor * scale)
+    err_r = _max_err("ns_wide episode, kernel against eager, rewards", k_outs.reward,
+                     e_outs.reward, 1e-3 * factor, 1e-5)
+    log(f"[ns_wide] kernel path against eager path, B=8, after {steps - 1} steps: "
+        f"max_abs_err frame={err:.3e} (max |frame| {scale:.3e}, band "
+        f"{NS_EPISODE_RTOL * factor * scale:.3e}) rewards={err_r:.3e}")
+    ns_fused.LAUNCHES = ns_fused.WIDE_LAUNCHES = 0
+    return wide
 
 
 # -- phases 10 to 13: neuron growth and brain tumor --------------------------------
@@ -1665,6 +1784,30 @@ PCR_WIDE_KINDS = (("Dirchilet", 0.5, "fast"), ("Neumann", 1.0, "terminal"),
                   ("Neumann", 0.5, "fast"), ("Dirchilet", 1.0, "terminal"))
 
 
+# beta of the PCR cases: every env env 0's (the stock profile, as the
+# episode's; the shared path), every other env's pair mixed, or spread (a
+# per-env part: the per-env path)
+PCR_BETA_KINDS = ("shared", "half", "spread")
+
+
+def pcr_share_beta(beta, kind):
+    """``beta`` (B, n) made ``kind``: "shared" every row env 0's; "half" envs
+    0, 1, 3, 4, 6, ... take env 0's row (whole and mixed pairs of the shared
+    path's two-env groups) and env 4 differs from it in the sign of one zero;
+    "spread" as given."""
+    import torch
+
+    if kind == "shared":
+        beta[:] = beta[0].clone()
+    elif kind == "half":
+        beta[:, 3] = 0.0
+        keep = torch.arange(beta.shape[0], device=beta.device) % 3 != 2
+        beta[keep] = beta[0].clone()
+        if beta.shape[0] > 4:
+            beta[4, 3] = -0.0
+    return beta
+
+
 def pcr_wide_env(torch, device, n, **overrides):
     """The bench row's implicit reaction-diffusion env (theta=0.5, dt=4e-4,
     S=25) on a row of ``n`` points."""
@@ -1685,10 +1828,16 @@ def phase_pcr_wide_kernel(torch, device):
             env = pcr_wide_env(torch, device, n, control_type=ct, theta=theta)[0]
             nt, S = env.config.nt, env.config.sample_rate
             t0 = (0, nt - 1 - S) if kind == "fast" else (nt - 1 - S - 5, nt - 1)
-            label = f"rd implicit wide theta={theta} n={n} {ct} {kind}"
+            # shared beta on the first kind (the episode's: the shared path),
+            # half-shared on the second, spread (the per-env path) on the others
+            beta_kind = PCR_BETA_KINDS[min(PCR_WIDE_KINDS.index((ct, theta, kind)), 2)]
+            label = f"rd implicit wide theta={theta} n={n} {ct} {kind} {beta_kind} beta"
             e, inp = interval_case(torch, label, env, t0, gen, flat_noisy, 1.0,
-                                   beta_spread=5.0, num_envs=B)
+                                   beta_spread=5.0, num_envs=B,
+                                   beta_fn=lambda b, k=beta_kind: pcr_share_beta(b, k))
             err = max(err, e)
+            shared = int(interval1d.shares_env0_factors(inp[2]).sum())
+            log(f"[kernel]   {shared} of {B} envs share env 0's factor rows")
             if n == 2049 and kind == "fast" and ct == "Dirchilet":
                 inputs = inp
         # a batch with NaN and infinite values in u and beta: the plain
@@ -1928,14 +2077,19 @@ def wide_kernel_times(torch, device, pcr_inputs, neuron_inputs, card):
         nt, S = env.config.nt, env.config.sample_rate
         spec, u, beta, ctrl, t0 = _interval_inputs(torch, env, (0, nt - 1 - S), gen,
                                                    flat_noisy, 1.0, 5.0, num_envs=B)
-        call = lambda: interval1d.interval(spec, u, beta, ctrl, t0)  # noqa: E731
-        dev, _ = device_ms(torch, call, "interval_wide_kernel")
-        bound, bound_by, nbytes, flops = interval_bound(spec, *body_operations(spec), B)
-        log(f"[times] one implicit interval on the block-per-env PCR kernel B={B} n={n} "
-            f"S={S}: {dev:.4f} ms on the device (torch.profiler), "
-            f"{cuda_ms(torch, call, calls=5):.4f} ms per call; bound {bound:.5f} ms by "
-            f"{bound_by} ({nbytes} bytes, {flops} operations), share {bound / dev:.3f}; "
-            f"factor rows in {'device' if n > 2100 else 'shared'} memory ({card})")
+        for beta_kind, b in (("shared", pcr_share_beta(beta.clone(), "shared")),
+                             ("spread", beta)):
+            call = lambda b=b: interval1d.interval(spec, u, b, ctrl, t0)  # noqa: E731
+            dev, _ = device_ms(torch, call, "pcr_", per_call=True)
+            bound, bound_by, nbytes, flops = interval_bound(spec, *body_operations(spec), B)
+            path = ("the shared path: env 0's factor rows, eliminated once"
+                    if beta_kind == "shared" else "the per-env path: factor rows in "
+                    f"{'device' if n > 2100 else 'shared'} memory")
+            log(f"[times] one implicit interval on the block-per-env PCR kernel B={B} n={n} "
+                f"S={S}, {beta_kind} beta: {dev:.4f} ms on the device (torch.profiler, its "
+                f"launches together), {cuda_ms(torch, call, calls=5):.4f} ms per call; bound "
+                f"{bound:.5f} ms by {bound_by} ({nbytes} bytes, {flops} operations), share "
+                f"{bound / dev:.3f}; {path} ({card})")
 
     times = {}
     spec, u, Z, L, t, kw = neuron_inputs
@@ -2039,13 +2193,18 @@ def device_rows(torch, fn, name_part=None, repeat=1):
     raise AssertionError(f"torch.profiler recorded no device kernel {name_part or ''}")
 
 
-def device_ms(torch, fn, name_part=None):
+def device_ms(torch, fn, name_part=None, per_call=False):
     """Device time by torch.profiler: of the kernels whose name holds
     ``name_part``, per launch over 10 calls of ``fn()``; or, without a name, of
-    every kernel of one call (the busy time)."""
-    rows = device_rows(torch, fn, name_part, repeat=10 if name_part else 1)
+    every kernel of one call (the busy time). ``per_call``: the time of those
+    kernels (or of all) per call, over 10 calls, for a wrapper that launches
+    several kernels a call."""
+    repeat = 10 if name_part or per_call else 1
+    rows = device_rows(torch, fn, name_part, repeat=repeat)
     total_ms = sum(e.self_device_time_total for e in rows) / 1e3
     count = sum(e.count for e in rows)
+    if per_call:
+        return total_ms / repeat, count
     return (total_ms / count if name_part else total_ms), count
 
 
@@ -2093,6 +2252,17 @@ def body_operations(spec):
     return True, (4 if body.has_eb else 0) + 4 * steps + 1, 8 * steps + 8 + 1
 
 
+def interval_kernel_name(spec):
+    """What the names of an interval's device kernels hold: the warp kernels'
+    "interval_kernel", the wide explicit kernel's "interval_wide_kernel", the
+    wide PCR kernel's "pcr_" (its prologue and its two launches)."""
+    from pdecontrolgym_tpu_torch.ops import interval1d
+
+    if spec.state_dim <= interval1d.MAX_NX:
+        return "interval_kernel"
+    return "pcr_" if spec.body.wide_scratch else "interval_wide_kernel"
+
+
 def interval_kernel_times(torch, device, inputs, card):
     """One interval of each 1D body alone, at its main path's shape."""
     from pdecontrolgym_tpu_torch.ops import interval1d
@@ -2102,8 +2272,7 @@ def interval_kernel_times(torch, device, inputs, card):
     for name, (spec, u, beta, ctrl, t0) in inputs.items():
         call = lambda: interval1d.interval(spec, u, beta, ctrl, t0)  # noqa: E731
         k = cuda_ms(torch, call, calls=20)
-        kernel = "interval_wide_kernel" if u.shape[1] > interval1d.MAX_NX else "interval_kernel"
-        dev, _ = device_ms(torch, call, kernel)
+        dev, _ = device_ms(torch, call, interval_kernel_name(spec), per_call=True)
         p = cuda_ms(torch, lambda: interval1d.interval_plain(spec, u, beta, ctrl, t0))
         bound, bound_by, nbytes, flops = interval_bound(
             spec, *body_operations(spec), u.shape[0])
@@ -2207,15 +2376,17 @@ def ns_kernel_times(torch, device, inputs, card):
     step_ms = {}
     for name, (spec, *tensors) in inputs.items():
         call = lambda: ns_fused.ns_step(spec, *tensors)  # noqa: E731
-        k = cuda_ms(torch, call, calls=20)
-        dev, _ = device_ms(torch, call, "ns_step_kernel")
+        k = cuda_ms(torch, call, calls=5 if spec.wide else 20)
+        # the multi-pass step's kernels together, a call; else the one kernel
+        dev = device_ms(torch, call, None if spec.wide else "ns_step_kernel", per_call=True)[0]
         p = cuda_ms(torch, lambda: ns_fused.ns_step_plain(spec, *tensors))
         bound, bound_by, nbytes, flops = ns_bound(spec, tensors[0].shape[0], True)
         old, old_by, _, _ = ns_bound(spec, tensors[0].shape[0], True, tensor_cores=False)
         step_ms[name] = {"ms": k, "device_ms": dev, "plain_ms": p, "bound_ms": bound,
                          "bound_by": bound_by, "library_ms": None}
-        log(f"[times] one {name} projection step B={tensors[0].shape[0]}: kernel {k:.4f} "
-            f"ms per call (20 back to back), {dev:.4f} ms on the device "
+        log(f"[times] one {name} projection step B={tensors[0].shape[0]}"
+            f"{' (the multi-pass step)' if spec.wide else ''}: kernel {k:.4f} "
+            f"ms per call ({5 if spec.wide else 20} back to back), {dev:.4f} ms on the device "
             f"(torch.profiler); plain {p:.4f} ms; bound {bound:.5f} ms by {bound_by} "
             f"({nbytes} bytes, {flops} operations, the products on the tensor cores), "
             f"share of the bound reached {bound / dev:.3f}; the bound with the products "
@@ -2234,35 +2405,37 @@ def ns_kernel_times(torch, device, inputs, card):
     mm = cuda_ms(torch, four_products)
     log(f"[times] the four torch.matmul products of the plain spectral solve alone, "
         f"B={u.shape[0]} 64x64, float32 without TF32: {mm:.4f} ms ({card})")
-    ns_fused.LAUNCHES = 0  # timing launches do not count
+    ns_fused.LAUNCHES = ns_fused.WIDE_LAUNCHES = 0  # timing launches do not count
     return step_ms
 
 
 def ns_episode_times(torch, device, card):
-    """The ``ns_fast`` episode on the kernel path, with a trace of its first
-    100 steps and the breakdown by kernel."""
+    """The ``ns_fast`` and ``ns_wide`` episodes on the kernel path, with a
+    trace of their first steps and the breakdown by kernel."""
     from pdecontrolgym_tpu_torch.ops import ns_fused
 
-    workload = ns_setup(torch, device)
-    env_steps = NUM_ENVS * workload[2]
-    episode = lambda: run_ns_episode(torch, workload, NUM_ENVS, 1, seed=3)  # noqa: E731
-    ms = cuda_ms(torch, episode)
-    # the trace covers the first 100 steps of the same loop, to keep it short
-    # (see device_rows)
-    window = lambda: run_ns_episode(  # noqa: E731
-        torch, workload, NUM_ENVS, 1, seed=3, num_steps=100)
-    window_ms = cuda_ms(torch, window, runs=1)
-    rows = sorted(device_rows(torch, window), key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    log(f"[times] ns 64x64 full episode (kernel path): {ms:.3f} ms, "
-        f"{env_steps / (ms / 1e3):.0f} env-steps/s at {NUM_ENVS} envs; over 100 steps of "
-        f"it: {window_ms:.3f} ms, device busy {busy_ms:.3f} ms in "
-        f"{sum(e.count for e in rows)} kernels (torch.profiler), "
-        f"idle share {1 - busy_ms / window_ms:.3f} ({card})")
-    for e in rows[:5]:
-        log(f"[times]   {e.self_device_time_total / 1e3:9.3f} ms in {e.count:5d} launches "
-            f"of {e.key[:70]}")
-    ns_fused.LAUNCHES = 0  # timing launches do not count
+    for name, workload, envs, traced in (
+            ("ns 64x64", ns_setup(torch, device), NUM_ENVS, 100),
+            ("ns_wide 256x256", ns_wide_setup(torch, device), NS_WIDE_ENVS, 20)):
+        env_steps = envs * workload[2]
+        episode = lambda: run_ns_episode(torch, workload, envs, 1, seed=3)  # noqa: E731
+        ms = cuda_ms(torch, episode)
+        # the trace covers the first steps of the same loop, to keep it short
+        # (see device_rows)
+        window = lambda: run_ns_episode(  # noqa: E731
+            torch, workload, envs, 1, seed=3, num_steps=traced)
+        window_ms = cuda_ms(torch, window, runs=1)
+        rows = sorted(device_rows(torch, window), key=lambda e: -e.self_device_time_total)
+        busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+        log(f"[times] {name} full episode (kernel path): {ms:.3f} ms, "
+            f"{env_steps / (ms / 1e3):.0f} env-steps/s at {envs} envs; over {traced} steps "
+            f"of it: {window_ms:.3f} ms, device busy {busy_ms:.3f} ms in "
+            f"{sum(e.count for e in rows)} kernels (torch.profiler), "
+            f"idle share {1 - busy_ms / window_ms:.3f} ({card})")
+        for e in rows[:8 if envs == NS_WIDE_ENVS else 5]:
+            log(f"[times]   {e.self_device_time_total / 1e3:9.3f} ms in {e.count:5d} launches "
+                f"of {e.key[:70]}")
+    ns_fused.LAUNCHES = ns_fused.WIDE_LAUNCHES = 0  # timing launches do not count
 
 
 def ns_eager_times(torch, device, card):
@@ -2301,7 +2474,8 @@ B7_WIDE_ROWS = (("b7_wide_601", NUM_ENVS, 601, False), ("b7_wide_1201", NUM_ENVS
                 ("b7_wide_12001_spread", 1024, 12001, True))
 
 
-def _compared_row(torch, has_kernel, kernel, plain, kernel_name, runs, calls):
+def _compared_row(torch, has_kernel, kernel, plain, kernel_name, runs, calls,
+                  per_call=False):
     """One row of :func:`time_kernels` on a kernel that a compared root may
     predate. Whether the root has it is read from its module's reach constant,
     never from an error: a root that has the kernel times its wrapper, and any
@@ -2313,8 +2487,8 @@ def _compared_row(torch, has_kernel, kernel, plain, kernel_name, runs, calls):
                 "path": "plain"}
     err = float((kernel()[0] - plain()[0]).abs().max())
     return {"ms": cuda_ms(torch, kernel, runs=runs, calls=calls),
-            "device_ms": device_ms(torch, kernel, kernel_name)[0], "max_abs_err": err,
-            "path": "kernel"}
+            "device_ms": device_ms(torch, kernel, kernel_name, per_call)[0],
+            "max_abs_err": err, "path": "kernel"}
 
 
 def time_kernels(torch, device):
@@ -2334,9 +2508,14 @@ def time_kernels(torch, device):
     on phase_brain_kernel's first case. The wide kernel on inviscid Burgers
     rows: "wide_4096" (4096 envs x 4096 points, the burgers_wide row) and
     "wide_16384" (1024 x 16384); the block-per-env PCR kernel's rows
-    "b5_wide_513", "b5_wide_2049" (the rd_implicit_wide row), "b5_wide_4097"
-    (4096 envs each, S=25, theta=0.5) and "b5_wide_8192" (1024 envs); the
-    block-per-env K-step kernel's B7_WIDE_ROWS (K=100, the reward's window).
+    "b5_wide_513", "b5_wide_1025", "b5_wide_2049", "b5_wide_4097" (4096
+    envs each, S=25, theta=0.5) and "b5_wide_8192" (1024 envs) on spread beta
+    (the per-env path), and each with "_shared" on every env's beta env 0's
+    (the rd_implicit_wide episode's case: the shared path), device time a
+    call of its launches together; "b6w_256" and "b6w_1024" the multi-pass
+    projection step at 1024 x 256x256 and 16 x 1024x1024 (all its kernels a
+    call); the block-per-env K-step kernel's B7_WIDE_ROWS (K=100, the
+    reward's window).
     A package that predates one of these kernels times the plain version
     there, with "path": "plain" (:func:`_compared_row`).
     Returns {name: {"ms", "device_ms", "max_abs_err"}}: ms per call of 20
@@ -2378,15 +2557,17 @@ def time_kernels(torch, device):
             torch, hasattr(interval1d, "MAX_NX_WIDE"), lambda a=args: interval1d.interval(*a),
             lambda a=args: interval1d.interval_plain(*a), "interval_wide_kernel", 5, 20)
     for B, n in PCR_WIDE_CASES:
-        if n == 1025:
-            continue
         env = pcr_wide_env(torch, device, n)[0]
         nt, S = env.config.nt, env.config.sample_rate
-        args = _interval_inputs(torch, env, (0, nt - 1 - S), gen, flat_noisy, 1.0, 5.0,
-                                num_envs=B)
-        out[f"b5_wide_{n}"] = _compared_row(
-            torch, hasattr(interval1d, "MAX_NX_PCR"), lambda a=args: interval1d.interval(*a),
-            lambda a=args: interval1d.interval_plain(*a), "interval_wide_kernel", 3, 5)
+        spec, u, beta, ctrl, t0 = _interval_inputs(torch, env, (0, nt - 1 - S), gen,
+                                                   flat_noisy, 1.0, 5.0, num_envs=B)
+        # spread beta (a per-env part), then every env env 0's (the episode's)
+        for suffix, b in (("", beta), ("_shared", pcr_share_beta(beta.clone(), "shared"))):
+            args = (spec, u, b, ctrl, t0)
+            out[f"b5_wide_{n}{suffix}"] = _compared_row(
+                torch, hasattr(interval1d, "MAX_NX_PCR"),
+                lambda a=args: interval1d.interval(*a),
+                lambda a=args: interval1d.interval_plain(*a), "pcr_", 3, 5, per_call=True)
     for name, B, M, spread in B7_WIDE_ROWS:
         env = neuron_setup(torch, device, **neuron_wide_fields(M))[0]
         state = (neuron_state(torch, env, B, int(env.init_batch(1)[0].L[0]), seed=M)
@@ -2409,6 +2590,15 @@ def time_kernels(torch, device):
         out[name] = {"ms": cuda_ms(torch, call, runs=5, calls=20),
                      "device_ms": device_ms(torch, call, "ns_step_kernel")[0],
                      "max_abs_err": err}
+    # the multi-pass step past 128 x 128 (B6w): the ns_wide row and the reach
+    for name, n, B in (("b6w_256", 256, NS_WIDE_ENVS), ("b6w_1024", 1024, 16)):
+        spec = _ns_wide_spec(n, n)
+        tensors = _ns_inputs(torch, spec, B, gen, device, track=True, level=5.0)
+        out[name] = _compared_row(
+            torch, hasattr(ns_fused, "MAX_N_WIDE"),
+            lambda s=spec, t=tensors: ns_fused.ns_step(s, *t),
+            lambda s=spec, t=tensors: ns_fused.ns_step_plain(s, *t), None, 3, 5,
+            per_call=True)
     env = neuron_setup(torch, device)[0]
     init, _ = env.init_batch(NUM_ENVS)
     for name, state in (("b7", neuron_state(torch, env, NUM_ENVS, 10, seed=10)),
@@ -2707,8 +2897,9 @@ def main():
     wide_launches = phase_burgers_wide(torch, device)
     explicit_launches, implicit_launches = phase_rd(torch, device)
     pcr_wide_launches = phase_rd_wide(torch, device)
-    ns_err, ns_inputs = phase_ns_kernel(torch, device)
+    ns_err, ns_wide_err, ns_inputs = phase_ns_kernel(torch, device)
     ns_launches = phase_ns(torch, device)
+    ns_wide_launches = phase_ns_wide(torch, device)
     neuron_err, neuron_inputs = phase_neuron_kernel(torch, device)
     neuron_wide_err, neuron_wide_inputs = phase_neuron_wide_kernel(torch, device)
     brain_err, brain_inputs = phase_brain_kernel(torch, device)
@@ -2763,6 +2954,10 @@ def main():
         {"name": "ns_step", "route": "cuda", "source": f"{PKG}/csrc/ns_fused.cu",
          "replaces": "pdecontrolgym_tpu/ops/ns_fused.py:743",
          "launches": ns_launches, "max_abs_err": ns_err, **ns_ms["ns 64x64"]})
+    kernels.append(
+        {"name": "ns_step_wide", "route": "cuda", "source": f"{PKG}/csrc/ns_fused.cu",
+         "replaces": "pdecontrolgym_tpu/ops/ns_fused.py:743",
+         "launches": ns_wide_launches, "max_abs_err": ns_wide_err, **ns_ms["ns 256x256"]})
     kernels.append(
         {"name": "neuron_interval", "route": "cuda",
          "source": f"{PKG}/csrc/neuron_interval.cu",

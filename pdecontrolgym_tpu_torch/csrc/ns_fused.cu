@@ -13,7 +13,7 @@
 // products each at "highest") they take less than the bytes, and the stencil
 // passes' float32 operations less still, so the bytes bind.
 //
-// Design. One block per env. Shared memory holds two work fields and one or
+// Design (grids up to 128 x 128). One block per env. Shared memory holds two work fields and one or
 // two bases, each np x np with np = max(ny, nx) rounded up to 32, all padding
 // zero, so the products run on whole tiles without bounds checks whatever ny
 // and nx are. u* and v* are staged through the output tensors: the block that
@@ -61,6 +61,23 @@
 // predictor, the divergence and the corrector read and write u, v, u*, v*, p
 // and the targets 16 bytes at a time (four cells of a row a thread); otherwise
 // one cell at a time.
+//
+// Grids past 128 x 128 (to 1024 x 1024, the reach of the TPU kernel counted
+// in ops/ns_fused.py, MAX_N_WIDE). Two work fields of 256 x 264 floats already
+// exceed a block's shared memory, so the step runs as a sequence of kernels
+// through device memory (wide_step): the predictor (and the four edge passes,
+// one block an env, where an edge is Neumann), G into an (np, np) scratch
+// matrix an env, the four products, the corrector with the mirror ring and
+// the tracking sum's partial sums a block, summed in a fixed order by one warp
+// an env. The stencil passes are the one-block kernel's functions over a grid
+// of blocks an env (np rounded up to 64 here). Each product is a batched tiled
+// product on the tensor cores (wide_product): a block takes a 64 x 64 output
+// tile of one env, its K dimension staged 32 deep through two shared buffers
+// by cp.async, its warps taking the same mma.sync sequence, and so the same
+// precisions, as the one-block kernel; "* inv" is the second product's
+// epilogue. What bounds it at 1024 envs of 256 x 256: the three TF32 products
+// of each of the four (0.83 ms at 495 TFLOP/s) over the bytes (0.40 ms);
+// the scratch adds two reads and two writes of an (np, np) matrix a product.
 //
 // Points where the TPU kernel could go wrong, and what this one does:
 // 1. Boundary writes: above.
@@ -110,6 +127,7 @@ struct Params {
   int neumann;   // any edge of u or v is Neumann
   int prefetch;  // two basis buffers
   int vec4;      // nx % 4 == 0 and every field 16-byte aligned
+  int prec;      // spectral_precision
   // 0.5/dx, 0.5/dy, 1/(dx*dy), dt, viscosity, -dx*dy*rho/dt, dt/rho
   float chdx, chdy, cinv, dt, nu, cg, ccorr;
 };
@@ -231,6 +249,115 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uin
   lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
 }
 
+// acc[mt][j] += A * B over k = 0 .. K-1 for a warp's output tile of MT x 16
+// rows and 32 columns (four m16n8 tiles a row of 16): A points at the tile's
+// first row, row-major [m][k] with row stride lda; B at its first column,
+// [k][n] with row stride ldb. The k loop of `product` below, over MT tiles
+// that share each B fragment (the multi-pass step's products; `product`
+// keeps its own copy, which the one-block kernel's 80 registers hold without
+// spilling).
+template <int PREC, int MT>
+__device__ __forceinline__ void accumulate(float (&acc)[MT][4][4], const float* A, int lda,
+                                           const float* B, int ldb, int K) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  if (PREC == kHighest) {
+#pragma unroll 2
+    for (int k0 = 0; k0 < K; k0 += 8) {
+      uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const float* a_lo_row = A + (16 * mt + g) * lda;  // rows g and g + 8
+        const float* a_hi_row = a_lo_row + 8 * lda;
+        split_tf32(a_lo_row[k0 + t], ah[mt][0], al[mt][0]);
+        split_tf32(a_hi_row[k0 + t], ah[mt][1], al[mt][1]);
+        split_tf32(a_lo_row[k0 + t + 4], ah[mt][2], al[mt][2]);
+        split_tf32(a_hi_row[k0 + t + 4], ah[mt][3], al[mt][3]);
+      }
+      const float* b0 = B + (k0 + t) * ldb + g;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t bh[2], bl[2];
+        split_tf32(b0[8 * j], bh[0], bl[0]);
+        split_tf32(b0[4 * ldb + 8 * j], bh[1], bl[1]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_tf32(acc[mt][j], al[mt], bh);
+          mma_tf32(acc[mt][j], ah[mt], bl);
+          mma_tf32(acc[mt][j], ah[mt], bh);
+        }
+      }
+    }
+  } else {
+    for (int k0 = 0; k0 < K; k0 += 16) {
+      uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const float* a_lo_row = A + (16 * mt + g) * lda;
+        const float* a_hi_row = a_lo_row + 8 * lda;
+        const float2 x0 = *reinterpret_cast<const float2*>(a_lo_row + k0 + 2 * t);
+        const float2 x1 = *reinterpret_cast<const float2*>(a_hi_row + k0 + 2 * t);
+        const float2 x2 = *reinterpret_cast<const float2*>(a_lo_row + k0 + 2 * t + 8);
+        const float2 x3 = *reinterpret_cast<const float2*>(a_hi_row + k0 + 2 * t + 8);
+        if (PREC == kDefault) {
+          ah[mt][0] = pack_bf16(x0.x, x0.y); ah[mt][1] = pack_bf16(x1.x, x1.y);
+          ah[mt][2] = pack_bf16(x2.x, x2.y); ah[mt][3] = pack_bf16(x3.x, x3.y);
+        } else {
+          split_bf16(x0.x, x0.y, ah[mt][0], al[mt][0]);
+          split_bf16(x1.x, x1.y, ah[mt][1], al[mt][1]);
+          split_bf16(x2.x, x2.y, ah[mt][2], al[mt][2]);
+          split_bf16(x3.x, x3.y, ah[mt][3], al[mt][3]);
+        }
+      }
+      const float* b0 = B + (k0 + 2 * t) * ldb + g;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float* bj = b0 + 8 * j;
+        uint32_t bh[2], bl[2];
+        if (PREC == kDefault) {
+          bh[0] = pack_bf16(bj[0], bj[ldb]);
+          bh[1] = pack_bf16(bj[8 * ldb], bj[9 * ldb]);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][j], ah[mt], bh);
+        } else {
+          split_bf16(bj[0], bj[ldb], bh[0], bl[0]);
+          split_bf16(bj[8 * ldb], bj[9 * ldb], bh[1], bl[1]);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(acc[mt][j], al[mt], bh);
+            mma_bf16(acc[mt][j], ah[mt], bl);
+            mma_bf16(acc[mt][j], ah[mt], bh);
+          }
+        }
+      }
+    }
+  }
+}
+
+// Stores the warp's 16 x 32 tile acc at (m0, n0) of C (row stride ldc), times
+// inv (row stride ldi) elementwise where inv is given. c0, c1 lie at
+// (m0 + g, col), (m0 + g, col + 1); c2, c3 eight rows down.
+__device__ __forceinline__ void store_tile(const float (&acc)[4][4], float* C, int ldc,
+                                           const float* inv, int ldi, int m0, int n0) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = n0 + 8 * j + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + g + 8 * h;
+      float2 c = make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+      if (inv != nullptr) {
+        const float2 s = __ldg(reinterpret_cast<const float2*>(inv + row * ldi + col));
+        c.x = c.x * s.x;
+        c.y = c.y * s.y;
+      }
+      *reinterpret_cast<float2*>(C + row * ldc + col) = c;
+    }
+  }
+}
+
 // C = A * B (then * inv, elementwise, where inv is given): A row-major [m][k]
 // with row stride lda, B [k][n] with row stride ldb, C row-major with row
 // stride ldc, all np x np. Warp w takes the 16 x 32 output tiles w, w + nwarps,
@@ -334,10 +461,10 @@ __device__ __forceinline__ float predictor_cell(int y, int x, int fld, float f, 
   return p.neumann ? f : ring_value(y, x, fld, act, p);
 }
 
+// Threads tid = 0 .. nthr - 1 of the env share the stencil passes' cells.
 __device__ void predictor(const float* u, const float* v, float* us, float* vs, float act,
-                          const Params& p) {
+                          const Params& p, int tid, int nthr) {
   const int ny = p.ny, nx = p.nx, cells = ny * nx;
-  const int tid = threadIdx.x, nthr = blockDim.x;
   if (p.vec4) {
     // four cells of a row a thread: 16-byte loads of the row and the rows
     // above and below, one word each from the neighbouring groups
@@ -410,9 +537,8 @@ __device__ __forceinline__ float corrector_cell(int y, int x, const float* P, in
 // The corrector over u*, v* in place into u', v', and p; with no Neumann edge
 // it also returns this thread's part of the tracking sum (else 0)
 __device__ float corrector(float* us, float* vs, float* p_out, const float* P, int ld,
-                           float act, bool track, const Params& p) {
+                           float act, bool track, const Params& p, int tid, int nthr) {
   const int ny = p.ny, nx = p.nx, cells = ny * nx;
-  const int tid = threadIdx.x, nthr = blockDim.x;
   const bool fuse = track && !p.neumann;
   float s = 0.f;
   if (p.vec4) {
@@ -460,9 +586,8 @@ __device__ float corrector(float* us, float* vs, float* p_out, const float* P, i
 // padding, into G [y][x] with row stride ld: the right operand of the first
 // product. u* and v* are read back from the outputs (L2).
 __device__ void divergence(const float* us, const float* vs, float* G, int ld,
-                           const Params& p) {
+                           const Params& p, int tid, int nthr) {
   const int ny = p.ny, nx = p.nx, np = p.np;
-  const int tid = threadIdx.x, nthr = blockDim.x;
   if (p.vec4) {
     // four cells of a row a thread; nx % 4 == 0, so a group lies inside the
     // grid or wholly in the padding
@@ -530,11 +655,11 @@ ns_step_kernel(const Params p) {
 
   // the first product's basis loads while the predictor runs
   load_basis(bases[0], consts + kQyT * csize, np, lda);
-  predictor(p.u + off, p.v + off, us, vs, act, p);
+  predictor(p.u + off, p.v + off, us, vs, act, p, tid, blockDim.x);
   __syncthreads();
   if (p.neumann) apply_bc(us, vs, p, act);
 
-  divergence(us, vs, f0, ldb, p);
+  divergence(us, vs, f0, ldb, p, tid, blockDim.x);
 
   // the four products, each with its basis in its role:
   //   T1[ky][x] = sum_y QyT[ky][y] G[y][x]             f0 -> f1 (left operand)
@@ -565,7 +690,7 @@ ns_step_kernel(const Params p) {
 
   // p with its mirror ring, and the corrector
   const bool track = p.tsum != nullptr;  // uniform across the block
-  float s = corrector(us, vs, p.p_out + off, f0, ldb, act, track, p);
+  float s = corrector(us, vs, p.p_out + off, f0, ldb, act, track, p, tid, blockDim.x);
   if (p.neumann) {
     __syncthreads();
     apply_bc(us, vs, p, act);
@@ -607,6 +732,262 @@ cudaError_t launch(const Params& p, int threads, size_t bytes, cudaStream_t s) {
                        : launch_as<PREC, false>(p, threads, bytes, s);
 }
 
+// -- grids past 128 x 128: the step in passes through device memory ----------------
+
+constexpr int kWideThreads = 256;  // the stencil passes' blocks
+constexpr int kTile = 64;          // a product block's output tile is kTile x kTile
+constexpr int kTileK = 32;         // ... taken kTileK deep a stage
+constexpr int kLdA = kTileK + 4;   // the staged tiles' row strides: conflict-free
+constexpr int kLdB = kTile + 8;    // fragment loads, as in the one-block kernel
+
+// The blocks of one env in a stencil pass: one thread for each 4 cells of the
+// padded square. Env = blockIdx.x, its part = blockIdx.y.
+inline int wide_parts(int np) { return (np * np / 4 + kWideThreads - 1) / kWideThreads; }
+
+__global__ void __launch_bounds__(kWideThreads) wide_predict(const Params p) {
+  const int env = blockIdx.x;
+  const size_t off = static_cast<size_t>(env) * p.ny * p.nx;
+  predictor(p.u + off, p.v + off, p.u_out + off, p.v_out + off, p.act[env], p,
+            blockIdx.y * blockDim.x + threadIdx.x, gridDim.y * blockDim.x);
+}
+
+// The reference's four edge passes on u* and v* (or u' and v'), one block an env.
+__global__ void __launch_bounds__(kWideThreads) wide_boundary(const Params p) {
+  const int env = blockIdx.x;
+  const size_t off = static_cast<size_t>(env) * p.ny * p.nx;
+  apply_bc(p.u_out + off, p.v_out + off, p, p.act[env]);
+}
+
+// G into the env's (np, np) scratch matrix, zero on the ring and the padding.
+__global__ void __launch_bounds__(kWideThreads) wide_divergence(const Params p, float* G) {
+  const int env = blockIdx.x;
+  const size_t off = static_cast<size_t>(env) * p.ny * p.nx;
+  divergence(p.u_out + off, p.v_out + off, G + static_cast<size_t>(env) * p.np * p.np,
+             p.np, p, blockIdx.y * blockDim.x + threadIdx.x, gridDim.y * blockDim.x);
+}
+
+// This block's part of the env's tracking sum into partial[env][part]
+__device__ __forceinline__ void block_partial(float s, float* partial) {
+  __shared__ float warps[kWideThreads / 32];
+  s = warp_sum(s);
+  if ((threadIdx.x & 31) == 0) warps[threadIdx.x >> 5] = s;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float t = 0.f;
+    for (int w = 0; w < kWideThreads / 32; ++w) t = t + warps[w];
+    partial[static_cast<size_t>(blockIdx.x) * gridDim.y + blockIdx.y] = t;
+  }
+}
+
+// The corrector from P (the env's (np, np) scratch matrix), p with its mirror
+// ring; with no Neumann edge, this block's part of the tracking sum.
+__global__ void __launch_bounds__(kWideThreads) wide_correct(const Params p, const float* P,
+                                                             float* partial) {
+  const int env = blockIdx.x;
+  const size_t off = static_cast<size_t>(env) * p.ny * p.nx;
+  const bool track = partial != nullptr;
+  const float s = corrector(p.u_out + off, p.v_out + off, p.p_out + off,
+                            P + static_cast<size_t>(env) * p.np * p.np, p.np, p.act[env],
+                            track, p, blockIdx.y * blockDim.x + threadIdx.x,
+                            gridDim.y * blockDim.x);
+  if (track && !p.neumann) block_partial(s, partial);
+}
+
+// This block's part of the tracking sum of u', v' (after a Neumann edge's passes).
+__global__ void __launch_bounds__(kWideThreads) wide_track(const Params p, float* partial) {
+  const int env = blockIdx.x;
+  const size_t off = static_cast<size_t>(env) * p.ny * p.nx;
+  const int cells = p.ny * p.nx;
+  float s = 0.f;
+  for (int idx = blockIdx.y * blockDim.x + threadIdx.x; idx < cells;
+       idx += gridDim.y * blockDim.x) {
+    const float du = p.u_out[off + idx] - __ldg(p.uref + idx);
+    const float dv = p.v_out[off + idx] - __ldg(p.vref + idx);
+    s = s + (du * du + dv * dv);
+  }
+  block_partial(s, partial);
+}
+
+// tsum[env] = the env's `parts` partial sums, one warp an env, in a fixed order.
+__global__ void __launch_bounds__(kWideThreads) wide_sum(const float* partial, int parts,
+                                                         int B, float* tsum) {
+  const int env = blockIdx.x * (kWideThreads / 32) + (threadIdx.x >> 5);
+  if (env >= B) return;
+  const int lane = threadIdx.x & 31;
+  float s = 0.f;
+  for (int i = lane; i < parts; i += 32) s = s + partial[static_cast<size_t>(env) * parts + i];
+  s = warp_sum(s);
+  if (lane == 0) tsum[env] = s;
+}
+
+// One of the four products for every env: C = A * B (then * inv), all
+// (np, np) row-major; A or B is a basis shared by the batch (its env stride
+// 0). A block takes one kTile x kTile output tile of one env, its four warps a
+// 32 x 32 quarter each (two rows of the one-block kernel's 16 x 32 warp tiles,
+// which share each B fragment). The K dimension is staged kTileK deep through
+// two shared-memory buffers filled by cp.async, the next stage loading while
+// the tensor cores take this one.
+struct GemmArgs {
+  const float* A;
+  const float* B;
+  float* C;
+  const float* inv;
+  size_t a_env, b_env;  // env strides in floats: np * np, or 0 for a basis
+  int np;
+};
+
+template <int PREC>
+__global__ void __launch_bounds__(128) wide_product(const GemmArgs g) {
+  __shared__ __align__(16) float As[2][kTile * kLdA];
+  __shared__ __align__(16) float Bs[2][kTileK * kLdB];
+  const int np = g.np, tiles = np / kTile;
+  const int env = blockIdx.x / (tiles * tiles);
+  const int tile = blockIdx.x - env * tiles * tiles;
+  const int m0 = kTile * (tile / tiles), n0 = kTile * (tile - (tile / tiles) * tiles);
+  const float* A = g.A + env * g.a_env + static_cast<size_t>(m0) * np;
+  const float* B = g.B + env * g.b_env + n0;
+  const int tid = threadIdx.x;
+
+  auto stage = [&](int kt) {
+    float* as = As[kt & 1];
+    float* bs = Bs[kt & 1];
+    const int k0 = kt * kTileK;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // kTile rows x kTileK / 4 chunks of A
+      const int c = tid + 128 * i, r = c >> 3, q = c & 7;
+      cp_async16(as + r * kLdA + 4 * q, A + static_cast<size_t>(r) * np + k0 + 4 * q);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // kTileK rows x kTile / 4 chunks of B
+      const int c = tid + 128 * i, r = c >> 4, q = c & 15;
+      cp_async16(bs + r * kLdB + 4 * q, B + static_cast<size_t>(k0 + r) * np + 4 * q);
+    }
+    cp_async_commit();
+  };
+
+  const int warp = tid >> 5, wm = 32 * (warp >> 1), wn = 32 * (warp & 1);
+  float acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][j][i] = 0.f;
+
+  const int nk = np / kTileK;
+  stage(0);
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kt + 1 < nk) {
+      stage(kt + 1);  // into the buffer every warp finished with last iteration
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      cp_async_wait_all();
+    }
+    __syncthreads();
+    accumulate<PREC, 2>(acc, As[kt & 1] + wm * kLdA, kLdA, Bs[kt & 1] + wn, kLdB, kTileK);
+    __syncthreads();
+  }
+  float* C = g.C + static_cast<size_t>(env) * np * np;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+    store_tile(acc[mt], C, np, g.inv, np, m0 + wm + 16 * mt, n0 + wn);
+}
+
+// The four products: T1 = Qy^T G, T = (T1 Qx) * inv, E = T Qx^T, P = Qy E,
+// between the two scratch matrices of every env (G in s0, P back in s0).
+template <int PREC>
+cudaError_t wide_products(const Params& p, float* s0, float* s1, cudaStream_t st) {
+  const size_t env = static_cast<size_t>(p.np) * p.np, csize = env;
+  const int tiles = p.np / kTile;
+  const unsigned blocks = static_cast<unsigned>(p.B) * tiles * tiles;
+  const GemmArgs steps[4] = {
+      {p.consts + kQyT * csize, s0, s1, nullptr, 0, env, p.np},
+      {s1, p.consts + kQx * csize, s0, p.consts + kInv * csize, env, 0, p.np},
+      {s0, p.consts + kQxT * csize, s1, nullptr, env, 0, p.np},
+      {p.consts + kQy * csize, s1, s0, nullptr, 0, env, p.np},
+  };
+  for (const GemmArgs& g : steps) {
+    wide_product<PREC><<<blocks, 128, 0, st>>>(g);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// The whole step past 128 x 128: predictor (and the edge passes where an edge
+// is Neumann), G, the four products, the corrector (edge passes), the
+// tracking sum. scratch: 2 B np^2 floats, then B wide_parts(np) partial sums.
+cudaError_t wide_step(const Params& p, float* scratch, cudaStream_t st) {
+  const size_t mats = static_cast<size_t>(p.B) * p.np * p.np;
+  float* s0 = scratch;
+  float* s1 = scratch + mats;
+  const bool track = p.tsum != nullptr;
+  float* partial = track ? scratch + 2 * mats : nullptr;
+  const int parts = wide_parts(p.np);
+  const dim3 grid(p.B, parts);
+  cudaError_t err;
+#define PDECG_CHECK(...)                \
+  do {                                  \
+    __VA_ARGS__;                        \
+    err = cudaGetLastError();           \
+    if (err != cudaSuccess) return err; \
+  } while (0)
+  PDECG_CHECK(wide_predict<<<grid, kWideThreads, 0, st>>>(p));
+  if (p.neumann) PDECG_CHECK(wide_boundary<<<p.B, kWideThreads, 0, st>>>(p));
+  PDECG_CHECK(wide_divergence<<<grid, kWideThreads, 0, st>>>(p, s0));
+  switch (p.prec) {
+    case kHighest: err = wide_products<kHighest>(p, s0, s1, st); break;
+    case kHigh: err = wide_products<kHigh>(p, s0, s1, st); break;
+    default: err = wide_products<kDefault>(p, s0, s1, st); break;
+  }
+  if (err != cudaSuccess) return err;
+  PDECG_CHECK(wide_correct<<<grid, kWideThreads, 0, st>>>(p, s0, partial));
+  if (p.neumann) {
+    PDECG_CHECK(wide_boundary<<<p.B, kWideThreads, 0, st>>>(p));
+    if (track) PDECG_CHECK(wide_track<<<grid, kWideThreads, 0, st>>>(p, partial));
+  }
+  if (track) {
+    const int per_block = kWideThreads / 32;
+    PDECG_CHECK(wide_sum<<<(p.B + per_block - 1) / per_block, kWideThreads, 0, st>>>(
+        partial, parts, p.B, p.tsum));
+  }
+#undef PDECG_CHECK
+  return cudaSuccess;
+}
+
+// Fills p from a launch's arguments; cudaErrorInvalidValue for what the
+// kernels do not take.
+cudaError_t make_params(Params& p, const float* u, const float* v, const float* act,
+                        const float* consts, const float* uref, const float* vref,
+                        float* u_out, float* v_out, float* p_out, float* tsum, int B,
+                        int ny, int nx, int np, int prec, const int* bc, float chdx,
+                        float chdy, float cinv, float dt, float nu, float cg, float ccorr) {
+  const bool track = tsum != nullptr;
+  if (ny < 3 || nx < 3 || B < 0 || prec < kHighest || prec > kDefault ||
+      track != (uref != nullptr) || track != (vref != nullptr))
+    return cudaErrorInvalidValue;
+  p.u = u; p.v = v; p.act = act; p.consts = consts; p.uref = uref; p.vref = vref;
+  p.u_out = u_out; p.v_out = v_out; p.p_out = p_out; p.tsum = tsum;
+  p.B = B; p.ny = ny; p.nx = nx; p.np = np; p.prec = prec;
+  p.neumann = 0;
+  for (int i = 0; i < 8; ++i) {
+    if (bc[i] < kDirichlet || bc[i] > kNeumann) return cudaErrorInvalidValue;
+    p.bc[i / 4][i % 4] = bc[i];
+    if (bc[i] == kNeumann) p.neumann = 1;
+  }
+  // every env's field starts at a multiple of nx cells, so with nx % 4 == 0
+  // four cells of a row are 16-byte aligned where the base pointers are
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(u) | reinterpret_cast<uintptr_t>(v) |
+                         reinterpret_cast<uintptr_t>(uref) | reinterpret_cast<uintptr_t>(vref) |
+                         reinterpret_cast<uintptr_t>(u_out) |
+                         reinterpret_cast<uintptr_t>(v_out) | reinterpret_cast<uintptr_t>(p_out);
+  p.vec4 = nx % 4 == 0 && addr % 16 == 0;
+  p.chdx = chdx; p.chdy = chdy; p.cinv = cinv; p.dt = dt; p.nu = nu; p.cg = cg;
+  p.ccorr = ccorr;
+  p.prefetch = 0;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -623,30 +1004,11 @@ int ns_fused_launch(const float* u, const float* v, const float* act,
                     float chdx, float chdy, float cinv, float dt, float nu, float cg,
                     float ccorr, int device, void* stream) {
   const int big = ny > nx ? ny : nx;
-  const bool track = tsum != nullptr;
-  if (ny < 3 || nx < 3 || B < 0 || np != ((big + 31) / 32) * 32 || prec < kHighest ||
-      prec > kDefault || track != (uref != nullptr) || track != (vref != nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
   Params p;
-  p.u = u; p.v = v; p.act = act; p.consts = consts; p.uref = uref; p.vref = vref;
-  p.u_out = u_out; p.v_out = v_out; p.p_out = p_out; p.tsum = tsum;
-  p.B = B; p.ny = ny; p.nx = nx; p.np = np;
-  p.neumann = 0;
-  for (int i = 0; i < 8; ++i) {
-    if (bc[i] < kDirichlet || bc[i] > kNeumann)
-      return static_cast<int>(cudaErrorInvalidValue);
-    p.bc[i / 4][i % 4] = bc[i];
-    if (bc[i] == kNeumann) p.neumann = 1;
-  }
-  // every env's field starts at a multiple of nx cells, so with nx % 4 == 0
-  // four cells of a row are 16-byte aligned where the base pointers are
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(u) | reinterpret_cast<uintptr_t>(v) |
-                         reinterpret_cast<uintptr_t>(uref) | reinterpret_cast<uintptr_t>(vref) |
-                         reinterpret_cast<uintptr_t>(u_out) |
-                         reinterpret_cast<uintptr_t>(v_out) | reinterpret_cast<uintptr_t>(p_out);
-  p.vec4 = nx % 4 == 0 && addr % 16 == 0;
-  p.chdx = chdx; p.chdy = chdy; p.cinv = cinv; p.dt = dt; p.nu = nu; p.cg = cg;
-  p.ccorr = ccorr;
+  cudaError_t err = make_params(p, u, v, act, consts, uref, vref, u_out, v_out, p_out, tsum,
+                                B, ny, nx, np, prec, bc, chdx, chdy, cinv, dt, nu, cg, ccorr);
+  if (err != cudaSuccess || np != ((big + 31) / 32) * 32)
+    return static_cast<int>(cudaErrorInvalidValue);
   // one thread for each 16 cells of the padded square, at most 512; two basis
   // buffers where four fields fit a block's shared memory
   const size_t field = static_cast<size_t>(np) * (np + 8) * sizeof(float);
@@ -656,7 +1018,7 @@ int ns_fused_launch(const float* u, const float* v, const float* act,
   if (threads > kMaxThreads) threads = kMaxThreads;
   if (bytes > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  cudaError_t err = cudaSetDevice(device);
+  err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (prec) {
@@ -665,6 +1027,37 @@ int ns_fused_launch(const float* u, const float* v, const float* act,
     default: err = launch<kDefault>(p, threads, bytes, s); break;
   }
   return static_cast<int>(err);
+}
+
+// Floats of device scratch the step past 128 x 128 needs for B envs on the
+// padded square np: two (np, np) matrices an env, and the tracking sum's
+// partial sums where it is taken.
+long long ns_fused_wide_scratch_floats(int B, int np, int track) {
+  return 2LL * B * np * np + (track ? static_cast<long long>(B) * wide_parts(np) : 0);
+}
+
+// Launches one projection step on grids past 128 x 128 as a sequence of
+// kernels on `stream` (ns_fused_launch's arguments, np = max(ny, nx) rounded
+// up to 64, and ns_fused_wide_scratch_floats(B, np, tsum != null) floats of
+// scratch). Returns the first launch error (0 on success); does not
+// synchronise.
+int ns_fused_wide_launch(const float* u, const float* v, const float* act,
+                         const float* consts, const float* uref, const float* vref,
+                         float* u_out, float* v_out, float* p_out, float* tsum,
+                         int B, int ny, int nx, int np, int prec, const int* bc,
+                         float chdx, float chdy, float cinv, float dt, float nu, float cg,
+                         float ccorr, float* scratch, int device, void* stream) {
+  const int big = ny > nx ? ny : nx;
+  Params p;
+  cudaError_t err = make_params(p, u, v, act, consts, uref, vref, u_out, v_out, p_out, tsum,
+                                B, ny, nx, np, prec, bc, chdx, chdy, cinv, dt, nu, cg, ccorr);
+  if (err != cudaSuccess || np != ((big + kTile - 1) / kTile) * kTile ||
+      (scratch == nullptr && B > 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(wide_step(p, scratch, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -33,6 +33,11 @@ from pdecontrolgym_tpu_torch.envs.transport import (
     TransportEnv,
     chebyshev_beta,
 )
+from pdecontrolgym_tpu_torch.envs.wrappers import (
+    FlatObsEnv,
+    TanhBoxActionEnv,
+    TransformObsEnv,
+)
 
 __all__ = [
     "Boundary1DConfig",
@@ -44,6 +49,7 @@ __all__ = [
     "BurgersConfig",
     "BurgersEnv",
     "DoseTherapyEnv",
+    "FlatObsEnv",
     "NavierStokesConfig",
     "NavierStokesEnv",
     "NavierStokesState",
@@ -52,10 +58,12 @@ __all__ = [
     "NeuronState",
     "ReactionDiffusionConfig",
     "ReactionDiffusionEnv",
+    "TanhBoxActionEnv",
     "TherapyEnv",
     "TrafficARZConfig",
     "TrafficARZEnv",
     "TrafficARZState",
+    "TransformObsEnv",
     "TransportConfig",
     "TransportEnv",
     "chebyshev_beta",

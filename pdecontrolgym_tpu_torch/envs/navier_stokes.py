@@ -40,6 +40,7 @@ from pdecontrolgym_tpu_torch.ops.ns_fused import (
     EDGES,
     NSStepSpec,
     apply_boundary,
+    kernel_takes,
     ns_step,
 )
 from pdecontrolgym_tpu_torch.ops.poisson2d import (
@@ -67,8 +68,10 @@ class NavierStokesConfig:
     point; ignores ``maximum_pressure_iteration``).
 
     ``step_backend``: ``"kernel"`` (the fused projection step; raises on an
-    ineligible config), ``"eager"`` or ``"auto"`` (the fused step whenever the
-    config is eligible).
+    ineligible config; on the card, past ``MAX_N_WIDE`` a side), ``"eager"``
+    or ``"auto"`` (the fused step whenever the config is eligible and the grid
+    within ``ops.ns_fused.MAX_N_WIDE`` a side, the reach of the TPU kernel;
+    eager past it).
 
     ``lockstep_targets``: True (default) looks up ONE ``U_ref[t]`` row for the
     whole batch in ``step_batch``, and rewards NaN where a hand-built batch is
@@ -258,7 +261,11 @@ class NavierStokesEnv(FunctionalEnv):
             and c.dtype == torch.float32
             and c.action_dim == 1
         )
-        if c.step_backend == "eager" or (c.step_backend == "auto" and not eligible):
+        # past the TPU kernel's reach "auto" steps eagerly; "kernel" builds
+        # the spec and the step raises on the card
+        in_reach = kernel_takes(c.ny, c.nx)
+        if c.step_backend == "eager" or (
+                c.step_backend == "auto" and not (eligible and in_reach)):
             return None
         if not eligible:
             raise ValueError(

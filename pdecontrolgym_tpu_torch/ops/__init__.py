@@ -25,6 +25,13 @@ from pdecontrolgym_tpu_torch.ops.ns_fused import (
     ns_step,
     ns_step_plain,
 )
+from pdecontrolgym_tpu_torch.ops.poisson2d import (
+    dct2_basis,
+    direct_pressure,
+    direct_pressure_setup,
+    jacobi_pressure,
+    jacobi_pressure_flat,
+)
 from pdecontrolgym_tpu_torch.ops.tridiag import pcr, thomas
 
 __all__ = [
@@ -38,9 +45,14 @@ __all__ = [
     "TransportBody",
     "brain_tumor_field",
     "brain_tumor_field_plain",
+    "dct2_basis",
+    "direct_pressure",
+    "direct_pressure_setup",
     "fused_basis",
     "interval",
     "interval_plain",
+    "jacobi_pressure",
+    "jacobi_pressure_flat",
     "neuron_advance",
     "neuron_interval_plain",
     "ns_step",

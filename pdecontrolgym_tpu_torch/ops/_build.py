@@ -132,16 +132,25 @@ def load() -> ctypes.CDLL:
         # neumann, has_eb, dt, 2F, th, -th*F, 1-th, (1-th)*F, dx
         lib.interval1d_pcr_launch.argtypes = common + [i, i] + [f] * 7 + tail
         lib.interval1d_pcr_launch.restype = ctypes.c_int
-        # ... and the factor rows' scratch (null where they fit shared memory)
-        lib.interval1d_pcr_wide_launch.argtypes = common + [i, i] + [f] * 7 + [p] + tail
+        # ... and the per-env factor rows' scratch (null where they fit shared
+        # memory) and the shared path's memory
+        lib.interval1d_pcr_wide_launch.argtypes = common + [i, i] + [f] * 7 + [p, p] + tail
         lib.interval1d_pcr_wide_launch.restype = ctypes.c_int
         lib.interval1d_pcr_wide_scratch_floats.argtypes = [i]
         lib.interval1d_pcr_wide_scratch_floats.restype = ctypes.c_longlong
+        lib.interval1d_pcr_wide_share_floats.argtypes = [i, i]
+        lib.interval1d_pcr_wide_share_floats.restype = ctypes.c_longlong
         # u, v, act, consts, uref, vref, u_out, v_out, p_out, tsum; B, ny, nx,
         # np, prec; bc; 0.5/dx, 0.5/dy, 1/(dx*dy), dt, nu, -dx*dy*rho/dt, dt/rho
         lib.ns_fused_launch.argtypes = (
             [p] * 10 + [i] * 5 + [ctypes.POINTER(ctypes.c_int)] + [f] * 7 + tail)
         lib.ns_fused_launch.restype = ctypes.c_int
+        # ... and, past 128 x 128, the scratch
+        lib.ns_fused_wide_launch.argtypes = (
+            [p] * 10 + [i] * 5 + [ctypes.POINTER(ctypes.c_int)] + [f] * 7 + [p] + tail)
+        lib.ns_fused_wide_launch.restype = ctypes.c_int
+        lib.ns_fused_wide_scratch_floats.argtypes = [i, i, i]
+        lib.ns_fused_wide_scratch_floats.restype = ctypes.c_longlong
         # u, Z, L, t, pB, p, u_out, Z_out, L_out, t_out, done, norms, prev; B, M,
         # K, W, ord; dt, dx, D, a, g, LSubS, scale, RSubG, aT1, beta_c, nt, coeff,
         # H0, H1

@@ -38,9 +38,11 @@ Two implementations, one contract:
   its own: ``csrc/interval1d_pcr.cu`` (one warp per env, the state and
   right-hand side in registers, the elimination factors in shared memory)
   for rows of up to ``MAX_NX`` points, and ``csrc/interval1d_pcr_wide.cu``
-  (one block per env, the rounds that cross warps through shared memory, one
-  barrier a round) for rows of ``MAX_NX + 1`` to ``MAX_NX_PCR`` points, the
-  reach of the TPU kernel's PCR.
+  (the rounds that cross warps through shared memory, one barrier a round)
+  for rows of ``MAX_NX + 1`` to ``MAX_NX_PCR`` points, the reach of the TPU
+  kernel's PCR: envs whose β row equals env 0's bit for bit
+  (:func:`shares_env0_factors`) share env 0's factor rows, eliminated once,
+  two envs a thread; the others take a block each and eliminate their own.
 
 :func:`interval` dispatches on the tensors' device: the plain version for CPU
 tensors, the kernel for CUDA tensors. It never falls back from one to the
@@ -67,7 +69,8 @@ A body is a frozen dataclass with this contract:
 - ``kernel``: the name of the C function that launches its CUDA kernel at
   rows of up to ``MAX_NX`` points, ``wide_kernel`` the one above,
   ``wide_scratch`` the C function that gives the floats of device scratch an
-  env needs there (None: no scratch),
+  env needs there (None: no scratch), ``wide_share`` the one that gives the
+  floats the wide kernel's shared path needs for a batch (None: none),
   ``max_nx`` the widest row a kernel takes (the reach of the TPU kernel that
   the JAX package's ``"auto"`` picks), and ``consts()``: the launch
   function's arguments after the common ones.
@@ -113,6 +116,7 @@ class TransportBody:
     kernel = "interval1d_launch"
     wide_kernel = "interval1d_wide_launch"
     wide_scratch = None
+    wide_share = None
     max_nx = MAX_NX_WIDE
 
     @property
@@ -150,6 +154,7 @@ class BurgersBody:
     kernel = "interval1d_launch"
     wide_kernel = "interval1d_wide_launch"
     wide_scratch = None
+    wide_share = None
     max_nx = MAX_NX_WIDE
 
     def __post_init__(self):
@@ -204,6 +209,7 @@ class ReactionDiffusionBody:
     kernel = "interval1d_launch"
     wide_kernel = "interval1d_wide_launch"
     wide_scratch = None
+    wide_share = None
     max_nx = MAX_NX_WIDE
 
     @property
@@ -252,6 +258,7 @@ class ReactionDiffusionImplicitBody:
     kernel = "interval1d_pcr_launch"
     wide_kernel = "interval1d_pcr_wide_launch"
     wide_scratch = "interval1d_pcr_wide_scratch_floats"
+    wide_share = "interval1d_pcr_wide_share_floats"
     max_nx = MAX_NX_PCR
 
     @property
@@ -401,6 +408,18 @@ def kernel_takes(spec: IntervalSpec) -> bool:
             and len(_kernel_positions(spec)) <= MAX_POSITIONS)
 
 
+def shares_env0_factors(beta: torch.Tensor) -> torch.Tensor:
+    """The wide PCR kernel's sharing rule as plain PyTorch: ``(B,)`` bool,
+    whether env b's β row equals env 0's bit for bit, so that env 0's factor
+    rows, ``1/b`` and ``eb`` (which depend on β and the spec alone) are
+    env b's too. NaN payloads and the sign of zero count: rows that differ
+    in any bit never share, even where their factors would agree. The kernel
+    decides the same on the card, with no host read; the state does not
+    depend on the decision."""
+    bits = beta.contiguous().view(torch.int32)
+    return (bits == bits[:1]).all(dim=1)
+
+
 def auto_steps_eagerly(spec: IntervalSpec) -> bool:
     """Whether an env's ``backend="auto"`` steps ``spec`` eagerly on the card:
     where its row is past ``body.max_nx``, the reach of the body's CUDA
@@ -442,6 +461,12 @@ def _interval_cuda(spec: IntervalSpec, u, beta, ctrl, t0):
         floats = getattr(lib, body.wide_scratch)(nx)
         buf = torch.empty((B * floats,), dtype=u.dtype, device=u.device)
         scratch = (buf.data_ptr() if floats else None,)
+    if wide and body.wide_share:
+        # the implicit body's shared path: env 0's factor rows, 1/b and a flag
+        # an env
+        share = torch.empty((getattr(lib, body.wide_share)(B, nx),), dtype=u.dtype,
+                            device=u.device)
+        scratch = scratch + (share.data_ptr(),)
     u_out = torch.empty_like(u)
     norms = torch.zeros((B, spec.wp), dtype=u.dtype, device=u.device)
     bsum = torch.empty((B, 1), dtype=u.dtype, device=u.device)

@@ -29,7 +29,9 @@ Two implementations, one contract:
   fields and the bases in shared memory, u* and v* staged through the outputs,
   the four products on the tensor cores (``mma.sync``) in the kernel's body
   (see the note at the top of that file). It takes grids from 3×3 to
-  128×128.
+  128×128 (``MAX_N``); from there to ``MAX_N_WIDE`` the same step runs as a
+  sequence of kernels of that file through device memory, its products
+  batched tiled products on the tensor cores.
 
 :func:`ns_step` dispatches on the tensors' device: the plain version for CPU
 tensors, the kernel for CUDA tensors. It never falls back from one to the
@@ -57,10 +59,21 @@ import torch
 
 from pdecontrolgym_tpu_torch.ops.poisson2d import dct2_basis_np, mirror_ring
 
-# Launches of the CUDA kernel since import (or since a caller reset it).
+# Launches of the CUDA step since import (or since a caller reset it), and
+# of those the ones on grids past MAX_N (the multi-pass step).
 LAUNCHES = 0
+WIDE_LAUNCHES = 0
 
-MAX_N = 128  # the kernel's largest ny or nx; see csrc/ns_fused.cu
+MAX_N = 128  # the one-block kernel's largest ny or nx; see csrc/ns_fused.cu
+# The TPU kernel's reach at one env a grid step (tile_b = 1): its pipeline
+# double-buffers the (ny, nx) blocks of u and v in, of u', v' and p out, of the
+# five constants and of the two tracking targets, 24 N^2 floats, and its body
+# holds some 8 N^2 more (u* and v*, G, the two operands of a product, p, the
+# interior mask, a shifted copy): 32 N^2 floats, 128 N^2 bytes, reach the 128
+# MiB vmem_limit_bytes at N = 1024. The multi-pass step of csrc/ns_fused.cu
+# takes grids of MAX_N + 1 to MAX_N_WIDE a side; past it an env's "auto" steps
+# eagerly (kernel_takes).
+MAX_N_WIDE = 1024
 
 EDGES = ("lower", "upper", "left", "right")
 CONDITIONS = ("Neumann", "Dirchilet", "Dirichlet", "Controllable")
@@ -178,10 +191,18 @@ class NSStepSpec:
         return self._basis[device]
 
     @property
+    def wide(self) -> bool:
+        """Whether the grid is past the one-block kernel's ``MAX_N``."""
+        return max(self.ny, self.nx) > MAX_N
+
+    @property
     def padded(self) -> int:
         """``np``: the kernel's padded square, ``max(ny, nx)`` rounded up to a
-        multiple of 32 (whole 16 x 32 tiles of the tensor-core products)."""
-        return -(-max(self.ny, self.nx) // 32) * 32
+        multiple of 32 (whole 16 x 32 tiles of the one-block kernel's
+        products), of 64 past ``MAX_N`` (whole 64 x 64 tiles of the
+        multi-pass step's)."""
+        tile = 64 if self.wide else 32
+        return -(-max(self.ny, self.nx) // tile) * tile
 
     def kernel_constants(self, device):
         """The kernel's ``(5, np, np)`` float32 constants on ``device``: the
@@ -269,6 +290,13 @@ def ns_step_plain(spec: NSStepSpec, u, v, action, uref=None, vref=None):
     return u_n, v_n, p, tsum
 
 
+def kernel_takes(ny: int, nx: int) -> bool:
+    """Whether a CUDA step takes an ``ny`` x ``nx`` grid: up to
+    ``MAX_N_WIDE`` a side, the reach of the TPU kernel. Past it an env's
+    ``step_backend="auto"`` steps eagerly, decided from the config."""
+    return max(ny, nx) <= MAX_N_WIDE
+
+
 def _check(spec, u, v, action, uref, vref):
     B = u.shape[0] if u.ndim == 3 else -1
     grid = (spec.ny, spec.nx)
@@ -335,13 +363,14 @@ def ns_step(spec: NSStepSpec, u, v, action, uref=None, vref=None):
 def _ns_step_cuda(spec, u, v, action, uref, vref):
     """Launch the CUDA kernel on the tensors' stream. Raises on anything the
     kernel does not take; allocates the outputs; does not synchronise."""
-    global LAUNCHES
+    global LAUNCHES, WIDE_LAUNCHES
     from pdecontrolgym_tpu_torch.ops import _build
 
-    if max(spec.ny, spec.nx) > MAX_N:
+    if not kernel_takes(spec.ny, spec.nx):
         raise ValueError(
-            f"ns_step kernel: grid {spec.ny}x{spec.nx} exceeds {MAX_N}x{MAX_N} "
-            "(one block per env, its work fields in shared memory)"
+            f"ns_step kernel: grid {spec.ny}x{spec.nx} exceeds {MAX_N_WIDE}x"
+            f"{MAX_N_WIDE}, the reach of the TPU kernel (step_backend='eager' "
+            "steps larger grids)"
         )
     tensors = [t for t in (u, v, action, uref, vref) if t is not None]
     if not all(t.is_contiguous() for t in tensors):
@@ -358,21 +387,31 @@ def _ns_step_cuda(spec, u, v, action, uref, vref):
         return None if t is None else t.data_ptr()
 
     lib = _build.load()
-    err = lib.ns_fused_launch(
+    args = [
         u.data_ptr(), v.data_ptr(), action.data_ptr(), consts.data_ptr(),
         ptr(uref), ptr(vref),
         u_out.data_ptr(), v_out.data_ptr(), p_out.data_ptr(), ptr(tsum),
         B, spec.ny, spec.nx, spec.padded, _PRECISIONS[spec.spectral_precision],
         (ctypes.c_int * 8)(*spec.condition_codes()),
         *spec.scalars(),
+    ]
+    name = "ns_fused_launch"
+    if spec.wide:
+        # two (np, np) matrices an env between the products, and the tracking
+        # sum's partial sums
+        name = "ns_fused_wide_launch"
+        floats = lib.ns_fused_wide_scratch_floats(B, spec.padded, int(tsum is not None))
+        scratch = torch.empty((floats,), dtype=u.dtype, device=u.device)
+        args.append(scratch.data_ptr())
+    err = getattr(lib, name)(
+        *args,
         u.device.index if u.device.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(u.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(
-            f"ns_fused_launch failed: {lib.interval1d_error_string(err).decode()}"
-        )
+        raise RuntimeError(f"{name} failed: {lib.interval1d_error_string(err).decode()}")
     LAUNCHES += 1
+    WIDE_LAUNCHES += spec.wide
     if tsum is None:
         return u_out, v_out, p_out
     return u_out, v_out, p_out, tsum

@@ -5,6 +5,7 @@ from pdecontrolgym_tpu_torch.utils.convert import (
     neuron_tables_from_numpy,
     ns_state_from_numpy,
     state_from_numpy,
+    traffic_state_from_numpy,
 )
 
 __all__ = [
@@ -14,4 +15,5 @@ __all__ = [
     "neuron_tables_from_numpy",
     "ns_state_from_numpy",
     "state_from_numpy",
+    "traffic_state_from_numpy",
 ]

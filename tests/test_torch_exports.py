@@ -1,0 +1,41 @@
+"""The port's package surface: each subpackage exports every name of its JAX
+twin's ``__all__`` that the port has ported (defined in one of the
+subpackage's modules), and every public name of ``utils/convert.py``.
+"""
+
+import importlib
+import pkgutil
+
+import pytest
+
+SUBPACKAGES = ("envs", "ops", "rewards", "agents", "parallel", "utils")
+
+
+def _defined_names(package):
+    """Names defined at the top level of any module of the port's subpackage."""
+    names = set()
+    for info in pkgutil.iter_modules(package.__path__):
+        module = importlib.import_module(f"{package.__name__}.{info.name}")
+        names.update(n for n in vars(module) if not n.startswith("_"))
+    return names
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_port_exports_every_ported_name_of_its_jax_twin(sub):
+    twin = importlib.import_module(f"pdecontrolgym_tpu.{sub}")
+    port = importlib.import_module(f"pdecontrolgym_tpu_torch.{sub}")
+    ported = [n for n in twin.__all__ if n in _defined_names(port)]
+    missing = [n for n in ported if n not in port.__all__ or not hasattr(port, n)]
+    assert not missing, f"pdecontrolgym_tpu_torch.{sub} does not export {missing}"
+    assert all(hasattr(port, n) for n in port.__all__)
+
+
+def test_utils_exports_every_converter():
+    from pdecontrolgym_tpu_torch import utils
+    from pdecontrolgym_tpu_torch.utils import convert
+
+    public = [n for n, v in vars(convert).items()
+              if not n.startswith("_") and callable(v)
+              and getattr(v, "__module__", "") == convert.__name__]
+    assert "traffic_state_from_numpy" in public
+    assert not [n for n in public if n not in utils.__all__]

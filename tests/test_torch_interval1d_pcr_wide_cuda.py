@@ -113,3 +113,84 @@ def test_cuda_pcr_wide_kernel_at_the_main_paths_batch(n, B):
     got, want = _launch_and_plain(spec, u, beta, actions[:, None].contiguous(), t0)
     _check(spec, got, want)
 
+
+
+# The shared path: an env whose beta row equals env 0's bit for bit takes env
+# 0's factor rows (eliminated once, in a prologue launch), two envs a thread
+# to 4096 points; groups that are not all flagged take the per-env path.
+BETA_KINDS = ("shared", "spread", "half")
+
+
+def _share(beta, kind):
+    """``"shared"``: every env takes env 0's row; ``"spread"``: the inputs'
+    per-env rows; ``"half"``: envs 0, 1, 3, 4, 6, ... take env 0's row (whole
+    pairs and mixed pairs of the two-env groups), and env 4 differs from it in
+    the sign of one zero only."""
+    if kind == "shared":
+        beta[:] = beta[0].clone()
+    elif kind == "half":
+        beta[:, 3] = 0.0
+        keep = torch.arange(beta.shape[0], device=beta.device) % 3 != 2
+        beta[keep] = beta[0].clone()
+        beta[4, 3] = -0.0
+    return beta
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fast", "terminal"])
+@pytest.mark.parametrize("theta,neumann", [(0.5, False), (1.0, True)])
+@pytest.mark.parametrize("beta_kind", BETA_KINDS)
+@pytest.mark.parametrize("n", PCR_WIDE_NS)
+def test_cuda_pcr_wide_kernel_shares_factor_rows_to_the_bit(n, beta_kind, theta, neumann,
+                                                             kind):
+    """Shared, spread and half-shared beta, an odd batch (a last group of one
+    env): the state equal to the plain version's to the bit, whichever path
+    each env took."""
+    _need_card()
+    spec = _spec(n, theta, neumann)
+    u, beta, actions, t0 = (torch.from_numpy(a).cuda() for a in
+                            inputs("rd", n, spec.nt, spec.sample_rate, kind, seed=n + 1,
+                                   batch=37))
+    beta = _share(beta, beta_kind)
+    flags = interval1d.shares_env0_factors(beta)
+    assert int(flags.sum()) == {"shared": 37, "spread": 1, "half": 24}[beta_kind]
+    got, want = _launch_and_plain(spec, u, beta, actions[:, None].contiguous(), t0)
+    _check(spec, got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("neumann", [False, True])
+@pytest.mark.parametrize("n", (513, 2049, 4097, 8192))
+def test_cuda_pcr_wide_shared_path_keeps_non_finite_rows(n, neumann):
+    """Shared beta with a NaN of one payload in every row (shared) and of
+    another in env 5 (not shared), and NaN and infinities in ``u``: equal
+    state, NaN where the plain version has NaN."""
+    _need_card()
+    spec = _spec(n, 0.5, neumann)
+    u, beta, actions, t0 = (torch.from_numpy(a).cuda() for a in
+                            inputs("rd", n, spec.nt, spec.sample_rate, "terminal", seed=n,
+                                   batch=8))
+    beta[:] = beta[0].clone()
+    beta.view(torch.int32)[:, n // 2] = 0x7FC00005
+    beta.view(torch.int32)[5, n // 2] = 0x7FC00006
+    assert interval1d.shares_env0_factors(beta).tolist() == [True] * 5 + [False] + [True] * 2
+    u[0, n // 3] = float("nan")
+    u[1, 1] = float("inf")
+    u[2, n - 2] = -float("inf")
+    got, want = _launch_and_plain(spec, u, beta, actions[:, None].contiguous(), t0)
+    _check(spec, got, want, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,B", [(2049, 4096), (8192, 1024)])
+def test_cuda_pcr_wide_shared_path_at_the_main_paths_batch(n, B):
+    """The ``rd_implicit_wide`` episode's case: every env with the stock
+    Chebyshev beta (the shared path), at full batch."""
+    _need_card()
+    spec = _spec(n, 0.5, False)
+    u, beta, actions, t0 = (torch.from_numpy(a).cuda() for a in
+                            inputs("rd", n, spec.nt, spec.sample_rate, "fast", seed=2,
+                                   batch=B))
+    beta[:] = beta[0].clone()
+    got, want = _launch_and_plain(spec, u, beta, actions[:, None].contiguous(), t0)
+    _check(spec, got, want)

@@ -141,7 +141,7 @@ def test_cuda_kernel_takes_unaligned_views():
 def test_cuda_wrapper_raises_above_its_cap():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    n = tns.MAX_N + 1
+    n = tns.MAX_N_WIDE + 1  # past the multi-pass step's reach
     spec = tns.NSStepSpec(n, 16, 1.0 / 15, 1.0 / (n - 1), 2e-4, NU, RHO, LID_BC)
     u = torch.zeros((2, n, 16), device="cuda")
     with pytest.raises(ValueError, match="exceeds"):
