@@ -100,8 +100,10 @@ JAX package), builds the CUDA kernels from ``csrc/`` and runs:
                 points), theta=0.5, dt=4e-4, 4096 envs, 100 actions x 25
                 sub-steps through backend="auto", 100 launches of that kernel,
                 its first interval held to the bit against the plain version.
-15. neuron_wide -- (after phases 10 and 12) the block-per-env K-step kernel
-                for neuron rows past M=512 against its plain version: M=601,
+15. neuron_wide -- (after phases 10 and 12) the K-step kernels for neuron
+                rows past M=512 (one warp an env up to
+                neuron_interval.WARP_MAX_M, one block an env above) against
+                their plain version: M=601,
                 1201, 4801 at B=4096 and 16384 at B=1024 (the stock domain on
                 a finer grid, dt scaled by dx^2 to keep the explicit update as
                 stable as the stock one), K=100, spread tips, the episode's
@@ -1904,12 +1906,13 @@ def neuron_wide_fields(M):
     return dict(dx=dx, dt=5e-6 * (dx / 0.01) ** 2)
 
 
-# the block-per-env K-step kernel's rows (envs, points)
+# the wide K-step kernels' rows (envs, points): one warp an env to 4801, one
+# block an env at 16384 (ops/neuron_interval.py, wide_layout)
 NEURON_WIDE_CASES = ((NUM_ENVS, 601), (NUM_ENVS, 1201), (NUM_ENVS, 4801), (1024, 16384))
 
 
 def phase_neuron_wide_kernel(torch, device):
-    """The block-per-env K-step kernel against the plain version on the card
+    """The wide K-step kernels against the plain version on the card
     at NEURON_WIDE_CASES, K=100: tips spread from the episode's first one to
     M-1, with and without the reward's norm window, and the episode's own
     state. At these dt a tip grows by less than half of Z1's float32 ulp a
@@ -1984,7 +1987,7 @@ def phase_neuron_wide(torch, device):
     err_r = _max_err("neuron wide, kernel against eager, rewards", torch.stack(rk),
                      torch.stack(re_), NEURON_EPISODE_RTOL, NEURON_U_ATOL)
     log(f"[neuron_wide] M={env.M} dx={fields['dx']} dt={fields['dt']:.3e}: {NUM_ENVS} envs x "
-        f"{calls} calls x {K} dt-steps (backend=auto): {wide} launches of the block-per-env "
+        f"{calls} calls x {K} dt-steps (backend=auto): {wide} launches of the wide K-step "
         f"kernel, L {int(L0)} -> {int(state.L.min())}..{int(state.L.max())}, "
         f"|u| <= {float(state.u.abs().max()):.6f}; kernel path against eager path, B=8, "
         f"1000 dt-steps, reward row: L equal, max_abs_err u={err_u:.3e} rewards={err_r:.3e}")
@@ -2061,7 +2064,7 @@ def phase_traffic(torch, device):
 
 
 def wide_kernel_times(torch, device, pcr_inputs, neuron_inputs, card):
-    """The two block-per-env kernels of this slice alone: the PCR kernel at
+    """The two wide kernels of this slice alone: the PCR kernel at
     every row of PCR_WIDE_CASES on the fast path (theta=0.5, Dirichlet), the
     K-step kernel on the neuron_wide row's state (K=100, the reward's window)
     and at every row of NEURON_WIDE_CASES on spread tips. Returns the
@@ -2095,14 +2098,14 @@ def wide_kernel_times(torch, device, pcr_inputs, neuron_inputs, card):
     spec, u, Z, L, t, kw = neuron_inputs
     call = lambda: ni.neuron_interval(spec, u, Z, L, t, **kw)  # noqa: E731
     k = cuda_ms(torch, call, calls=20)
-    dev, _ = device_ms(torch, call, "neuron_interval_wide_kernel")
+    dev, _ = device_ms(torch, call, "neuron_interval_wide")
     p = cuda_ms(torch, lambda: ni.neuron_interval_plain(spec, u, Z, L, t, **kw))
     live = neuron_live_rows(torch, spec, u, Z, L, t, kw["steps"])
     bound, bound_by, nbytes, flops = neuron_bound(
         spec, u.shape[0], kw["steps"], kw["window"], kw["need_prev"], live)
     times["neuron_wide"] = {"ms": k, "device_ms": dev, "plain_ms": p, "bound_ms": bound,
                             "bound_by": bound_by, "library_ms": None}
-    log(f"[times] one neuron block on the block-per-env kernel, the neuron_wide row's "
+    log(f"[times] one neuron block on the wide K-step kernel, the neuron_wide row's "
         f"state B={u.shape[0]} M={spec.M} K={kw['steps']}: kernel {k:.4f} ms per call (20 "
         f"back to back), {dev:.4f} ms on the device (torch.profiler); plain {p:.4f} ms; "
         f"bound {bound:.5f} ms by {bound_by} ({nbytes} bytes, {flops} operations over "
@@ -2112,10 +2115,11 @@ def wide_kernel_times(torch, device, pcr_inputs, neuron_inputs, card):
         s = neuron_state(torch, env, B, int(env.init_batch(1)[0].L[0]), seed=M)
         args = (env.spec, s.u, s.Z, s.L, s.time_index)
         call = lambda: ni.neuron_interval(*args, steps=100)  # noqa: E731
-        dev, _ = device_ms(torch, call, "neuron_interval_wide_kernel")
+        dev, _ = device_ms(torch, call, "neuron_interval_wide")
         live = neuron_live_rows(torch, *args, 100)
         bound, bound_by = neuron_bound(env.spec, B, 100, 0, False, live)[:2]
-        log(f"[times] one neuron block on the block-per-env kernel, spread tips B={B} "
+        log(f"[times] one neuron block on the wide K-step kernel ({ni.wide_layout(M)[0]} "
+            f"an env), spread tips B={B} "
             f"M={M} K=100: {dev:.4f} ms on the device (torch.profiler); bound {bound:.5f} "
             f"ms by {bound_by} over {live} interior point updates, share {bound / dev:.3f} "
             f"({card})")
@@ -2409,6 +2413,31 @@ def ns_kernel_times(torch, device, inputs, card):
     return step_ms
 
 
+# what each pass of the multi-pass step computes: csrc/ns_wide.cu's
+# ns_wide_product<precision, tile, mode> by its mode, csrc/ns_fused.cu's
+# stencil kernels by name
+NS_WIDE_MODES = {"0": "product 1 (G formed from u*, v*)", "1": "product 2",
+                 "2": "product 3", "3": "product 4 (P stored [y][x])",
+                 "4": "products 2 and 3 fused"}
+NS_WIDE_STENCILS = {"wide_predict": "the predictor", "wide_correct": "the corrector",
+                    "wide_boundary": "the edge passes", "wide_track": "the tracking sum",
+                    "wide_sum": "the tracking sum's partial sums"}
+
+
+def ns_pass_name(key):
+    """A device kernel's name in a trace of the NS step, with the pass of the
+    multi-pass step it runs."""
+    import re
+
+    found = re.search(r"ns_wide_product<(\d+), (\d+), (\d+)>", key)
+    if found:
+        return f"{NS_WIDE_MODES[found.group(3)]}, tile {found.group(2)}: {key[:60]}"
+    for name, what in NS_WIDE_STENCILS.items():
+        if name in key:
+            return f"{what}: {key[:60]}"
+    return key[:70]
+
+
 def ns_episode_times(torch, device, card):
     """The ``ns_fast`` and ``ns_wide`` episodes on the kernel path, with a
     trace of their first steps and the breakdown by kernel."""
@@ -2434,7 +2463,7 @@ def ns_episode_times(torch, device, card):
             f"idle share {1 - busy_ms / window_ms:.3f} ({card})")
         for e in rows[:8 if envs == NS_WIDE_ENVS else 5]:
             log(f"[times]   {e.self_device_time_total / 1e3:9.3f} ms in {e.count:5d} launches "
-                f"of {e.key[:70]}")
+                f"of {ns_pass_name(e.key)}")
     ns_fused.LAUNCHES = ns_fused.WIDE_LAUNCHES = 0  # timing launches do not count
 
 
@@ -2464,14 +2493,17 @@ def ns_eager_times(torch, device, card):
 # -- comparing copies of the port ---------------------------------------------------
 
 
-# the block-per-env K-step kernel's rows in time_kernels: (name, envs, points,
+# the wide K-step kernels' rows in time_kernels: (name, envs, points,
 # tips spread as phase_neuron_wide_kernel's first case, else the episode's own)
 B7_WIDE_ROWS = (("b7_wide_601", NUM_ENVS, 601, False), ("b7_wide_1201", NUM_ENVS, 1201, False),
-                ("b7_wide_4801", NUM_ENVS, 4801, False),
+                ("b7_wide_4801", NUM_ENVS, 4801, False), ("b7_wide_8192", 2048, 8192, False),
                 ("b7_wide_601_spread", NUM_ENVS, 601, True),
                 ("b7_wide_1201_spread", NUM_ENVS, 1201, True),
                 ("b7_wide_4801_spread", NUM_ENVS, 4801, True),
-                ("b7_wide_12001_spread", 1024, 12001, True))
+                ("b7_wide_6401_spread", NUM_ENVS, 6401, True),
+                ("b7_wide_8192_spread", 2048, 8192, True),
+                ("b7_wide_12001_spread", 1024, 12001, True),
+                ("b7_wide_16384_spread", 1024, 16384, True))
 
 
 def _compared_row(torch, has_kernel, kernel, plain, kernel_name, runs, calls,
@@ -2512,10 +2544,11 @@ def time_kernels(torch, device):
     envs each, S=25, theta=0.5) and "b5_wide_8192" (1024 envs) on spread beta
     (the per-env path), and each with "_shared" on every env's beta env 0's
     (the rd_implicit_wide episode's case: the shared path), device time a
-    call of its launches together; "b6w_256" and "b6w_1024" the multi-pass
-    projection step at 1024 x 256x256 and 16 x 1024x1024 (all its kernels a
-    call); the block-per-env K-step kernel's B7_WIDE_ROWS (K=100, the
-    reward's window).
+    call of its launches together; "b6w_256", "b6w_320" and "b6w_1024" the
+    multi-pass projection step at 1024 x 256x256, 512 x 320x320 and 16 x
+    1024x1024 (all its kernels a call); the wide K-step kernels' B7_WIDE_ROWS (K=100, the
+    reward's window) by the package's own layout, and in a package that has
+    both layouts each forced at every row ("_warp", "_block").
     A package that predates one of these kernels times the plain version
     there, with "path": "plain" (:func:`_compared_row`).
     Returns {name: {"ms", "device_ms", "max_abs_err"}}: ms per call of 20
@@ -2573,11 +2606,23 @@ def time_kernels(torch, device):
         state = (neuron_state(torch, env, B, int(env.init_batch(1)[0].L[0]), seed=M)
                  if spread else env.init_batch(B)[0])
         args = (env.spec, state.u, state.Z, state.L, state.time_index)
-        out[name] = _compared_row(
+        row = lambda a=args: _compared_row(  # noqa: E731
             torch, hasattr(neuron_interval, "MAX_M_WIDE"),
-            lambda a=args: neuron_interval.neuron_interval(*a, steps=100, window=1),
-            lambda a=args: neuron_interval.neuron_interval_plain(*a, steps=100, window=1),
+            lambda: neuron_interval.neuron_interval(*a, steps=100, window=1),
+            lambda: neuron_interval.neuron_interval_plain(*a, steps=100, window=1),
             "neuron_interval_wide", 3, 20)
+        out[name] = row()
+        # a package with both layouts: each forced at every row, to place
+        # the crossover (ops/neuron_interval.py, WARP_MAX_M)
+        if hasattr(neuron_interval, "WARP_MAX_M"):
+            keep = neuron_interval.WARP_MAX_M
+            for layout, cut in (("warp", neuron_interval.MAX_M_WIDE),
+                                ("block", neuron_interval.MAX_M)):
+                neuron_interval.WARP_MAX_M = cut
+                try:
+                    out[f"{name}_{layout}"] = row()
+                finally:
+                    neuron_interval.WARP_MAX_M = keep
     for name, n, B, precision in (("b6_64", 64, NUM_ENVS, "highest"),
                                   ("b6_64_high", 64, NUM_ENVS, "high"),
                                   ("b6_64_default", 64, NUM_ENVS, "default"),
@@ -2590,8 +2635,10 @@ def time_kernels(torch, device):
         out[name] = {"ms": cuda_ms(torch, call, runs=5, calls=20),
                      "device_ms": device_ms(torch, call, "ns_step_kernel")[0],
                      "max_abs_err": err}
-    # the multi-pass step past 128 x 128 (B6w): the ns_wide row and the reach
-    for name, n, B in (("b6w_256", 256, NS_WIDE_ENVS), ("b6w_1024", 1024, 16)):
+    # the multi-pass step past 128 x 128 (B6w): the ns_wide row, a padded side
+    # that 256 does not divide, and the reach
+    for name, n, B in (("b6w_256", 256, NS_WIDE_ENVS), ("b6w_320", 320, 512),
+                       ("b6w_1024", 1024, 16)):
         spec = _ns_wide_spec(n, n)
         tensors = _ns_inputs(torch, spec, B, gen, device, track=True, level=5.0)
         out[name] = _compared_row(

@@ -1,5 +1,15 @@
 // K dt-steps of the neuron-growth moving-boundary PDE-ODE cascade for rows of
-// M = 513 to 16384 points: one block of threads an env.
+// M = 513 to 16384 points, in two layouts: one warp an env with its row in
+// shared memory (neuron_interval_wide_warp_kernel, further down), and one
+// block of threads an env (neuron_interval_wide_kernel). The wrapper picks by
+// M (ops/neuron_interval.py, wide_layout): one warp an env up to
+// WARP_MAX_M = 6401, one block above. On an H100 (PERF.md, chip_smoke.py
+// --compare rows b7_wide_*_warp and _block) one warp an env is 3-10x faster
+// on the episode's state (the tip near M/12) up to 8192 points, and on
+// spread tips (every row of some env live) up to 6401; from 8192 points on
+// spread tips the block-per-env kernel is faster: a block's shared memory
+// then holds six rows or fewer, so few envs share an SM, while the
+// block-per-env kernel spreads one env over 16 warps.
 //
 // Replaces, for these rows, the TPU kernel
 // pdecontrolgym_tpu/ops/neuron_interval.py::make_neuron_interval_fn
@@ -16,10 +26,11 @@
 // sees 2*M floats an env a call. What the block adds is one barrier a dt-step
 // (two while the norm ring is written).
 //
-// Layout. W = min(ceil(M / 512), 16) warps (a block of at most 512 threads,
-// so a thread may hold 128 registers: at 1024 threads and 64 registers the
-// kernel spilled) and P = ceil(M / (32 W)) slots a lane (9 <= P <= 32, a
-// template parameter: up to 16 below M = 8192, more above). The warps hold
+// Layout of the block-per-env kernel. W = min(ceil(M / 512), 16) warps (a
+// block of at most 512 threads, so a thread may hold 128 registers: at 1024
+// threads and 64 registers the kernel spilled; the caller gives W) and P =
+// ceil(M / (32 W)) slots a lane (9 <= P <= 32, a template parameter: up to
+// 16 below M = 8192, more above). The warps hold
 // contiguous stretches: lane l of warp w holds row 32 (w P + q) + l in
 // slot q. A slot whose first row lies past the new tip
 // changes nothing, so a dt-step skips it (a warp-uniform test); a warp whose
@@ -297,13 +308,194 @@ cudaError_t launch(const NeuronArgs& p, int warps, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// -- one warp an env, the row in shared memory --------------------------------------
+//
+// The block-per-env kernel runs the env's chain in every thread of the block
+// and passes a block barrier a dt-step: 4096 envs of 1201 points take about
+// six waves of a few blocks an SM, each wave 100 chained dt-steps whose
+// latency nothing hides. Here one warp takes one env and its row lives in
+// shared memory (rows padded to `stride`, a multiple of 32, with zeros), E
+// warps a block sharing one copy of pB: at M = 1201 some 32 envs an SM, so
+// 4096 envs are resident at once and their chains interleave on the
+// schedulers, with no block barrier. Lane l updates rows l, l + 32, ... up to
+// the new tip, 32 rows a pass, reading each row's neighbours from shared
+// memory; a pass's new rows are written after the next pass has read its
+// neighbours (the last row of one pass is the first neighbour of the next),
+// so every update reads the old row. The rows L', L' - 1, L' - 2, 0 and 1
+// that the next dt-step's chain reads come from shared memory too. The
+// float operations are those of the block-per-env kernel, in the same
+// order; the control integral is each lane's rows in order, then the warp's
+// butterfly, and the norms likewise.
+__global__ void __launch_bounds__(16 * 32, 2)
+neuron_interval_wide_warp_kernel(const NeuronArgs p, int stride) {
+  extern __shared__ float smem[];  // pB, then each warp's row, `stride` floats each
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int M = p.M;
+  float* pBs = smem;
+  for (int i = threadIdx.x; i < stride; i += blockDim.x) pBs[i] = i < M ? p.pB[i] : 0.f;
+  const int env = blockIdx.x * (blockDim.x >> 5) + warp;
+  float* s = smem + (1 + warp) * stride;
+  const size_t row = static_cast<size_t>(env) * M;
+  if (env < p.B)
+    for (int i = lane; i < stride; i += 32) s[i] = i < M ? p.u[row + i] : 0.f;
+  __syncthreads();
+  if (env >= p.B) return;  // whole warp
+
+  const float pB0 = pBs[0];
+  float Z0 = p.Z[2 * env], Z1 = p.Z[2 * env + 1];
+  int L = p.L[env];
+  float t = p.t[env];
+
+  // the launch's constant divisors and numerators
+  const float r_scale = 1.0f / p.scale, r_dx = 1.0f / p.dx, r_D = 1.0f / p.D;
+  const bool ok_scale = div_divisor_ok(p.scale), ok_dx = div_divisor_ok(p.dx),
+             ok_D = div_divisor_ok(p.D);
+  const bool D_num_ok = div_numerator_ok(p.D), a_num_ok = div_numerator_ok(p.a);
+
+  for (int j = 0; j < p.K; ++j) {
+    if (p.prev != nullptr && j == p.K - 1)
+      for (int i = lane; i < M; i += 32) p.prev[row + i] = s[i];
+    t = t + p.dt;
+    const float lt = Z1 + p.LSubS;
+    const float dxreal = p.dx * lt;
+    const float dxreal2 = dxreal * dxreal;
+    const float dxreal_2 = 2.0f * dxreal;
+    // this dt-step's divisors: dx, dxreal^2 and lt in the domain put dxreal
+    // and 2 dxreal there too
+    const bool ok_step = ok_dx && div_divisor_ok(dxreal2) && div_divisor_ok(lt);
+    const float r_x2 = 1.0f / dxreal2, r_lt = 1.0f / lt, r_x = 1.0f / dxreal;
+    const float r_2x = 0.5f * r_x;  // = RN(1 / (2 dxreal)) where ok_step: halving is exact
+
+    // cone ODE from the OLD boundary index and the OLD row; L from the new
+    // cone state
+    const float uL = s[L], uLm1 = L >= 1 ? s[L - 1] : 0.f, uLm2 = L >= 2 ? s[L - 2] : 0.f;
+    const float u0 = s[0], u1 = s[1];
+    const float ux_tip = div_exact(3.0f * uL - 4.0f * uLm1 + uLm2, dxreal_2, r_2x, ok_step);
+    const float Z0n = (p.aT1 * Z0 - p.beta_c * ux_tip) * p.dt + Z0;
+    const float Z1n = p.RSubG * Z0 * p.dt + Z1;
+    const float raw = rintf(div_exact(div_exact(Z1n + p.LSubS, p.scale, r_scale, ok_scale),
+                                      p.dx, r_dx, ok_dx));  // half to even
+    const int Ln = static_cast<int>(fminf(fmaxf(raw, 1.0f), static_cast<float>(M - 1)));
+    const float ptip0 = p.p[2 * Ln], ptip1 = p.p[2 * Ln + 1];
+    const float tip_val = p.H0 * Z0n + p.H1 * Z1n;
+    const float growth = p.RSubG * Z0;
+
+    // passes of 32 rows up to the new tip, in place, each pass's rows
+    // written after the next pass has read its neighbours
+    const int qmax = Ln >> 5;
+    float part = 0.f, tip_pBu = 0.f, pending = 0.f;
+    for (int q = 0; q <= qmax; ++q) {
+      const int i = 32 * q + lane;
+      const float v = s[i];
+      const float um1 = s[i > 0 ? i - 1 : 0];
+      const float up1 = s[i + 1 < stride ? i + 1 : i];
+      const float n_xx = up1 - 2.0f * v + um1;
+      const float diff = up1 - um1;
+      const float n_a = p.a * diff;
+      const float rowm1 = static_cast<float>(i - 1);  // in the domain: 0 or 1 <= |.| < 2^14
+      float uxx = div_by_reciprocal(n_xx, dxreal2, r_x2);
+      float row_lt = div_by_reciprocal(rowm1, lt, r_lt);
+      float a_dx = div_by_reciprocal(n_a, dxreal, r_x);
+      const bool off = !(ok_step && div_numerator_ok(n_xx) && div_numerator_ok(n_a));
+      if (__any_sync(kFull, off)) {  // rare: IEEE division where an operand is off the domain
+        if (off) {
+          uxx = n_xx / dxreal2;
+          row_lt = rowm1 / lt;
+          a_dx = n_a / dxreal;
+        }
+      }
+      const float adv = row_lt * growth * diff / 2.0f;
+      const float interior = v + p.dt * (p.D * uxx + adv - a_dx / 2.0f - p.g * v);
+      const bool inner_row = i >= 1 && i < Ln;
+      const float pBq = pBs[i];
+      part += inner_row ? pBq * v : 0.f;
+      tip_pBu = (i == Ln) ? pBq * v : tip_pBu;
+      const float r = inner_row ? interior : v;
+      __syncwarp();
+      if (q > 0) s[i - 32] = pending;
+      pending = (i == Ln) ? tip_val : r;
+    }
+    __syncwarp();
+    s[32 * qmax + lane] = pending;
+
+    // backstepping control: masked trapezoid over [0, L_new], OLD u and dxreal
+    const float inner = warp_sum(part) * dxreal;
+    const float tip_term = __shfl_sync(kFull, tip_pBu, Ln & 31);
+    const float middle = div_exact(dxreal * pB0 * u0 / 2.0f + inner + dxreal / 2.0f * tip_term,
+                                   p.D, r_D, ok_D);
+    const float control = lt * (p.coeff * u0 - middle + (ptip0 * Z0n + ptip1 * Z1n));
+
+    // left boundary through a fictitious point; row 0 wins over the
+    // interior, the tip (L_new >= 1) over row 0
+    const float ufic = u1 - control * dxreal * 2.0f;
+    const float D_dx2 = (ok_step && D_num_ok) ? div_by_reciprocal(p.D, dxreal2, r_x2)
+                                              : p.D / dxreal2;
+    const float a_2dx = (ok_step && a_num_ok) ? div_by_reciprocal(p.a, dxreal_2, r_2x)
+                                              : p.a / dxreal_2;
+    const float u0n =
+        (D_dx2 * (u1 - 2.0f * u0 + ufic) - a_2dx * (u1 - ufic) - p.g * u0) * p.dt + u0;
+    if (lane == 0) s[0] = u0n;
+    __syncwarp();
+
+    if (p.W > 0 && j >= p.K - p.W) {
+      float acc = 0.f;
+      if (p.ord == 0) {
+        for (int i = lane; i < M; i += 32) acc = fmaxf(acc, fabsf(s[i]));
+        acc = warp_max(acc);
+      } else if (p.ord == 1) {
+        for (int i = lane; i < M; i += 32) acc += fabsf(s[i]);
+        acc = warp_sum(acc);
+      } else {
+        for (int i = lane; i < M; i += 32) acc += s[i] * s[i];
+        acc = sqrtf(warp_sum(acc));
+      }
+      if (lane == 0) p.norms[static_cast<size_t>(env) * p.W + j % p.W] = acc;
+    }
+
+    // the time reset fires per dt-step
+    t = (t >= p.nt) ? 0.0f : t;
+    Z0 = Z0n; Z1 = Z1n; L = Ln;
+  }
+
+  for (int i = lane; i < M; i += 32) p.u_out[row + i] = s[i];
+  if (lane == 0) {
+    p.Z_out[2 * env] = Z0;
+    p.Z_out[2 * env + 1] = Z1;
+    p.L_out[env] = L;
+    p.t_out[env] = t;
+    p.done[env] = (t == 0.0f) ? 1 : 0;
+  }
+}
+
+cudaError_t fill_args(NeuronArgs& p, const float* u, const float* Z, const int* L,
+                      const float* t, const float* pB, const float* ptab, float* u_out,
+                      float* Z_out, int* L_out, float* t_out, unsigned char* done,
+                      float* norms, float* prev, int B, int M, int K, int W, int ord,
+                      float dt, float dx, float D, float a, float g, float LSubS, float scale,
+                      float RSubG, float aT1, float beta_c, float nt, float coeff, float H0,
+                      float H1) {
+  if (M <= kMaxNx || M > kMaxMWide || B < 0 || K < 1 || W < 0 || W > K || ord < 0 ||
+      ord > 2 || (W > 0 && norms == nullptr))
+    return cudaErrorInvalidValue;
+  p.u = u; p.Z = Z; p.L = L; p.t = t; p.pB = pB; p.p = ptab;
+  p.u_out = u_out; p.Z_out = Z_out; p.L_out = L_out; p.t_out = t_out;
+  p.done = done; p.norms = norms; p.prev = prev;
+  p.B = B; p.M = M; p.K = K; p.W = W; p.ord = ord;
+  p.dt = dt; p.dx = dx; p.D = D; p.a = a; p.g = g; p.LSubS = LSubS; p.scale = scale;
+  p.RSubG = RSubG; p.aT1 = aT1; p.beta_c = beta_c; p.nt = nt; p.coeff = coeff;
+  p.H0 = H0; p.H1 = H1;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches K dt-steps of rows of kMaxNx + 1 to 16384 points on `stream`; the
-// arguments are neuron_interval_launch's. Returns cudaGetLastError() after the
-// launch (0 on success), cudaErrorInvalidValue for a row the kernel does not
+// Launches K dt-steps of rows of kMaxNx + 1 to 16384 points on `stream`, one
+// block of `warps` warps an env (ops/neuron_interval.py, wide_layout: 1 to
+// 16, at 9 to 32 points a lane); the other arguments are
+// neuron_interval_launch's. Returns cudaGetLastError() after the launch (0 on
+// success), cudaErrorInvalidValue for a row or a layout the kernel does not
 // take; does not synchronise. `norms` and `prev` may be null.
 int neuron_interval_wide_launch(const float* u, const float* Z, const int* L, const float* t,
                                 const float* pB, const float* ptab,
@@ -312,24 +504,18 @@ int neuron_interval_wide_launch(const float* u, const float* Z, const int* L, co
                                 int B, int M, int K, int W, int ord,
                                 float dt, float dx, float D, float a, float g, float LSubS,
                                 float scale, float RSubG, float aT1, float beta_c, float nt,
-                                float coeff, float H0, float H1,
+                                float coeff, float H0, float H1, int warps,
                                 int device, void* stream) {
-  if (M <= kMaxNx || M > kMaxMWide || B < 0 || K < 1 || W < 0 || W > K || ord < 0 ||
-      ord > 2 || (W > 0 && norms == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0) return 0;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
   NeuronArgs p;
-  p.u = u; p.Z = Z; p.L = L; p.t = t; p.pB = pB; p.p = ptab;
-  p.u_out = u_out; p.Z_out = Z_out; p.L_out = L_out; p.t_out = t_out;
-  p.done = done; p.norms = norms; p.prev = prev;
-  p.B = B; p.M = M; p.K = K; p.W = W; p.ord = ord;
-  p.dt = dt; p.dx = dx; p.D = D; p.a = a; p.g = g; p.LSubS = LSubS; p.scale = scale;
-  p.RSubG = RSubG; p.aT1 = aT1; p.beta_c = beta_c; p.nt = nt; p.coeff = coeff;
-  p.H0 = H0; p.H1 = H1;
+  cudaError_t err = fill_args(p, u, Z, L, t, pB, ptab, u_out, Z_out, L_out, t_out, done, norms,
+                              prev, B, M, K, W, ord, dt, dx, D, a, g, LSubS, scale, RSubG,
+                              aT1, beta_c, nt, coeff, H0, H1);
+  if (err == cudaSuccess && (warps < 1 || warps > kMaxWarps)) err = cudaErrorInvalidValue;
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (B == 0) return 0;
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
 
-  const int warps = M > 512 * kMaxWarps ? kMaxWarps : (M + 511) / 512;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((M + 32 * warps - 1) / (32 * warps)) {  // slots a lane, 9 .. 32
 #define PDECG_CASE(P) case P: return static_cast<int>(launch<P>(p, warps, s));
@@ -342,6 +528,39 @@ int neuron_interval_wide_launch(const float* u, const float* Z, const int* L, co
 #undef PDECG_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The same dt-steps, one warp an env and `envs` (1 to 16) envs a block, the
+// rows in shared memory (ops/neuron_interval.py, wide_layout, picks this
+// kernel and `envs` by M).
+int neuron_interval_warp_launch(const float* u, const float* Z, const int* L, const float* t,
+                                const float* pB, const float* ptab,
+                                float* u_out, float* Z_out, int* L_out, float* t_out,
+                                unsigned char* done, float* norms, float* prev,
+                                int B, int M, int K, int W, int ord,
+                                float dt, float dx, float D, float a, float g, float LSubS,
+                                float scale, float RSubG, float aT1, float beta_c, float nt,
+                                float coeff, float H0, float H1, int envs,
+                                int device, void* stream) {
+  NeuronArgs p;
+  cudaError_t err = fill_args(p, u, Z, L, t, pB, ptab, u_out, Z_out, L_out, t_out, done, norms,
+                              prev, B, M, K, W, ord, dt, dx, D, a, g, LSubS, scale, RSubG,
+                              aT1, beta_c, nt, coeff, H0, H1);
+  const int stride = (M + 31) / 32 * 32;
+  const size_t bytes = sizeof(float) * stride * (1 + static_cast<size_t>(envs));
+  if (err == cudaSuccess && (envs < 1 || envs > 16 || bytes > 232448))
+    err = cudaErrorInvalidValue;
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (B == 0) return 0;
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(neuron_interval_wide_warp_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  neuron_interval_wide_warp_kernel<<<(B + envs - 1) / envs, 32 * envs, bytes,
+                                static_cast<cudaStream_t>(stream)>>>(p, stride);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

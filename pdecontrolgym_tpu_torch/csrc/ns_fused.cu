@@ -66,18 +66,15 @@
 // in ops/ns_fused.py, MAX_N_WIDE). Two work fields of 256 x 264 floats already
 // exceed a block's shared memory, so the step runs as a sequence of kernels
 // through device memory (wide_step): the predictor (and the four edge passes,
-// one block an env, where an edge is Neumann), G into an (np, np) scratch
-// matrix an env, the four products, the corrector with the mirror ring and
-// the tracking sum's partial sums a block, summed in a fixed order by one warp
-// an env. The stencil passes are the one-block kernel's functions over a grid
-// of blocks an env (np rounded up to 64 here). Each product is a batched tiled
-// product on the tensor cores (wide_product): a block takes a 64 x 64 output
-// tile of one env, its K dimension staged 32 deep through two shared buffers
-// by cp.async, its warps taking the same mma.sync sequence, and so the same
-// precisions, as the one-block kernel; "* inv" is the second product's
-// epilogue. What bounds it at 1024 envs of 256 x 256: the three TF32 products
-// of each of the four (0.83 ms at 495 TFLOP/s) over the bytes (0.40 ms);
-// the scratch adds two reads and two writes of an (np, np) matrix a product.
+// one block an env, where an edge is Neumann), the four products of
+// csrc/ns_wide.cu (wgmma fed by bulk copies; G formed from u* and v* as the
+// first product loads its operand; the second and third fused up to np =
+// 256), the corrector with the mirror ring and the tracking sum's partial
+// sums a block, summed in a fixed order by one warp an env. The stencil
+// passes are the one-block kernel's functions over a grid of blocks an env
+// (np rounded up to 64 here). What bounds it at 1024 envs of 256 x 256: the
+// three TF32 products of each of the four (0.83 ms at 495 TFLOP/s) over the
+// bytes (0.40 ms).
 //
 // Points where the TPU kernel could go wrong, and what this one does:
 // 1. Boundary writes: above.
@@ -97,6 +94,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "ns_wide.cuh"
 
 namespace {
 
@@ -247,115 +246,6 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uin
   const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
-}
-
-// acc[mt][j] += A * B over k = 0 .. K-1 for a warp's output tile of MT x 16
-// rows and 32 columns (four m16n8 tiles a row of 16): A points at the tile's
-// first row, row-major [m][k] with row stride lda; B at its first column,
-// [k][n] with row stride ldb. The k loop of `product` below, over MT tiles
-// that share each B fragment (the multi-pass step's products; `product`
-// keeps its own copy, which the one-block kernel's 80 registers hold without
-// spilling).
-template <int PREC, int MT>
-__device__ __forceinline__ void accumulate(float (&acc)[MT][4][4], const float* A, int lda,
-                                           const float* B, int ldb, int K) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  if (PREC == kHighest) {
-#pragma unroll 2
-    for (int k0 = 0; k0 < K; k0 += 8) {
-      uint32_t ah[MT][4], al[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const float* a_lo_row = A + (16 * mt + g) * lda;  // rows g and g + 8
-        const float* a_hi_row = a_lo_row + 8 * lda;
-        split_tf32(a_lo_row[k0 + t], ah[mt][0], al[mt][0]);
-        split_tf32(a_hi_row[k0 + t], ah[mt][1], al[mt][1]);
-        split_tf32(a_lo_row[k0 + t + 4], ah[mt][2], al[mt][2]);
-        split_tf32(a_hi_row[k0 + t + 4], ah[mt][3], al[mt][3]);
-      }
-      const float* b0 = B + (k0 + t) * ldb + g;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        uint32_t bh[2], bl[2];
-        split_tf32(b0[8 * j], bh[0], bl[0]);
-        split_tf32(b0[4 * ldb + 8 * j], bh[1], bl[1]);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_tf32(acc[mt][j], al[mt], bh);
-          mma_tf32(acc[mt][j], ah[mt], bl);
-          mma_tf32(acc[mt][j], ah[mt], bh);
-        }
-      }
-    }
-  } else {
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      uint32_t ah[MT][4], al[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const float* a_lo_row = A + (16 * mt + g) * lda;
-        const float* a_hi_row = a_lo_row + 8 * lda;
-        const float2 x0 = *reinterpret_cast<const float2*>(a_lo_row + k0 + 2 * t);
-        const float2 x1 = *reinterpret_cast<const float2*>(a_hi_row + k0 + 2 * t);
-        const float2 x2 = *reinterpret_cast<const float2*>(a_lo_row + k0 + 2 * t + 8);
-        const float2 x3 = *reinterpret_cast<const float2*>(a_hi_row + k0 + 2 * t + 8);
-        if (PREC == kDefault) {
-          ah[mt][0] = pack_bf16(x0.x, x0.y); ah[mt][1] = pack_bf16(x1.x, x1.y);
-          ah[mt][2] = pack_bf16(x2.x, x2.y); ah[mt][3] = pack_bf16(x3.x, x3.y);
-        } else {
-          split_bf16(x0.x, x0.y, ah[mt][0], al[mt][0]);
-          split_bf16(x1.x, x1.y, ah[mt][1], al[mt][1]);
-          split_bf16(x2.x, x2.y, ah[mt][2], al[mt][2]);
-          split_bf16(x3.x, x3.y, ah[mt][3], al[mt][3]);
-        }
-      }
-      const float* b0 = B + (k0 + 2 * t) * ldb + g;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float* bj = b0 + 8 * j;
-        uint32_t bh[2], bl[2];
-        if (PREC == kDefault) {
-          bh[0] = pack_bf16(bj[0], bj[ldb]);
-          bh[1] = pack_bf16(bj[8 * ldb], bj[9 * ldb]);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][j], ah[mt], bh);
-        } else {
-          split_bf16(bj[0], bj[ldb], bh[0], bl[0]);
-          split_bf16(bj[8 * ldb], bj[9 * ldb], bh[1], bl[1]);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            mma_bf16(acc[mt][j], al[mt], bh);
-            mma_bf16(acc[mt][j], ah[mt], bl);
-            mma_bf16(acc[mt][j], ah[mt], bh);
-          }
-        }
-      }
-    }
-  }
-}
-
-// Stores the warp's 16 x 32 tile acc at (m0, n0) of C (row stride ldc), times
-// inv (row stride ldi) elementwise where inv is given. c0, c1 lie at
-// (m0 + g, col), (m0 + g, col + 1); c2, c3 eight rows down.
-__device__ __forceinline__ void store_tile(const float (&acc)[4][4], float* C, int ldc,
-                                           const float* inv, int ldi, int m0, int n0) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = n0 + 8 * j + 2 * t;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + g + 8 * h;
-      float2 c = make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
-      if (inv != nullptr) {
-        const float2 s = __ldg(reinterpret_cast<const float2*>(inv + row * ldi + col));
-        c.x = c.x * s.x;
-        c.y = c.y * s.y;
-      }
-      *reinterpret_cast<float2*>(C + row * ldc + col) = c;
-    }
-  }
 }
 
 // C = A * B (then * inv, elementwise, where inv is given): A row-major [m][k]
@@ -735,10 +625,7 @@ cudaError_t launch(const Params& p, int threads, size_t bytes, cudaStream_t s) {
 // -- grids past 128 x 128: the step in passes through device memory ----------------
 
 constexpr int kWideThreads = 256;  // the stencil passes' blocks
-constexpr int kTile = 64;          // a product block's output tile is kTile x kTile
-constexpr int kTileK = 32;         // ... taken kTileK deep a stage
-constexpr int kLdA = kTileK + 4;   // the staged tiles' row strides: conflict-free
-constexpr int kLdB = kTile + 8;    // fragment loads, as in the one-block kernel
+constexpr int kWideTile = 64;      // np is a multiple of it (csrc/ns_wide.cu)
 
 // The blocks of one env in a stencil pass: one thread for each 4 cells of the
 // padded square. Env = blockIdx.x, its part = blockIdx.y.
@@ -756,14 +643,6 @@ __global__ void __launch_bounds__(kWideThreads) wide_boundary(const Params p) {
   const int env = blockIdx.x;
   const size_t off = static_cast<size_t>(env) * p.ny * p.nx;
   apply_bc(p.u_out + off, p.v_out + off, p, p.act[env]);
-}
-
-// G into the env's (np, np) scratch matrix, zero on the ring and the padding.
-__global__ void __launch_bounds__(kWideThreads) wide_divergence(const Params p, float* G) {
-  const int env = blockIdx.x;
-  const size_t off = static_cast<size_t>(env) * p.ny * p.nx;
-  divergence(p.u_out + off, p.v_out + off, G + static_cast<size_t>(env) * p.np * p.np,
-             p.np, p, blockIdx.y * blockDim.x + threadIdx.x, gridDim.y * blockDim.x);
 }
 
 // This block's part of the env's tracking sum into partial[env][part]
@@ -820,107 +699,12 @@ __global__ void __launch_bounds__(kWideThreads) wide_sum(const float* partial, i
   if (lane == 0) tsum[env] = s;
 }
 
-// One of the four products for every env: C = A * B (then * inv), all
-// (np, np) row-major; A or B is a basis shared by the batch (its env stride
-// 0). A block takes one kTile x kTile output tile of one env, its four warps a
-// 32 x 32 quarter each (two rows of the one-block kernel's 16 x 32 warp tiles,
-// which share each B fragment). The K dimension is staged kTileK deep through
-// two shared-memory buffers filled by cp.async, the next stage loading while
-// the tensor cores take this one.
-struct GemmArgs {
-  const float* A;
-  const float* B;
-  float* C;
-  const float* inv;
-  size_t a_env, b_env;  // env strides in floats: np * np, or 0 for a basis
-  int np;
-};
-
-template <int PREC>
-__global__ void __launch_bounds__(128) wide_product(const GemmArgs g) {
-  __shared__ __align__(16) float As[2][kTile * kLdA];
-  __shared__ __align__(16) float Bs[2][kTileK * kLdB];
-  const int np = g.np, tiles = np / kTile;
-  const int env = blockIdx.x / (tiles * tiles);
-  const int tile = blockIdx.x - env * tiles * tiles;
-  const int m0 = kTile * (tile / tiles), n0 = kTile * (tile - (tile / tiles) * tiles);
-  const float* A = g.A + env * g.a_env + static_cast<size_t>(m0) * np;
-  const float* B = g.B + env * g.b_env + n0;
-  const int tid = threadIdx.x;
-
-  auto stage = [&](int kt) {
-    float* as = As[kt & 1];
-    float* bs = Bs[kt & 1];
-    const int k0 = kt * kTileK;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {  // kTile rows x kTileK / 4 chunks of A
-      const int c = tid + 128 * i, r = c >> 3, q = c & 7;
-      cp_async16(as + r * kLdA + 4 * q, A + static_cast<size_t>(r) * np + k0 + 4 * q);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {  // kTileK rows x kTile / 4 chunks of B
-      const int c = tid + 128 * i, r = c >> 4, q = c & 15;
-      cp_async16(bs + r * kLdB + 4 * q, B + static_cast<size_t>(k0 + r) * np + 4 * q);
-    }
-    cp_async_commit();
-  };
-
-  const int warp = tid >> 5, wm = 32 * (warp >> 1), wn = 32 * (warp & 1);
-  float acc[2][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][j][i] = 0.f;
-
-  const int nk = np / kTileK;
-  stage(0);
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) {
-      stage(kt + 1);  // into the buffer every warp finished with last iteration
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      cp_async_wait_all();
-    }
-    __syncthreads();
-    accumulate<PREC, 2>(acc, As[kt & 1] + wm * kLdA, kLdA, Bs[kt & 1] + wn, kLdB, kTileK);
-    __syncthreads();
-  }
-  float* C = g.C + static_cast<size_t>(env) * np * np;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-    store_tile(acc[mt], C, np, g.inv, np, m0 + wm + 16 * mt, n0 + wn);
-}
-
-// The four products: T1 = Qy^T G, T = (T1 Qx) * inv, E = T Qx^T, P = Qy E,
-// between the two scratch matrices of every env (G in s0, P back in s0).
-template <int PREC>
-cudaError_t wide_products(const Params& p, float* s0, float* s1, cudaStream_t st) {
-  const size_t env = static_cast<size_t>(p.np) * p.np, csize = env;
-  const int tiles = p.np / kTile;
-  const unsigned blocks = static_cast<unsigned>(p.B) * tiles * tiles;
-  const GemmArgs steps[4] = {
-      {p.consts + kQyT * csize, s0, s1, nullptr, 0, env, p.np},
-      {s1, p.consts + kQx * csize, s0, p.consts + kInv * csize, env, 0, p.np},
-      {s0, p.consts + kQxT * csize, s1, nullptr, env, 0, p.np},
-      {p.consts + kQy * csize, s1, s0, nullptr, 0, env, p.np},
-  };
-  for (const GemmArgs& g : steps) {
-    wide_product<PREC><<<blocks, 128, 0, st>>>(g);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
-}
-
 // The whole step past 128 x 128: predictor (and the edge passes where an edge
-// is Neumann), G, the four products, the corrector (edge passes), the
-// tracking sum. scratch: 2 B np^2 floats, then B wide_parts(np) partial sums.
+// is Neumann), the four products (csrc/ns_wide.cu, G formed from u* and v*
+// there), the corrector (edge passes), the tracking sum. scratch: 2 B np^2
+// floats, then B wide_parts(np) partial sums.
 cudaError_t wide_step(const Params& p, float* scratch, cudaStream_t st) {
   const size_t mats = static_cast<size_t>(p.B) * p.np * p.np;
-  float* s0 = scratch;
-  float* s1 = scratch + mats;
   const bool track = p.tsum != nullptr;
   float* partial = track ? scratch + 2 * mats : nullptr;
   const int parts = wide_parts(p.np);
@@ -934,14 +718,24 @@ cudaError_t wide_step(const Params& p, float* scratch, cudaStream_t st) {
   } while (0)
   PDECG_CHECK(wide_predict<<<grid, kWideThreads, 0, st>>>(p));
   if (p.neumann) PDECG_CHECK(wide_boundary<<<p.B, kWideThreads, 0, st>>>(p));
-  PDECG_CHECK(wide_divergence<<<grid, kWideThreads, 0, st>>>(p, s0));
-  switch (p.prec) {
-    case kHighest: err = wide_products<kHighest>(p, s0, s1, st); break;
-    case kHigh: err = wide_products<kHigh>(p, s0, s1, st); break;
-    default: err = wide_products<kDefault>(p, s0, s1, st); break;
-  }
+  pdecg::NSWideProducts w;
+  w.us = p.u_out;
+  w.vs = p.v_out;
+  w.consts = reinterpret_cast<const unsigned char*>(p.consts);
+  w.s0 = scratch;
+  w.s1 = scratch + mats;
+  w.B = p.B;
+  w.ny = p.ny;
+  w.nx = p.nx;
+  w.np = p.np;
+  w.prec = p.prec;
+  w.chdx = p.chdx;
+  w.chdy = p.chdy;
+  w.cg = p.cg;
+  const float* P = nullptr;
+  err = pdecg::ns_wide_products(w, &P, st);
   if (err != cudaSuccess) return err;
-  PDECG_CHECK(wide_correct<<<grid, kWideThreads, 0, st>>>(p, s0, partial));
+  PDECG_CHECK(wide_correct<<<grid, kWideThreads, 0, st>>>(p, P, partial));
   if (p.neumann) {
     PDECG_CHECK(wide_boundary<<<p.B, kWideThreads, 0, st>>>(p));
     if (track) PDECG_CHECK(wide_track<<<grid, kWideThreads, 0, st>>>(p, partial));
@@ -1038,9 +832,9 @@ long long ns_fused_wide_scratch_floats(int B, int np, int track) {
 
 // Launches one projection step on grids past 128 x 128 as a sequence of
 // kernels on `stream` (ns_fused_launch's arguments, np = max(ny, nx) rounded
-// up to 64, and ns_fused_wide_scratch_floats(B, np, tsum != null) floats of
-// scratch). Returns the first launch error (0 on success); does not
-// synchronise.
+// up to 64, `consts` NSStepSpec.kernel_constants' bytes for such grids, and
+// ns_fused_wide_scratch_floats(B, np, tsum != null) floats of scratch).
+// Returns the first launch error (0 on success); does not synchronise.
 int ns_fused_wide_launch(const float* u, const float* v, const float* act,
                          const float* consts, const float* uref, const float* vref,
                          float* u_out, float* v_out, float* p_out, float* tsum,
@@ -1051,7 +845,7 @@ int ns_fused_wide_launch(const float* u, const float* v, const float* act,
   Params p;
   cudaError_t err = make_params(p, u, v, act, consts, uref, vref, u_out, v_out, p_out, tsum,
                                 B, ny, nx, np, prec, bc, chdx, chdy, cinv, dt, nu, cg, ccorr);
-  if (err != cudaSuccess || np != ((big + kTile - 1) / kTile) * kTile ||
+  if (err != cudaSuccess || np != ((big + kWideTile - 1) / kWideTile) * kWideTile ||
       (scratch == nullptr && B > 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;

@@ -27,13 +27,15 @@ SOURCES = (
     _PKG / "csrc" / "interval1d_pcr.cu",
     _PKG / "csrc" / "interval1d_pcr_wide.cu",
     _PKG / "csrc" / "ns_fused.cu",
+    _PKG / "csrc" / "ns_wide.cu",
     _PKG / "csrc" / "neuron_interval.cu",
     _PKG / "csrc" / "neuron_interval_wide.cu",
     _PKG / "csrc" / "brain_tumor_field.cu",
     _PKG / "csrc" / "exact_div.cu",
 )
 HEADERS = (_PKG / "csrc" / "interval1d_common.cuh", _PKG / "csrc" / "interval1d_bodies.cuh",
-           _PKG / "csrc" / "exact_div.cuh", _PKG / "csrc" / "neuron_interval_common.cuh")
+           _PKG / "csrc" / "exact_div.cuh", _PKG / "csrc" / "neuron_interval_common.cuh",
+           _PKG / "csrc" / "ns_wide.cuh")
 BUILD_DIR = _PKG / "_build"
 # -fmad=false: no FMA contraction, so the kernels round as the plain PyTorch
 # version does (see csrc/interval1d.cu, point 4). Division and square root stay
@@ -154,8 +156,11 @@ def load() -> ctypes.CDLL:
         # u, Z, L, t, pB, p, u_out, Z_out, L_out, t_out, done, norms, prev; B, M,
         # K, W, ord; dt, dx, D, a, g, LSubS, scale, RSubG, aT1, beta_c, nt, coeff,
         # H0, H1
-        for fn in (lib.neuron_interval_launch, lib.neuron_interval_wide_launch):
-            fn.argtypes = [p] * 13 + [i] * 5 + [f] * 14 + tail
+        lib.neuron_interval_launch.argtypes = [p] * 13 + [i] * 5 + [f] * 14 + tail
+        lib.neuron_interval_launch.restype = ctypes.c_int
+        # ... and warps an env (one block an env) or envs a block (one warp)
+        for fn in (lib.neuron_interval_wide_launch, lib.neuron_interval_warp_launch):
+            fn.argtypes = [p] * 13 + [i] * 5 + [f] * 14 + [i] + tail
             fn.restype = ctypes.c_int
         # u, applied, can, u_out, treatment_radius, t1, has_t1; B, nx; dt, dx,
         # dx*dx, D, rho, k, -alpha, alpha/beta, thr_t1, thr_t2

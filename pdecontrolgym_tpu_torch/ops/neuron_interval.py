@@ -36,10 +36,12 @@ Two implementations, one contract:
   correction that equal IEEE division to the bit (``csrc/exact_div.cuh``).
   Rows of up to ``MAX_M`` points.
 - ``csrc/neuron_interval_wide.cu``, the same for rows of ``MAX_M + 1`` to
-  ``MAX_M_WIDE`` points: one block an env, each warp a contiguous stretch of
-  the row, the warps' parts of the control integral and their end rows
-  through shared memory behind one barrier a dt-step. ``WIDE_LAUNCHES``
-  counts its launches.
+  ``MAX_M_WIDE`` points in two layouts that :func:`wide_layout` picks by M:
+  up to ``WARP_MAX_M`` one warp an env with its row in shared memory (many
+  envs an SM, their chains interleaved); above, one block an env, each warp
+  a contiguous stretch of the row, the warps' parts of the control integral
+  and their end rows through shared memory behind one barrier a dt-step.
+  ``WIDE_LAUNCHES`` counts the launches of both.
 
 :func:`neuron_interval` dispatches on the tensors' device: the plain version
 for CPU tensors, the kernel for CUDA tensors. It never falls back from one to
@@ -67,7 +69,29 @@ WIDE_LAUNCHES = 0
 
 MAX_M = 512  # a warp holds a row of at most 32 * 16 points
 MAX_M_WIDE = 16384  # a block of 16 warps holds 16 * 32 * 32 points
+# Rows of MAX_M + 1 to WARP_MAX_M points take one warp an env, longer ones one
+# block an env: the crossover on spread tips, between 6401 and 8192 points on
+# an H100 (csrc/neuron_interval_wide.cu, PERF.md)
+WARP_MAX_M = 6401
+SHARED_BYTES = 232448  # the most shared memory a block can ask for
 RING_ORDS = {"1": 1, "2": 2, "inf": 0}
+
+
+def wide_layout(M: int):
+    """The launch of the K-step kernels past ``MAX_M``: ``("warp", envs)``,
+    one warp an env and ``envs`` envs a block (pB and each row in shared
+    memory, rows padded to 32 points, at most 16 envs), up to
+    ``WARP_MAX_M``; ``("block", warps, slots)`` above, one block of
+    ``ceil(M / 512)`` warps (at most 16) an env, ``ceil(M / (32 warps))``
+    points a lane. None at or below ``MAX_M`` (the warp kernel's rows) and
+    past ``MAX_M_WIDE``."""
+    if M <= MAX_M or M > MAX_M_WIDE:
+        return None
+    if M <= WARP_MAX_M:
+        stride = -(-M // 32) * 32
+        return ("warp", min(16, SHARED_BYTES // (4 * stride) - 1))
+    warps = min(16, -(-M // 512))
+    return ("block", warps, -(-M // (32 * warps)))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -270,7 +294,12 @@ def _neuron_interval_cuda(spec, u, Z, L, t, steps, window, ring_ord, need_prev):
         return None if x is None else x.data_ptr()
 
     wide = M > MAX_M
-    name = "neuron_interval_wide_launch" if wide else "neuron_interval_launch"
+    name, extra = "neuron_interval_launch", ()
+    if wide:
+        layout = wide_layout(M)  # envs a block, or warps an env
+        name = {"warp": "neuron_interval_warp_launch",
+                "block": "neuron_interval_wide_launch"}[layout[0]]
+        extra = (layout[1],)
     lib = _build.load()
     err = getattr(lib, name)(
         u.data_ptr(), Z.data_ptr(), L.data_ptr(), t.data_ptr(),
@@ -278,7 +307,7 @@ def _neuron_interval_cuda(spec, u, Z, L, t, steps, window, ring_ord, need_prev):
         u_out.data_ptr(), Z_out.data_ptr(), L_out.data_ptr(), t_out.data_ptr(),
         done.data_ptr(), ptr(ring), ptr(prev),
         B, M, steps, window, RING_ORDS[ring_ord],
-        *spec.scalars(),
+        *spec.scalars(), *extra,
         u.device.index if u.device.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(u.device).cuda_stream,
     )

@@ -30,8 +30,10 @@ Two implementations, one contract:
   the four products on the tensor cores (``mma.sync``) in the kernel's body
   (see the note at the top of that file). It takes grids from 3×3 to
   128×128 (``MAX_N``); from there to ``MAX_N_WIDE`` the same step runs as a
-  sequence of kernels of that file through device memory, its products
-  batched tiled products on the tensor cores.
+  sequence of kernels through device memory: the stencil passes of that file
+  and the products of ``csrc/ns_wide.cu`` (``wgmma`` fed by bulk copies, the
+  second and third products fused up to ``WIDE_FUSED_MAX``), whose bases the
+  host lays out once (:func:`wide_operands`, :func:`block_operand`).
 
 :func:`ns_step` dispatches on the tensors' device: the plain version for CPU
 tensors, the kernel for CUDA tensors. It never falls back from one to the
@@ -115,6 +117,113 @@ def fused_basis(ny: int, nx: int, dtype=torch.float32, device="cpu"):
     """:func:`fused_basis_np` rounded to ``dtype``, as tensors on ``device``."""
     return {k: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
             for k, a in fused_basis_np(ny, nx).items()}
+
+
+# -- the multi-pass step's products (csrc/ns_wide.cu) ---------------------------------
+#
+# Every product there right-multiplies a matrix of the env (the A operand,
+# loaded into registers and split there) by a basis (the B operand, read by
+# wgmma from shared memory, which takes TF32 only K-major). The left products
+# are taken as their transposes: T1ᵀ = Gᵀ·Qy, T = (T1·Qx) ∘ inv, E = T·Qxᵀ,
+# Pᵀ = Eᵀ·Qyᵀ. Each product writes its result in the order in which the next
+# one's A fragments are read, so a thread's four accumulators of an 8-column
+# chunk are one 16-byte fragment of the next product; that fixes an order of
+# the rows and columns of some products and of the terms of some sums, and
+# the bases below are laid out in the same orders.
+
+# products 2 and 3 fused (T kept in the SM) up to this padded side
+WIDE_FUSED_MAX = 256
+
+
+def wide_tile(np_: int) -> int:
+    """The width of the multi-pass step's product tiles on the padded side
+    ``np_``: ``np_`` itself up to ``WIDE_FUSED_MAX``, else the widest of 256,
+    224, 208, 192, 176 and 160 that divides it (one of them divides every
+    multiple of 64 from 320 to ``MAX_N_WIDE``)."""
+    if np_ <= WIDE_FUSED_MAX:
+        return np_
+    return next(nt for nt in (256, 224, 208, 192, 176, 160) if np_ % nt == 0)
+
+
+def _swap23(i):
+    """``i`` with its bits 2 and 3 exchanged."""
+    return (i & ~12) | ((i >> 1) & 4) | ((i << 1) & 8)
+
+
+def wide_maps(np_: int, nt: int):
+    """The index orders of the products, int64 numpy arrays of length
+    ``np_``: ``col`` (an output column of the first and third products, within
+    its tile of width ``nt``, to the y-mode or x it holds), ``row1`` (a row of
+    the first product to the x it holds), ``k3`` and ``k4`` (the position of a
+    term in the third and fourth products' sums to the x-mode or y-mode it
+    adds)."""
+    i = np.arange(np_, dtype=np.int64)
+    n0, cl = i - i % nt, i % nt
+    col = n0 + 16 * (cl >> 4) + 4 * ((cl >> 3) & 1) + ((cl >> 1) & 3) + 8 * (cl & 1)
+    k3 = 8 * (i >> 3) + 2 * (i & 3) + ((i >> 2) & 1)
+    return {"col": col, "row1": _swap23(i), "k3": k3, "k4": _swap23(i)}
+
+
+def _bf16_order(np_: int):
+    """The TF32 position of each position of a bf16 product's sum: a bf16
+    fragment packs the values of two TF32 fragments (csrc/ns_wide.cu)."""
+    K = np.arange(np_, dtype=np.int64)
+    q = K & 15
+    return (K - q) + 8 * (q & 1) + 4 * (q >> 3) + ((q >> 1) & 3)
+
+
+def _split(x, precision):
+    """``x`` (float32) as its head and tail: TF32 (the low 13 mantissa bits
+    cleared) and the float32 remainder at "highest", bf16 pairs otherwise
+    (as float32 values; the tail zero at "default")."""
+    if precision == "highest":
+        hi = (x.view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+        return hi, x - hi
+    t = torch.from_numpy(x)
+    hi = t.bfloat16().float()
+    lo = (t - hi).bfloat16().float() if precision == "high" else torch.zeros_like(t)
+    return hi.numpy(), lo.numpy()
+
+
+def wide_operands(ny: int, nx: int, precision: str = "highest"):
+    """The B operands of the multi-pass step's four products, each as
+    ``(hi, lo)`` float32 ``(np, np)`` arrays indexed ``[output column][term]``
+    (K-major): hi + lo is the float32 basis, the terms in the order of the
+    product's A stream (bf16: :func:`_bf16_order` over it). Also ``inv``."""
+    np_ = -(-max(ny, nx) // 64) * 64
+    nt = wide_tile(np_)
+    maps = wide_maps(np_, nt)
+    b = {k: np.zeros((np_, np_), np.float32) for k in ("qy", "qyT", "qx", "qxT", "inv")}
+    for k, a in fused_basis_np(ny, nx).items():
+        if k in b:
+            b[k][:a.shape[0], :a.shape[1]] = a
+    col = maps["col"]
+    mats = (b["qyT"][col, :],                         # [c][y]:   Qy[y][ky(c)]
+            b["qxT"],                                 # [kx][x]:  Qx[x][kx]
+            b["qx"][col, :][:, maps["k3"]],           # [c][k]:   Qx[x(c)][kx(k)]
+            b["qy"][:, maps["k4"]])                   # [y][k]:   Qy[y][ky(k)]
+    if precision != "highest":
+        order = _bf16_order(np_)
+        mats = tuple(m[:, order] for m in mats)
+    return {"products": [_split(np.ascontiguousarray(m), precision) for m in mats],
+            "inv": b["inv"], "tile": nt}
+
+
+def block_operand(x, nt: int, precision: str):
+    """A K-major ``(np, np)`` operand in the layout of the kernel's shared
+    memory, as bytes: for each tile of ``nt`` columns and each wgmma's slice
+    of the sum (8 TF32 or 16 bf16 terms), its two core-matrix columns (the
+    first and second halves of the slice), each ``nt / 8`` core matrices of 8
+    columns by 16 bytes. One slice is one bulk copy's contiguous block."""
+    np_ = x.shape[0]
+    if precision == "highest":
+        per, ki = 4, 8
+        x = np.ascontiguousarray(x, np.float32)
+    else:
+        per, ki = 8, 16
+        x = torch.from_numpy(np.ascontiguousarray(x)).bfloat16().view(torch.int16).numpy()
+    blocks = x.reshape(np_ // nt, nt // 8, 8, np_ // ki, 2, per).transpose(0, 3, 4, 1, 2, 5)
+    return np.ascontiguousarray(blocks).view(np.uint8).reshape(-1)
 
 
 def apply_boundary(u, v, boundary_condition, a_row, a_col):
@@ -205,18 +314,26 @@ class NSStepSpec:
         return -(-max(self.ny, self.nx) // tile) * tile
 
     def kernel_constants(self, device):
-        """The kernel's ``(5, np, np)`` float32 constants on ``device``: the
-        bases of the four products in the roles the kernel reads them in
-        (Qyᵀ, Qx, Qxᵀ, Qy), then inv, each in the top-left corner of a zero
-        matrix."""
+        """The kernel's constants on ``device``. Up to ``MAX_N``, ``(5, np,
+        np)`` float32: the bases of the four products in the roles the kernel
+        reads them in (Qyᵀ, Qx, Qxᵀ, Qy), then inv, each in the top-left
+        corner of a zero matrix. Past it, bytes: the four products' operands
+        of :func:`wide_operands`, hi then lo, each laid out by
+        :func:`block_operand`, then inv as ``(np, np)`` float32."""
         device = torch.device(device)
         if device not in self._consts:
             np_ = self.padded
-            b = fused_basis_np(self.ny, self.nx)
-            out = np.zeros((5, np_, np_), np.float32)
-            for k, name in enumerate(("qyT", "qx", "qxT", "qy", "inv")):
-                a = b[name]
-                out[k, :a.shape[0], :a.shape[1]] = a
+            if self.wide:
+                ops = wide_operands(self.ny, self.nx, self.spectral_precision)
+                parts = [block_operand(m, ops["tile"], self.spectral_precision)
+                         for pair in ops["products"] for m in pair]
+                out = np.concatenate(parts + [ops["inv"].view(np.uint8).reshape(-1)])
+            else:
+                b = fused_basis_np(self.ny, self.nx)
+                out = np.zeros((5, np_, np_), np.float32)
+                for k, name in enumerate(("qyT", "qx", "qxT", "qy", "inv")):
+                    a = b[name]
+                    out[k, :a.shape[0], :a.shape[1]] = a
             self._consts[device] = torch.from_numpy(out).to(device)
         return self._consts[device]
 

@@ -170,6 +170,36 @@ def test_cuda_wide_env_kernel_path_matches_eager_path(reward):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M", [tni.WARP_MAX_M, tni.WARP_MAX_M + 1])
+@pytest.mark.parametrize("ring_ord", ["1", "2", "inf"])
+def test_cuda_wide_kernel_at_the_layout_crossover(M, ring_ord):
+    """Both sides of the crossover between one warp an env and one block an
+    env (``tni.wide_layout``): spread tips, a norm window in each ord, the
+    previous row."""
+    _need_card()
+    assert tni.wide_layout(M)[0] == ("warp" if M <= tni.WARP_MAX_M else "block")
+    env = NeuronEnv(wide_config(M))
+    s = _state(env, 37, lo=_lo(env), seed=M)
+    got, want = _launch_and_plain(env, s, steps=20, window=3, ring_ord=ring_ord,
+                                  need_prev=True)
+    _check(got, want, 3, True)
+    assert bool((got[2] != s.L).any())  # some tip moved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [513, 1201, 16384])
+@pytest.mark.parametrize("ring_ord", ["1", "2", "inf"])
+def test_cuda_wide_kernel_window_in_each_ord(M, ring_ord):
+    """The episode's state (the tip near M/12) with a window of 4 norms in
+    each ord, 256 envs, K = 10."""
+    _need_card()
+    env = NeuronEnv(wide_config(M))
+    s, _ = env.init_batch(256)
+    got, want = _launch_and_plain(env, s, steps=10, window=4, ring_ord=ring_ord)
+    _check(got, want, 4, False)
+
+
+@pytest.mark.cuda
 def test_cuda_wide_kernel_backend_past_the_reach_raises():
     """Past 16384 points ``"kernel"`` raises a ValueError that names the
     reach; the plain version never serves a CUDA tensor."""

@@ -39,9 +39,13 @@ def _length_factor(spec):
     return max(1.0, spec.padded / 128)
 
 
-# envs a case: the grids' cells times the batch stay near 2^19
-GRIDS = [((129, 129), 16), ((160, 200), 12), ((256, 256), 8), ((512, 512), 2),
-         ((tns.MAX_N_WIDE, tns.MAX_N_WIDE), 1)]
+# envs a case: the grids' cells times the batch stay near 2^19. The products
+# of csrc/ns_wide.cu fuse the second and third up to a padded side of
+# tns.WIDE_FUSED_MAX = 256 (136 x 144 is the first padded side past 128, 192;
+# 256 x 256 the last fused one) and run them apart above (300 x 260: 320, in
+# tiles of 160 columns; 512 and 1024: tiles of 256).
+GRIDS = [((129, 129), 16), ((136, 144), 16), ((160, 200), 12), ((256, 256), 8),
+         ((300, 260), 6), ((512, 512), 2), ((tns.MAX_N_WIDE, tns.MAX_N_WIDE), 1)]
 
 
 def _inputs(ny, nx, batch, seed):
