@@ -116,7 +116,24 @@ JAX package), builds the CUDA kernels from ``csrc/`` and runs:
                 960-step episode: its return, held to a float64 run of the
                 same episode (rtol 1e-4). No kernel: it is timed and traced
                 with the episodes.
-17. times    -- CUDA events, median of 3 after a warm-up (eager episodes: one
+17. train    -- (after the wide episodes' times, before the longest trace)
+                the trainers at bench_train.py's full size, 4096 envs, 16 agent
+                steps an iteration: PPO (4 epochs x 4 minibatches) and SAC (16
+                updates of 256 from a ring of 4096 x 64 rows) on transport
+                nx=128 (1000 sub-steps an action, the interval kernel), PPO on
+                the 64x64 Navier-Stokes cavity through FlatObsEnv (the
+                projection step); hidden (128, 128). Each: a warm-up iteration,
+                3 timed (iterations/s, agent env-steps/s, the learner's share),
+                one traced (busy time, idle share); gates: one kernel launch an
+                agent step, finite metrics, every parameter moved. Then the
+                learning run: examples/train_ppo_transport.py's recipe, 1024
+                envs, 200 iterations, the best evaluated runner against
+                backstepping from the same initial states (reported, not gated).
+18. policies -- the ten committed policies (examples/checkpoints/*.msgpack)
+                read by the port's own msgpack reader, on their envs' kernel
+                paths through compare_controllers at the episode counts of
+                tests/test_checkpoint_artifacts.py, each held to its floor.
+19. times    -- CUDA events, median of 3 after a warm-up (eager episodes: one
                 run after a warm-up): one projection step
                 or one interval, kernel (per call, 20 back to back) against
                 plain version, and the kernel's device time by
@@ -155,6 +172,7 @@ beside it is the kernel's device time per launch (torch.profiler).
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2147,6 +2165,319 @@ def wide_episode_times(torch, device, card):
                   NUM_ENVS * workload[2], "env-steps/s", card, (window, 100))
 
 
+# -- the trainers: phases 18 and 19 --------------------------------------------------
+
+# [train]: bench_train.py's sizes (4096 envs, 16 agent steps an iteration,
+# PPO 4 epochs x 4 minibatches, SAC 16 updates of 256 from a ring of 4096 x
+# 64 rows, hidden (128, 128)); one warm-up iteration, then TRAIN_TIMED timed
+TRAIN_ENVS = NUM_ENVS
+TRAIN_STEPS = 16
+TRAIN_TIMED = 3
+# the learning run: examples/train_ppo_transport.py's recipe and defaults
+LEARN_ENVS = 1024
+LEARN_ITERS = 200
+CHECKPOINTS = os.path.join(ROOT, "examples", "checkpoints")
+
+
+def train_ns_env(torch, device):
+    """bench_train.py:46-67: the 64x64 lid cavity (dt=2e-4, viscosity 0.05,
+    float32, direct solve) tracking the lid-2.0 trajectory under NSReward(0.1),
+    its frames flattened for the MLP (FlatObsEnv): one projection step an
+    agent step."""
+    from pdecontrolgym_tpu_torch.envs.navier_stokes import (
+        NavierStokesConfig,
+        NavierStokesEnv,
+        make_lid_target,
+    )
+    from pdecontrolgym_tpu_torch.envs.wrappers import FlatObsEnv
+    from pdecontrolgym_tpu_torch.rewards.ns import NSReward
+
+    cfg = NavierStokesConfig(T=0.05, dt=2e-4, X=1.0, dx=1.0 / 63, Y=1.0, dy=1.0 / 63,
+                             viscosity=0.05, dtype=torch.float32,
+                             boundary_condition=LID_BC, pressure_solver="direct")
+    U_ref, action_ref = make_lid_target(cfg, lid=2.0, device=device)
+    return FlatObsEnv(NavierStokesEnv(cfg, NSReward(0.1), U_ref, action_ref, device=device))
+
+
+def trainer_halves(trainer):
+    """``(collect, learn)``: the two halves of ``trainer.train_step``, so that
+    the learner's share of an iteration can be timed; ``learn`` returns the
+    iteration's metrics."""
+    held = {}
+    if hasattr(trainer, "rollout"):  # PPO
+        def collect(runner):
+            runner, held["batch"], held["reward"] = trainer.rollout(runner)
+            return runner
+
+        def learn(runner):
+            return {"mean_reward": held["reward"], "loss": trainer.learn(runner, held["batch"])}
+    else:  # SAC
+        def collect(runner):
+            runner, held["reward"] = trainer.collect(runner)
+            return runner
+
+        def learn(runner):
+            closs, aloss = trainer.update(runner)
+            return {"mean_reward": held["reward"], "critic_loss": closs, "actor_loss": aloss,
+                    "alpha": runner.log_alpha.detach().exp()}
+    return collect, learn
+
+
+def trainer_parameters(runner):
+    nets = (runner.net,) if hasattr(runner, "net") else (runner.actor, runner.critic)
+    return [p for net in nets for p in net.parameters()]
+
+
+def train_case(torch, label, trainer, counter, sub_steps, card):
+    """Drive ``trainer`` at full size: ``init``, one warm-up ``train_step``,
+    then TRAIN_TIMED iterations timed by CUDA events (the collecting half and
+    the learning half apart), then one more iteration timed and its two
+    halves traced by torch.profiler for the device's busy time and the
+    kernels of an agent step and of an update. Gates: ``counter.LAUNCHES`` grows by exactly one
+    launch an agent step over the timed iterations, every metric is finite,
+    every parameter tensor has moved."""
+    runner = trainer.init(0)
+    before = [p.detach().clone() for p in trainer_parameters(runner)]
+    runner, _ = trainer.train_step(runner)
+    torch.cuda.synchronize()
+    collect, learn = trainer_halves(trainer)
+    envs, steps = trainer.cfg.num_envs, TRAIN_STEPS
+    counter.LAUNCHES = 0
+    walls, learner = [], []
+    for _ in range(TRAIN_TIMED):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        events[0].record()
+        runner = collect(runner)
+        events[1].record()
+        metrics = learn(runner)
+        events[2].record()
+        events[2].synchronize()
+        walls.append(events[0].elapsed_time(events[2]))
+        learner.append(events[1].elapsed_time(events[2]))
+    launches = counter.LAUNCHES
+    if launches != TRAIN_TIMED * steps:
+        raise AssertionError(f"{label}: {launches} kernel launches in {TRAIN_TIMED} iterations "
+                             f"of {steps} agent steps")
+    host = {k: float(v) for k, v in metrics.items()}
+    if not all(math.isfinite(v) for v in host.values()):
+        raise AssertionError(f"{label}: non-finite metrics {host}")
+    still = sum(bool(torch.equal(a, b)) for a, b in zip(before, trainer_parameters(runner)))
+    if still:
+        raise AssertionError(f"{label}: {still} parameter tensors never moved")
+    ms = statistics.median(walls)
+    share = statistics.median(learner[i] / walls[i] for i in range(len(walls)))
+    window_ms = cuda_ms(torch, lambda: trainer.train_step(runner), runs=1)
+    # the halves traced apart, to count the kernels of an agent step and of an
+    # update (PPO's learning half runs twice on the batch of its last rollout)
+    busy_collect, kernels_collect = device_ms(torch, lambda: collect(runner))
+    busy_learn, kernels_learn = device_ms(torch, lambda: learn(runner))
+    busy_ms, kernels = busy_collect + busy_learn, kernels_collect + kernels_learn
+    cfg = trainer.cfg
+    updates = getattr(cfg, "updates_per_iter", None) or cfg.num_epochs * cfg.num_minibatches
+    rate = envs * steps / (ms / 1e3)
+    log(f"[train] {label}: {envs} envs x {steps} agent steps an iteration: {ms:.3f} ms "
+        f"(median of {TRAIN_TIMED} after a warm-up; {', '.join(f'{w:.3f}' for w in walls)}), "
+        f"{1e3 / ms:.3f} iterations/s, {rate:.0f} agent env-steps/s, "
+        f"{rate * sub_steps:.0f} PDE sub-steps/s; learner {share:.3f} of the iteration; "
+        f"{launches} launches ({launches // TRAIN_TIMED} an iteration); one iteration: "
+        f"{window_ms:.3f} ms, its halves traced apart: device busy {busy_ms:.3f} ms "
+        f"(collecting {busy_collect:.3f}, learning {busy_learn:.3f}) in {kernels} kernels "
+        f"({kernels_collect / steps:.1f} an agent step, {kernels_learn / updates:.1f} an "
+        f"update of {updates}), idle share {1 - busy_ms / window_ms:.3f}; metrics "
+        f"{', '.join(f'{k} {v:.5g}' for k, v in host.items())} ({card})")
+    return launches
+
+
+def phase_train(torch, device, card):
+    """PPO and SAC on bench_train.py's transport (nx=128, 1000 sub-steps an
+    agent step, through the interval kernel) and PPO on its 64x64
+    Navier-Stokes cavity (through the projection step), at 4096 envs; then
+    the learning run: examples/train_ppo_transport.py's recipe (nx=100,
+    normalised actions onto +-20, 1024 envs, 4 epochs x 8 minibatches, ent
+    1e-3, gamma 0.99, lr 3e-4) for LEARN_ITERS iterations, evaluated every 25
+    on 32 episodes with the best whole runner kept, then against the
+    backstepping controller from the same 50 initial states. Its returns are
+    reported, not gated."""
+    from pdecontrolgym_tpu_torch.agents.ppo import PPOConfig, PPOTrainer
+    from pdecontrolgym_tpu_torch.agents.sac import SACConfig, SACTrainer
+    from pdecontrolgym_tpu_torch.eval import compare_controllers, episode_returns
+    from pdecontrolgym_tpu_torch.ops import interval1d, ns_fused
+
+    env = transport_setup(torch, device)[0]
+    ppo = PPOConfig(num_envs=TRAIN_ENVS, num_steps=TRAIN_STEPS, num_epochs=4,
+                    num_minibatches=4, hidden=(128, 128))
+    launches = {"ppo": train_case(torch, "PPO, transport nx=128", PPOTrainer(env, ppo),
+                                  interval1d, env.config.sample_rate, card)}
+    sac = SACConfig(num_envs=TRAIN_ENVS, steps_per_iter=TRAIN_STEPS,
+                    updates_per_iter=TRAIN_STEPS, batch_size=256,
+                    buffer_size=max(TRAIN_ENVS * 64, 4 * TRAIN_ENVS), hidden=(128, 128))
+    launches["sac"] = train_case(torch, "SAC, transport nx=128", SACTrainer(env, sac),
+                                 interval1d, env.config.sample_rate, card)
+    launches["ppo_ns"] = train_case(torch, "PPO, Navier-Stokes 64x64",
+                                    PPOTrainer(train_ns_env(torch, device), ppo),
+                                    ns_fused, 1, card)
+
+    env_rl = transport_setup(torch, device, dx=1e-2, max_control_value=20.0, normalize=True)[0]
+    env_bs, backstepping, steps, _ = transport_setup(torch, device, dx=1e-2,
+                                                     max_control_value=20.0)
+    trainer = PPOTrainer(env_rl, PPOConfig(num_envs=LEARN_ENVS, num_steps=16, num_epochs=4,
+                                           num_minibatches=8, ent_coef=1e-3, gamma=0.99,
+                                           lr=3e-4))
+
+    def eval_fn(net):
+        gen = torch.Generator(device=device).manual_seed(7)
+        returns, _ = episode_returns(env_rl, trainer.policy(net), 32, gen, steps)
+        return returns.mean()
+
+    curve = []
+    interval1d.LAUNCHES = 0
+    t = time.perf_counter()
+    runner = trainer.train(0, LEARN_ITERS, log_every=25, eval_fn=eval_fn, eval_every=25,
+                           callback=lambda it, m: curve.append((it, m["eval"])))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    learn_launches = interval1d.LAUNCHES
+    gen = torch.Generator(device=device)
+    ppo_r = compare_controllers(env_rl, {"ppo": trainer.policy(runner.net)}, 50,
+                                gen.manual_seed(11), steps)["ppo"]
+    bs_r = compare_controllers(env_bs, {"backstepping": backstepping}, 50,
+                               gen.manual_seed(11), steps)["backstepping"]
+    log(f"[train] learning run, PPO on transport nx=100 (examples/train_ppo_transport.py): "
+        f"{LEARN_ENVS} envs x {LEARN_ITERS} iterations in {seconds:.1f} s, {learn_launches} "
+        f"launches; eval every 25: {', '.join(f'{it}: {e:.2f}' for it, e in curve)}; "
+        f"the best runner over 50 episodes: PPO {ppo_r['mean_return']:.4f} +- "
+        f"{ppo_r['std_return']:.4f}, backstepping {bs_r['mean_return']:.4f} +- "
+        f"{bs_r['std_return']:.4f} from the same initial states (reported, not gated; {card})")
+    return launches
+
+
+def policy_envs(torch, device):
+    """Builders of the envs the ten committed policies act in, as
+    tests/test_checkpoint_artifacts.py builds them: ``name -> (env,
+    (action_low, action_high) of a SAC actor)``."""
+    from pdecontrolgym_tpu_torch.envs.brain_tumor import (
+        BrainTumorConfig,
+        BrainTumorEnv,
+        DoseTherapyEnv,
+        TherapyEnv,
+    )
+    from pdecontrolgym_tpu_torch.envs.navier_stokes import (
+        NavierStokesConfig,
+        NavierStokesEnv,
+        make_lid_target,
+    )
+    from pdecontrolgym_tpu_torch.envs.wrappers import (
+        FlatObsEnv,
+        TanhBoxActionEnv,
+        TransformObsEnv,
+    )
+    from pdecontrolgym_tpu_torch.rewards.brain_tumor import BrainTumorReward
+    from pdecontrolgym_tpu_torch.rewards.ns import NSReward
+
+    def transport():
+        return transport_setup(torch, device, dx=1e-2, max_control_value=20.0,
+                               normalize=True)[0], (-1.0, 1.0)
+
+    def rd():
+        return rd_explicit_setup(torch, device, normalize=True,
+                                 max_control_value=20.0)[0], (-1.0, 1.0)
+
+    def traffic(algo):
+        env = traffic_setup(torch, device)[0]
+        M, rs, vs = env.config.M, env.config.ro_steady, env.config.v_steady
+
+        def normalise(obs):
+            return torch.cat([(obs[:, :M] - rs) / rs, (obs[:, M:] - vs) / vs], dim=1)
+
+        # PPO was trained behind the tanh box, SAC's squashed actor scales onto it
+        inner = TanhBoxActionEnv(env) if algo == "ppo" else env
+        return TransformObsEnv(inner, normalise), (env.action_low, env.action_high)
+
+    def ns():
+        cfg = NavierStokesConfig(T=0.2, dt=1e-3, X=1.0, dx=0.05, Y=1.0, dy=0.05,
+                                 boundary_condition=LID_BC, dtype=torch.float32,
+                                 pressure_solver="direct")
+        U_ref, action_ref = make_lid_target(cfg, lid=2.0, device=device)
+        env = NavierStokesEnv(cfg, NSReward(0.1), U_ref, action_ref, device=device)
+        return FlatObsEnv(env), (-4.0, 4.0)
+
+    def brain_tumor():
+        base = BrainTumorEnv(BrainTumorConfig(total_dosage=61.2), BrainTumorReward(),
+                             device=device)
+        return DoseTherapyEnv(base, t_benchmark=TherapyEnv(base).benchmark()), (-1.0, 1.0)
+
+    return {"transport": transport, "rd": rd, "traffic_ppo": lambda: traffic("ppo"),
+            "traffic_sac": lambda: traffic("sac"), "ns": ns, "brain_tumor": brain_tumor}
+
+
+# The ten committed policies and the floors of tests/test_checkpoint_artifacts.py
+# (:49-304): file stem, episodes, steps an episode, the floor of the mean
+# return (brain tumor: of the days survived past the untreated baseline).
+POLICIES = (
+    ("transport_ppo", 4, 50, 200.0), ("transport_sac", 4, 50, 170.0),
+    ("rd_ppo", 4, 1000, 250.0), ("rd_sac", 4, 1000, 230.0),
+    ("traffic_ppo", 1, 960, -350.0), ("traffic_sac", 1, 960, -263.0),
+    ("ns_ppo", 4, 200, -20.0), ("ns_sac", 4, 200, -20.0),
+    ("brain_tumor_ppo", 1, None, 40), ("brain_tumor_sac", 1, None, 40),
+)
+
+
+def phase_policies(torch, device, card):
+    """The ten committed policies (``examples/checkpoints/*.msgpack``) read by
+    ``utils/checkpointing.load_params``, carried into the port's networks, and
+    run on the card through ``compare_controllers`` at their test's episode
+    counts, each on its env's kernel path (transport and reaction-diffusion:
+    the interval kernel; Navier-Stokes 21x21: the projection step; brain
+    tumor: the field pass; traffic has no kernel) and held to its test's
+    floor. The brain-tumor episode runs until it ends and is held on the days
+    survived past the untreated baseline."""
+    from pdecontrolgym_tpu_torch.agents.ppo import PPOConfig, PPOTrainer
+    from pdecontrolgym_tpu_torch.agents.sac import SACConfig, SACTrainer
+    from pdecontrolgym_tpu_torch.eval import compare_controllers
+    from pdecontrolgym_tpu_torch.ops import brain_tumor_interval, interval1d, ns_fused
+    from pdecontrolgym_tpu_torch.utils import checkpointing, convert
+
+    builders = policy_envs(torch, device)
+    counters = {"transport": interval1d, "rd": interval1d, "ns": ns_fused,
+                "brain_tumor": brain_tumor_interval, "traffic": None}
+    for stem, episodes, steps, floor in POLICIES:
+        family, algo = stem.rsplit("_", 1)
+        params = checkpointing.load_params(os.path.join(CHECKPOINTS, f"{stem}.msgpack"))
+        env, (low, high) = builders[stem if family == "traffic" else family]()
+        if algo == "ppo":
+            policy = PPOTrainer(env, PPOConfig()).policy(
+                convert.actor_critic_from_flax(params, device))
+        else:
+            policy = SACTrainer(env, SACConfig(action_low=low, action_high=high)).policy(
+                convert.sac_actor_from_flax(params, device))
+        counter = counters[family]
+        if counter is not None:
+            counter.LAUNCHES = 0
+        extra = ""
+        if family == "brain_tumor":
+            state, obs = env.init_batch(1)
+            steps = 0
+            while True:
+                state, out = env.step_batch(state, policy(obs))
+                obs, steps = out.obs, steps + 1
+                if bool((out.terminated | out.truncated).all()):
+                    break
+            days = int(state.simulation_days[0]) - env.t_benchmark
+            extra = f", {days} days survived past the untreated {env.t_benchmark}"
+        result = compare_controllers(env, {stem: policy}, episodes, max_steps=steps)[stem]
+        torch.cuda.synchronize()
+        launches = None if counter is None else counter.LAUNCHES
+        score = days if family == "brain_tumor" else result["mean_return"]
+        if not score > floor:
+            raise AssertionError(f"{stem}: {score} not above its floor {floor}")
+        if launches is not None and launches < 1:
+            raise AssertionError(f"{stem}: its env's kernel was never launched")
+        kernel = "no kernel" if launches is None else f"{launches} kernel launches"
+        log(f"[policies] {stem}: mean return {result['mean_return']:.4f} over {episodes} "
+            f"episodes of {steps} steps (mean length {result['mean_length']:.1f}){extra}; "
+            f"floor {floor}; {kernel} ({card})")
+
+
 # -- the times phases ----------------------------------------------------------------
 
 
@@ -2965,6 +3296,9 @@ def main():
     ns_episode_times(torch, device, card)
     family_episode_times(torch, device, card, traced=True)
     wide_episode_times(torch, device, card)
+    # the trainers trace one iteration each: before the longest trace
+    train_launches = phase_train(torch, device, card)
+    phase_policies(torch, device, card)
     interval_episode_times(torch, device, card, "auto")
     ns_eager_times(torch, device, card)
     family_episode_times(torch, device, card, traced=False)
@@ -2994,13 +3328,16 @@ def main():
          "launches": launches, "max_abs_err": errs[key], **interval_ms[key]}
         for key, name, source, line, launches in rows
     ]
+    # the launches of the trainers' timed iterations (phase_train)
+    kernels[0]["train_launches"] = {"ppo": train_launches["ppo"], "sac": train_launches["sac"]}
     # the wide kernel's other bodies, checked in phase_kernel and not timed
     kernels[-2]["other_bodies_max_abs_err"] = {
         "transport": errs["transport_wide"], "reaction_diffusion": errs["rd_explicit_wide"]}
     kernels.append(
         {"name": "ns_step", "route": "cuda", "source": f"{PKG}/csrc/ns_fused.cu",
          "replaces": "pdecontrolgym_tpu/ops/ns_fused.py:743",
-         "launches": ns_launches, "max_abs_err": ns_err, **ns_ms["ns 64x64"]})
+         "launches": ns_launches, "max_abs_err": ns_err, **ns_ms["ns 64x64"],
+         "train_launches": {"ppo_ns": train_launches["ppo_ns"]}})
     kernels.append(
         {"name": "ns_step_wide", "route": "cuda", "source": f"{PKG}/csrc/ns_fused.cu",
          "replaces": "pdecontrolgym_tpu/ops/ns_fused.py:743",

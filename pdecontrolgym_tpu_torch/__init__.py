@@ -6,11 +6,12 @@ reaction-diffusion with TunedReward1D and NormReward, the 2D Navier-Stokes env
 with NSReward and its pressure solvers, the neuron-growth env, the brain-tumor
 env with BrainTumorReward and its therapy wrappers, the ARZ traffic env with
 TrafficARZReward), the functional wrappers, the evaluation harness, the
-transport and parabolic backstepping controllers, the batched rollout, the
-tridiagonal solvers, and the kernels (``csrc/interval1d.cu`` and
-``csrc/interval1d_wide.cu`` for the explicit 1D sub-steps,
-``csrc/interval1d_pcr.cu`` and ``csrc/interval1d_pcr_wide.cu`` for the
-implicit θ-scheme, ``csrc/ns_fused.cu`` for the Navier-Stokes projection step,
+transport and parabolic backstepping controllers, the PPO and SAC trainers
+with their networks, checkpoints (flax msgpack policy files included) and
+metrics logger, the batched rollout, the tridiagonal solvers, and the
+kernels (``csrc/interval1d.cu`` and ``csrc/interval1d_wide.cu`` for the
+explicit 1D sub-steps, ``csrc/interval1d_pcr.cu`` and
+``csrc/interval1d_pcr_wide.cu`` for the implicit θ-scheme, ``csrc/ns_fused.cu`` for the Navier-Stokes projection step,
 ``csrc/neuron_interval.cu`` and ``csrc/neuron_interval_wide.cu`` for K neuron
 dt-steps, ``csrc/brain_tumor_field.cu`` for the brain-tumor day's field pass;
 CUDA C++ for the H100, built from source at first use). This package never
@@ -24,8 +25,9 @@ Layers:
                growth, brain tumor and ARZ traffic; observation/action wrappers
     rewards/   plug-in reward functions
     parallel/  batched lockstep rollout with autoreset
-    agents/    backstepping controllers
-    utils/     carrying JAX configs and states across
+    agents/    backstepping controllers, actor-critic networks, PPO and SAC
+    utils/     checkpoints, the metrics logger, carrying JAX configs, states
+               and networks across
     eval.py    batched episode returns and controller tables
 """
 

@@ -26,7 +26,32 @@ def batch_init(env, num_envs: int):
     return lambda generator: env.init_batch(num_envs, generator)
 
 
-def batch_step(env, autoreset: bool = True):
+def env_noise_fn(env):
+    """The noise function of ``env`` or of the env it wraps (``env.env``,
+    ``env.env.env``, ..., 16 hops at most), or None. The trainers step an env
+    that has one with :func:`batch_step`'s ``noise=True``."""
+    hops = 0
+    while env is not None and hops < 16:
+        fn = getattr(env, "noise_fn", None)
+        if fn is not None:
+            return fn
+        env = getattr(env, "env", None)
+        hops += 1
+    return None
+
+
+def env_device(env) -> torch.device:
+    """The device of ``env`` or of the env it wraps (``env.env``, ...).
+    Raises where none of them declares one."""
+    inner = env
+    while inner is not None:
+        if getattr(inner, "device", None) is not None:
+            return torch.device(inner.device)
+        inner = getattr(inner, "env", None)
+    raise ValueError(f"{type(env).__name__} and the envs it wraps declare no device")
+
+
+def batch_step(env, autoreset: bool = True, noise: bool = False):
     """Returns ``step(state, actions, generator) -> (state, StepOut)``.
 
     Uses the env's ``step_batch`` (the interval path) when it has one, else its
@@ -39,18 +64,29 @@ def batch_step(env, autoreset: bool = True):
     ``TherapyEnv``'s, which fast-forwards a whole stage), the reset work runs
     only ``if bool(done.any())``: one host read per step, which waits for the
     device. Envs that declare nothing keep the ungated path and read nothing.
+
+    ``noise``: hand ``generator`` to the env's step, so that an env with a
+    noise function (:func:`env_noise_fn`) draws its sensing noise from it.
+    Without it the step gets no generator and a noisy env observes without
+    noise, as the JAX package's fused batched step drops its noise keys; the
+    trainers ask for it where the env has a noise function, as the JAX
+    trainers then step each env with its own key.
     """
-    raw_step = getattr(env, "step_batch", env.step)
+    step_fn = getattr(env, "step_batch", env.step)
+    if noise:
+        raw_step = step_fn
+    else:
+        raw_step = lambda state, actions, generator=None: step_fn(state, actions)  # noqa: E731
     gate, inner = False, env
     while inner is not None and not gate:
         gate = bool(getattr(inner, "autoreset_gate", False))
         inner = getattr(inner, "env", None)
 
     if not autoreset:
-        return lambda state, actions, generator=None: raw_step(state, actions)
+        return lambda state, actions, generator=None: raw_step(state, actions, generator)
 
     def step(state, actions, generator):
-        next_state, out = raw_step(state, actions)
+        next_state, out = raw_step(state, actions, generator)
         done = out.terminated | out.truncated
         if gate and not bool(done.any()):
             return next_state, out

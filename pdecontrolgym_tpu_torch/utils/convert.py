@@ -3,7 +3,8 @@
 Values arrive as plain Python scalars and numpy arrays (``dataclasses.asdict``
 of a JAX config; ``np.asarray`` of each state leaf), so this module needs no
 JAX. The port holds batch-first states: a single-env JAX state (leaves without
-the env axis) becomes a batch of one.
+the env axis) becomes a batch of one. The trainers' networks cross in both
+directions, as flax parameter trees of numpy arrays.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pdecontrolgym_tpu_torch.agents.networks import ActorCritic
+from pdecontrolgym_tpu_torch.agents.sac import Actor, TwinCritic
 from pdecontrolgym_tpu_torch.envs.brain_tumor import BrainTumorState
 from pdecontrolgym_tpu_torch.envs.common import Boundary1DState
 from pdecontrolgym_tpu_torch.envs.navier_stokes import NavierStokesState
@@ -122,3 +125,92 @@ def neuron_tables_from_numpy(env: NeuronEnv, tables: dict) -> NeuronEnv:
         raise ValueError(f"neuron_tables_from_numpy: missing tables {missing}")
     env._store_tables({name: np.asarray(tables[name]) for name in NeuronEnv.TABLES})
     return env
+
+
+# -- policy parameters: flax's ``{"params": {"Dense_k": {"kernel", "bias"}}}``
+# trees (``utils/checkpointing.load_params``). A flax kernel is ``(in, out)``, an
+# ``nn.Linear`` weight its transpose.
+
+
+def _dense_into(layer, leaf: dict) -> None:
+    with torch.no_grad():
+        layer.weight.copy_(torch.tensor(np.asarray(leaf["kernel"]).T))
+        layer.bias.copy_(torch.tensor(np.asarray(leaf["bias"])))
+
+
+def _dense_leaf(layer) -> dict:
+    return {"kernel": layer.weight.detach().cpu().numpy().T.copy(),
+            "bias": layer.bias.detach().cpu().numpy().copy()}
+
+
+def _towers(tree: dict, count: int):
+    """``(obs_dim, hidden, out_dim)`` of ``count`` chained ``Dense_k``."""
+    shapes = [np.asarray(tree[f"Dense_{k}"]["kernel"]).shape for k in range(count)]
+    return shapes[0][0], tuple(s[1] for s in shapes[:-1]), shapes[-1][1]
+
+
+def _num_dense(tree: dict) -> int:
+    return sum(1 for name in tree if name.startswith("Dense_"))
+
+
+def actor_critic_from_flax(params: dict, device=None):
+    """An :class:`~pdecontrolgym_tpu_torch.agents.networks.ActorCritic` with the
+    weights of the JAX package's ``ActorCritic`` variables ``params``
+    (``{"params": ...}``): ``Dense_0 ... Dense_n`` are the policy tower and the
+    mean head, ``Dense_{n+1} ... Dense_{2n+1}`` the value tower and head."""
+    tree = params["params"]
+    n = _num_dense(tree) // 2
+    obs_dim, hidden, action_dim = _towers(tree, n)
+    net = ActorCritic(obs_dim, action_dim, hidden, device=device)
+    for k, layer in enumerate([*net.pi, *net.vf]):
+        _dense_into(layer, tree[f"Dense_{k}"])
+    with torch.no_grad():
+        net.log_std.copy_(torch.tensor(np.asarray(tree["log_std"])))
+    return net
+
+
+def actor_critic_to_flax(net) -> dict:
+    """The inverse of :func:`actor_critic_from_flax`: flax variables of numpy
+    arrays, for ``utils/checkpointing.save_params``."""
+    tree = {f"Dense_{k}": _dense_leaf(layer) for k, layer in enumerate([*net.pi, *net.vf])}
+    tree["log_std"] = net.log_std.detach().cpu().numpy().copy()
+    return {"params": tree}
+
+
+def sac_actor_from_flax(params: dict, device=None):
+    """A SAC :class:`~pdecontrolgym_tpu_torch.agents.sac.Actor` from the JAX
+    ``Actor``'s variables: ``Dense_0 ... Dense_{n-1}`` the tower, ``Dense_n``
+    the mean head, ``Dense_{n+1}`` the log-σ head."""
+    tree = params["params"]
+    n = _num_dense(tree) - 1
+    obs_dim, hidden, action_dim = _towers(tree, n)
+    actor = Actor(obs_dim, action_dim, hidden, device=device)
+    for k, layer in enumerate([*actor.tower, actor.mean, actor.log_std]):
+        _dense_into(layer, tree[f"Dense_{k}"])
+    return actor
+
+
+def sac_actor_to_flax(actor) -> dict:
+    """The inverse of :func:`sac_actor_from_flax`."""
+    layers = [*actor.tower, actor.mean, actor.log_std]
+    return {"params": {f"Dense_{k}": _dense_leaf(layer) for k, layer in enumerate(layers)}}
+
+
+def twin_critic_from_flax(params: dict, action_dim: int, device=None):
+    """A :class:`~pdecontrolgym_tpu_torch.agents.sac.TwinCritic` from the JAX
+    ``TwinCritic``'s variables: ``Critic_0`` and ``Critic_1``, each ``Dense_0
+    ... Dense_n`` over ``[obs, action]``."""
+    tree = params["params"]
+    in_dim, hidden, _ = _towers(tree["Critic_0"], _num_dense(tree["Critic_0"]))
+    twin = TwinCritic(in_dim - action_dim, action_dim, hidden, device=device)
+    for c, critic in enumerate(twin.critics):
+        for k, layer in enumerate(critic.layers):
+            _dense_into(layer, tree[f"Critic_{c}"][f"Dense_{k}"])
+    return twin
+
+
+def twin_critic_to_flax(twin) -> dict:
+    """The inverse of :func:`twin_critic_from_flax`."""
+    return {"params": {
+        f"Critic_{c}": {f"Dense_{k}": _dense_leaf(layer) for k, layer in enumerate(critic.layers)}
+        for c, critic in enumerate(twin.critics)}}

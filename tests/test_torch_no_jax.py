@@ -1,4 +1,4 @@
-"""The port never imports JAX, flax, optax or the JAX package.
+"""The port never imports JAX, flax, optax, msgpack or the JAX package.
 
 A fresh interpreter blocks those imports, imports every module of
 ``pdecontrolgym_tpu_torch`` and checks that none of them got loaded.
@@ -15,7 +15,7 @@ PKG = REPO / "pdecontrolgym_tpu_torch"
 PROBE = r"""
 import importlib, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "pdecontrolgym_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "pdecontrolgym_tpu")
 
 def blocked(name):
     return name.split(".")[0] in BLOCKED
@@ -56,7 +56,8 @@ def test_no_source_line_imports_jax():
         for i, line in enumerate(path.read_text().splitlines(), 1)
         if line.split("#")[0].strip().startswith(
             ("import jax", "from jax", "import flax", "from flax", "import optax",
-             "from optax", "import pdecontrolgym_tpu.", "from pdecontrolgym_tpu.",
+             "from optax", "import msgpack", "from msgpack",
+             "import pdecontrolgym_tpu.", "from pdecontrolgym_tpu.",
              "from pdecontrolgym_tpu import")
         )
     ]
