@@ -77,7 +77,9 @@ JAX package), builds the CUDA kernels from ``csrc/`` and runs:
                 the default 201-point domain and the 61-point one of the
                 tests at B = 4 and 4096; doses zero and non-zero; ``can``
                 mixed; rows below one or both detection thresholds; nx = 3
-                and 512.
+                and 512; past 512 the block-per-env kernel (B8w) to the bit
+                at nx = 513, 801, 2049 (B = 4096) and 8192, the reach
+                (B = 1024); one point past the reach the wrapper raises.
 12. neuron   -- the bench_families.py ``neuron_fused`` and
                 ``neuron_fused_reward`` workloads through the port's rollout:
                 4096 envs, float32, 10 calls of 100 dt-steps; at B=8 the
@@ -133,6 +135,24 @@ JAX package), builds the CUDA kernels from ``csrc/`` and runs:
                 read by the port's own msgpack reader, on their envs' kernel
                 paths through compare_controllers at the episode counts of
                 tests/test_checkpoint_artifacts.py, each held to its floor.
+20. brain_wide -- (after phase 13) the brain-tumor env on the stock domain at
+                dx = 0.25 (801 points: B8w) and dt = 0.125 (Fourier number
+                0.4), 4096 envs, the stock reward, policy 0.5, the first 2920
+                steps (365 days) through backend="auto", one launch of B8w a
+                step; at B=8 the kernel path against the eager path over the
+                whole episode, in the band of phase 13.
+21. gym      -- (after phase 16) the Gym surface: the seven
+                PDEControlGymTorch-* envs (through gym.make, or the adapter
+                classes on the stand-ins of compat/_gym.py where gymnasium is
+                not installed) for a short episode each, every observation in
+                its space; the transport golden through TransportPDE1D, every
+                step's reward equal to the batched env's; BrainTumor1D at 801
+                points under TherapyWrapper for one episode (B8w); PDEVectorEnv
+                over the transport row at 4096 envs for a full episode under
+                the backstepping policy, 50 launches, per-env returns equal to
+                phase 4's from the same seed, its wall beside the rollout's;
+                checked_step_batch clean on a transport interval and raising
+                on an unstable FTCS config.
 19. times    -- CUDA events, median of 3 after a warm-up (eager episodes: one
                 run after a warm-up): one projection step
                 or one interval, kernel (per call, 20 back to back) against
@@ -256,6 +276,21 @@ BRAIN_U_ATOL = 1e-3
 # the small domain of tests/test_brain_tumor.py: 61 points
 BRAIN_FAST = dict(T=80.0, dt=1.0, X=60.0, dx=1.0, t1_detection_radius=5.0,
                   t1_death_radius=20.0, total_dosage=30.0)
+# [brain_wide]: the stock domain at dx = 0.25 (801 points, past the warp
+# kernel's 512: the block-per-env field pass, B8w) and dt = 0.125, so that the
+# explicit update's Fourier number D*dt/dx^2 is 0.4 (the stock grid's is 0.2;
+# dt = 1 would give 3.2 and diverge); the first 365 days, 2920 steps
+BRAIN_WIDE = dict(dx=0.25, dt=0.125)
+BRAIN_WIDE_STEPS = 2920
+# B8w's cases (label, config fields, envs, seed, dosed): 513 points, the stock
+# domain at dx = 0.25 with and without doses, 2049, and the reach
+BRAIN_WIDE_CASES = (
+    ("B8w nx=513", dict(X=512.0), NUM_ENVS, 27, True),
+    ("B8w nx=801 (dx=0.25)", BRAIN_WIDE, NUM_ENVS, 28, True),
+    ("B8w nx=801 (dx=0.25), no dose", BRAIN_WIDE, NUM_ENVS, 29, False),
+    ("B8w nx=2049", dict(X=2048.0), NUM_ENVS, 30, True),
+    ("B8w nx=8192, the reach", dict(X=8191.0), 1024, 31, True),
+)
 
 LID_BC = (("Dirchilet", "Dirchilet"), ("Controllable", "Dirchilet"),
           ("Dirchilet", "Dirchilet"), ("Dirchilet", "Dirchilet"))
@@ -1399,19 +1434,24 @@ def brain_kernel_case(torch, label, env, B, seed, dosed=True):
     doses = [0.0, 1.8, 15.0] if dosed else [0.0]
     applied = torch.from_numpy(rng.choice(doses, size=B).astype(np.float32)).to(env.device)
     can = torch.from_numpy(rng.random(B) < 0.8).to(env.device)
-    before = bt.LAUNCHES
+    # rows past the warp kernel's 512 points take B8w, which counts its own
+    wide = env.config.nx > bt.MAX_NX
+    counter = "WIDE_LAUNCHES" if wide else "LAUNCHES"
+    before = getattr(bt, counter)
     k_out = bt.brain_tumor_field(env._spec, u, applied, can)
     torch.cuda.synchronize()
-    if bt.LAUNCHES != before + 1:
+    if getattr(bt, counter) != before + 1:
         raise AssertionError(f"{label}: the wrapper did not count its launch")
     p_out = bt.brain_tumor_field_plain(env._spec, u, applied, can)
     torch.cuda.synchronize()
-    bt.LAUNCHES = before  # comparison launches do not count
+    setattr(bt, counter, before)  # comparison launches do not count
     for name, k, p in zip(("treatment_radius", "t1", "has_t1"), k_out[1:], p_out[1:]):
         if k.dtype != p.dtype or not torch.equal(k, p):
             raise AssertionError(f"{label}: {name} differs")
     if not torch.equal(k_out[0][~can], u[~can]):
         raise AssertionError(f"{label}: a row with can=False changed")
+    if wide and not torch.equal(k_out[0].view(torch.int32), p_out[0].view(torch.int32)):
+        raise AssertionError(f"{label}: u' differs from the plain version's in some bit")
     err = _max_err(f"{label} u'", k_out[0], p_out[0], BRAIN_U_RTOL, BRAIN_U_ATOL)
     log(f"[brain_kernel] {label}: B={B} nx={env.config.nx} dosed={int((applied > 0).sum())} "
         f"can={int(can.sum())} has_t1={int(k_out[3].sum())} "
@@ -1434,16 +1474,25 @@ def phase_brain_kernel(torch, device):
             ("nx=512", brain_setup(torch, device, X=511.0)[0], 33, 25, True),
             ("nx=3", brain_setup(torch, device, X=2.0)[0], 7, 26, True)):
         err = max(err, brain_kernel_case(torch, label, e, B, seed, dosed)[0])
-    wide = brain_setup(torch, device, X=600.0)[0]
+    # B8w, the block-per-env kernel, from 513 points to the reach: to the bit
+    wide_err, wide_inputs = 0.0, None
+    for label, fields, B, seed, dosed in BRAIN_WIDE_CASES:
+        e = brain_setup(torch, device, **fields)[0]
+        case_err, case_inputs = brain_kernel_case(torch, label, e, B, seed, dosed)
+        wide_err = max(wide_err, case_err)
+        if fields is BRAIN_WIDE and dosed:
+            wide_inputs = case_inputs  # the [brain_wide] row, timed alone later
+    past = bt.MAX_NX_WIDE + 1
+    beyond = brain_setup(torch, device, X=float(past - 1))[0]
     try:
-        bt.brain_tumor_field(wide._spec, torch.zeros((2, 601), device=device),
+        bt.brain_tumor_field(beyond._spec, torch.zeros((2, past), device=device),
                              torch.zeros(2, device=device),
                              torch.ones(2, dtype=torch.bool, device=device))
     except ValueError as exc:
-        log(f"[brain_kernel] nx=601 raises ValueError: {exc}")
+        log(f"[brain_kernel] nx={past}, one past the reach, raises ValueError: {exc}")
     else:
-        raise AssertionError("brain_tumor_field took nx=601 on the card")
-    return err, inputs
+        raise AssertionError(f"brain_tumor_field took nx={past} on the card")
+    return err, inputs, wide_err, wide_inputs
 
 
 def run_neuron_episode(torch, workload, num_envs, seed):
@@ -1513,16 +1562,17 @@ def phase_neuron(torch, device):
 
 def run_brain_episode(torch, workload, num_envs, seed, days=None):
     """One episode of the brain-tumor workload through the port's rollout.
-    Returns (final state, outs, kernel launches)."""
+    Returns (final state, outs, launches of the field-pass kernel of its row:
+    the warp kernel's to 512 points, B8w's above)."""
     from pdecontrolgym_tpu_torch.ops import brain_tumor_interval as bt
     from pdecontrolgym_tpu_torch.parallel.rollout import rollout
 
     env, policy, steps = workload
     gen = torch.Generator(device=env.device).manual_seed(seed)
-    bt.LAUNCHES = 0
+    bt.LAUNCHES = bt.WIDE_LAUNCHES = 0
     (state, _obs), outs = rollout(env, policy, num_envs, days or steps, gen, keep_obs=False)
     torch.cuda.synchronize()
-    return state, outs, bt.LAUNCHES
+    return state, outs, bt.WIDE_LAUNCHES if env.config.nx > bt.MAX_NX else bt.LAUNCHES
 
 
 def run_therapy_episode(torch, tenv, num_envs):
@@ -1539,6 +1589,56 @@ def run_therapy_episode(torch, tenv, num_envs):
         calls += 1
     torch.cuda.synchronize()
     return state, calls
+
+
+def brain_paths_agree(torch, device, label, tag, counter, **fields):
+    """The kernel path against the eager path at B=8 over a whole staged
+    episode: per-env widths, per-env doses, a set benchmark so that rewards
+    are not all zero; every day's integer fields, flags and rewards. One
+    launch of the field-pass kernel (``counter`` of the wrapper's module) a
+    step. Returns the two envs (``"auto"``, ``"eager"``)."""
+    import dataclasses
+
+    from pdecontrolgym_tpu_torch.ops import brain_tumor_interval as bt
+
+    cfg = brain_setup(torch, device, **fields)[0].config
+    ic = brain_widths(torch, cfg, 8, 10.0, 50.0)
+    envs = [brain_setup(torch, device, ic=ic, backend=b, **fields)[0]
+            for b in ("auto", "eager")]
+    states = [e.init_batch(8, None, t_benchmark=300)[0] for e in envs]
+    dose = torch.linspace(0.02, 1.0, 8, device=device)
+    int_fields = [f.name for f in dataclasses.fields(states[0])
+                  if getattr(states[0], f.name).dtype == torch.int32]
+    setattr(bt, counter, 0)
+    days, rewards = 0, ([], [])
+    alive = torch.ones(8, dtype=torch.bool, device=device)
+    while bool(alive.any()) and days < cfg.nt:
+        outs_ = []
+        for i, e in enumerate(envs):
+            states[i], out = e.step_batch(states[i], dose)
+            outs_.append(out)
+            rewards[i].append(out.reward)
+        days += 1
+        for name in int_fields:
+            if not torch.equal(getattr(states[0], name), getattr(states[1], name)):
+                raise AssertionError(f"{label} day {days}: {name} differs between paths")
+        if not (torch.equal(outs_[0].terminated, outs_[1].terminated)
+                and torch.equal(outs_[0].truncated, outs_[1].truncated)):
+            raise AssertionError(f"{label} day {days}: flags differ between paths")
+        alive &= ~(outs_[0].terminated | outs_[0].truncated)
+    launches = getattr(bt, counter)
+    if launches != days:
+        raise AssertionError(f"{label}: {launches} launches in {days} days at B=8")
+    err_u = _max_err(f"{label}, kernel against eager, u", states[0].u, states[1].u,
+                     BRAIN_U_RTOL, BRAIN_U_ATOL)
+    err_r = _max_err(f"{label}, kernel against eager, rewards", torch.stack(rewards[0]),
+                     torch.stack(rewards[1]), 1e-5, 1e-4)
+    unit = "days" if cfg.dt == 1.0 else f"steps of {cfg.dt} days"
+    log(f"[{tag}] kernel path against eager path, B=8, {days} {unit} until every env ended: "
+        f"integer fields and flags equal every day, death days "
+        f"{states[0].death_day.tolist()}, max_abs_err u={err_u:.3e} rewards={err_r:.3e} "
+        f"(largest |reward| {float(torch.stack(rewards[1]).abs().max()):.3f})")
+    return envs
 
 
 def phase_brain(torch, device):
@@ -1566,43 +1666,8 @@ def phase_brain(torch, device):
         f"{int(state.first_post_therapy_day[0])}, remaining dosage "
         f"{float(state.remaining_dosage[0]):.4f}, max density {float(state.u.max()):.1f}")
 
-    # the kernel path against the eager path at B=8 over a whole staged
-    # episode: per-env widths, per-env doses, a set benchmark so that rewards
-    # are not all zero; every day's integer fields, flags and rewards
-    cfg = workload[0].config
-    ic = brain_widths(torch, cfg, 8, 10.0, 50.0)
-    envs = [brain_setup(torch, device, ic=ic, backend=b)[0] for b in ("auto", "eager")]
-    states = [e.init_batch(8, None, t_benchmark=300)[0] for e in envs]
-    dose = torch.linspace(0.02, 1.0, 8, device=device)
-    int_fields = [f.name for f in dataclasses.fields(states[0])
-                  if getattr(states[0], f.name).dtype == torch.int32]
-    bt.LAUNCHES = 0
-    days, rewards = 0, ([], [])
-    alive = torch.ones(8, dtype=torch.bool, device=device)
-    while bool(alive.any()) and days < cfg.nt:
-        outs_ = []
-        for i, e in enumerate(envs):
-            states[i], out = e.step_batch(states[i], dose)
-            outs_.append(out)
-            rewards[i].append(out.reward)
-        days += 1
-        for name in int_fields:
-            if not torch.equal(getattr(states[0], name), getattr(states[1], name)):
-                raise AssertionError(f"brain_tumor day {days}: {name} differs between paths")
-        if not (torch.equal(outs_[0].terminated, outs_[1].terminated)
-                and torch.equal(outs_[0].truncated, outs_[1].truncated)):
-            raise AssertionError(f"brain_tumor day {days}: flags differ between paths")
-        alive &= ~(outs_[0].terminated | outs_[0].truncated)
-    if bt.LAUNCHES != days:
-        raise AssertionError(f"brain_tumor: {bt.LAUNCHES} launches in {days} days at B=8")
-    err_u = _max_err("brain_tumor, kernel against eager, u", states[0].u, states[1].u,
-                     BRAIN_U_RTOL, BRAIN_U_ATOL)
-    err_r = _max_err("brain_tumor, kernel against eager, rewards", torch.stack(rewards[0]),
-                     torch.stack(rewards[1]), 1e-5, 1e-4)
-    log(f"[brain] kernel path against eager path, B=8, {days} days until every env ended: "
-        f"integer fields and flags equal every day, death days "
-        f"{states[0].death_day.tolist()}, max_abs_err u={err_u:.3e} rewards={err_r:.3e} "
-        f"(largest |reward| {float(torch.stack(rewards[1]).abs().max()):.3f})")
+    # the kernel path against the eager path at B=8 over a whole staged episode
+    envs = brain_paths_agree(torch, device, "brain_tumor", "brain", "LAUNCHES")
 
     # the therapy row: 4096 envs through TherapyEnv until every env ends; at
     # B=8 the simulated days of kernel and eager path
@@ -1622,6 +1687,286 @@ def phase_brain(torch, device):
     log(f"[therapy] B=8, per-env widths: {sums[0]} simulated days on both paths")
     bt.LAUNCHES = 0
     return launches
+
+
+def phase_brain_wide(torch, device):
+    """The brain-tumor env at 801 points (BRAIN_WIDE) through the port's
+    rollout: 4096 envs, the stock reward, policy 0.5, the first
+    BRAIN_WIDE_STEPS steps (365 days) through backend="auto", one launch of
+    B8w a step; then at B=8 the kernel path against the eager path over the
+    whole episode. Returns the launches of the 4096-env episode."""
+    from pdecontrolgym_tpu_torch.ops import brain_tumor_interval as bt
+
+    workload = brain_setup(torch, device, **BRAIN_WIDE)
+    cfg = workload[0].config
+    if cfg.nx != 801 or cfg.D * cfg.dt / cfg.dx**2 > 0.5:
+        raise AssertionError(f"brain_wide: {cfg.nx} points, Fourier number "
+                             f"{cfg.D * cfg.dt / cfg.dx**2}")
+    state, outs, launches = run_brain_episode(torch, workload, NUM_ENVS, seed=16,
+                                              days=BRAIN_WIDE_STEPS)
+    if launches != BRAIN_WIDE_STEPS or bt.LAUNCHES != 0:
+        raise AssertionError(f"brain_wide: {launches} launches of B8w and {bt.LAUNCHES} of "
+                             f"the warp kernel in {BRAIN_WIDE_STEPS} steps")
+    returns = outs.reward.sum(0)
+    if not (bool(torch.isfinite(state.u).all()) and bool(torch.isfinite(returns).all())):
+        raise AssertionError("brain_wide: non-finite densities or returns")
+    ended = (outs.terminated | outs.truncated).any(dim=1).nonzero()
+    first_end = int(ended[0]) + 1 if len(ended) else None
+    log(f"[brain_wide] {NUM_ENVS} envs x {BRAIN_WIDE_STEPS} steps of dt={cfg.dt} (365 days) "
+        f"at nx={cfg.nx} (dx={cfg.dx}, Fourier number {cfg.D * cfg.dt / cfg.dx**2}): "
+        f"{launches} launches of B8w, first episode end at step {first_end} "
+        f"({int(outs.truncated.sum())} deaths), then autoreset; mean return "
+        f"{float(returns.mean()):.4f} (no benchmark set), max density "
+        f"{float(state.u.max()):.1f}")
+    brain_paths_agree(torch, device, "brain_wide", "brain_wide", "WIDE_LAUNCHES", **BRAIN_WIDE)
+    bt.LAUNCHES = bt.WIDE_LAUNCHES = 0
+    return launches
+
+
+def gym_cases(device):
+    """One valid kwargs set for each of the seven adapters (those of
+    tests/test_gym_compat.py's conformance table, with the port's rewards),
+    by registered ID: (adapter class name, kwargs)."""
+    import numpy as np
+
+    from pdecontrolgym_tpu_torch.rewards.tuned import TunedReward1D
+
+    boundary = dict(
+        normalize=True, sensing_loc="full", control_type="Dirchilet",
+        sensing_noise_func=lambda s: s, limit_pde_state_size=True, max_state_value=1e10,
+        max_control_value=20)
+    return {
+        "PDEControlGymTorch-TransportPDE1D": ("TransportPDE1D", dict(
+            boundary, T=1.0, dt=1e-4, X=1.0, dx=1e-2, sensing_type=None,
+            reward_class=TunedReward1D(10000, -1e3, 3e2), control_sample_rate=0.1,
+            reset_init_condition_func=lambda nx: np.ones(nx, np.float32) * 2,
+            reset_recirculation_func=lambda nx: np.zeros(nx, np.float32))),
+        "PDEControlGymTorch-TrafficPDE1D": ("TrafficPDE1D", dict(
+            T=240.0, dt=0.25, X=500.0, dx=10.0, simulation_type="outlet", v_steady=10,
+            ro_steady=0.12, v_max=40, ro_max=0.16, tau=60, verbose=False)),
+        "PDEControlGymTorch-ReactionDiffusionPDE1D": ("ReactionDiffusionPDE1D", dict(
+            boundary, T=0.01, dt=1e-5, X=1.0, dx=5e-3, sensing_type="Neumann",
+            reward_class=TunedReward1D(1000, -1e3, 3e2), control_sample_rate=1e-3,
+            reset_init_condition_func=lambda n: np.ones(n + 1, np.float32),
+            reset_recirculation_func=lambda n: np.zeros(n + 1, np.float32))),
+        "PDEControlGymTorch-Burgers1D": ("BurgersPDE1D", dict(
+            boundary, T=0.05, dt=1e-4, X=1.0, dx=1.0 / 128, sensing_type=None,
+            reward_class=TunedReward1D(500), control_sample_rate=0.01, viscosity=1e-3,
+            reset_init_condition_func=lambda n: np.sin(
+                np.pi * np.linspace(0, 1, n)).astype(np.float32),
+            reset_recirculation_func=lambda n: np.zeros(n, np.float32))),
+        "PDEControlGymTorch-NavierStokes2D": ("NavierStokes2D", dict(
+            T=0.05, dt=1e-3, X=1.0, dx=0.05, Y=1.0, dy=0.05, action_dim=1, normalize=True,
+            reset_init_condition_func=lambda X: (
+                np.ones((21, 21)), -0.5 * np.ones((21, 21)), np.zeros((21, 21))),
+            U_ref=np.zeros((50, 21, 21, 2)), action_ref=np.zeros(50),
+            maximum_pressure_iteration=40)),
+        "PDEControlGymTorch-BrainTumor1D": ("BrainTumor1D", dict(
+            T=600.0, dt=1.0, X=200.0, dx=1.0, total_dosage=61.2, verbose=False,
+            normalize=True, reset_init_condition_func=lambda X=200.0, nx=201: (
+                0.8e5 * np.exp(-0.25 * np.linspace(0, X, nx) ** 2)))),
+        "PDEControlGymTorch-NeuronPDE1D": ("NeuronPDE1D", dict(sensing_loc="collocated")),
+    }
+
+
+def phase_gym(torch, device, card):
+    """The Gym surface on the card: (1) the seven adapters, through gym.make
+    where gymnasium is installed, else the classes on the stand-ins of
+    compat/_gym.py, each for a short episode, every observation in its space;
+    (2) the fixed-IC transport backstepping golden through TransportPDE1D
+    against the batched env at the same IC (per-step rewards equal), within
+    +-0.5 of the golden; (3) BrainTumor1D at 801 points under TherapyWrapper
+    for one episode, launching B8w; (4) at full width, PDEVectorEnv over the
+    transport row (4096 envs, 50 actions x 1000 sub-steps) under the
+    backstepping policy, its per-env returns against the [transport] rollout's
+    from the same generator seed, 50 launches of the interval kernel, its wall
+    beside the rollout's by CUDA events; (5) checked_step_batch over one
+    transport interval (clean) and over an unstable FTCS config (raises)."""
+    import numpy as np
+
+    from pdecontrolgym_tpu_torch.agents.backstepping import (
+        transport_control,
+        transport_kernel,
+    )
+    from pdecontrolgym_tpu_torch.compat import _gym
+    from pdecontrolgym_tpu_torch.compat import adapter as pad
+    from pdecontrolgym_tpu_torch.compat.vector import PDEVectorEnv
+    from pdecontrolgym_tpu_torch.envs.reaction_diffusion import (
+        ReactionDiffusionConfig,
+        ReactionDiffusionEnv,
+    )
+    from pdecontrolgym_tpu_torch.ops import brain_tumor_interval as bt
+    from pdecontrolgym_tpu_torch.ops import interval1d
+    from pdecontrolgym_tpu_torch.rewards.tuned import TunedReward1D
+    from pdecontrolgym_tpu_torch.utils.debug import checked_step_batch
+
+    if _gym.HAVE_GYMNASIUM:
+        import gymnasium
+
+        which = f"gymnasium {gymnasium.__version__} (gym.make of the registered IDs)"
+    else:
+        which = "the port's gymnasium stand-ins, compat/_gym.py (gymnasium is not installed)"
+    log(f"[gym] running on {which}")
+
+    # (1) the seven IDs, a short episode each
+    for env_id, (name, kwargs) in gym_cases(device).items():
+        if _gym.HAVE_GYMNASIUM:
+            env = gymnasium.make(env_id, **kwargs, device=device).unwrapped
+        else:
+            env = getattr(pad, name)(**kwargs, device=device)
+        if env.device != device:
+            raise AssertionError(f"{env_id}: built on {env.device}")
+        obs, _ = env.reset(seed=0)
+        inside = [env.observation_space.contains(obs)]
+        total, steps = 0.0, 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            obs, reward, term, trunc, _ = env.step(env.action_space.sample())
+            inside.append(env.observation_space.contains(obs))
+            total, steps = total + reward, steps + 1
+            if term or trunc:
+                break
+        end.record()
+        end.synchronize()
+        if not all(inside) or not np.isfinite(total):
+            raise AssertionError(f"{env_id}: observations in the space {inside}, return {total}")
+        log(f"[gym] {env_id}: {steps} steps, every observation in its space "
+            f"{tuple(obs.shape)} {obs.dtype}, return {total:.4f}; "
+            f"{start.elapsed_time(end) / steps:.4f} ms a step by CUDA events, the first "
+            f"steps of the process's env ({card})")
+
+    # (2) the transport golden through the adapter against the batched env
+    env, *_ = transport_setup(torch, device, T=10.0, dx=1e-2)
+    nx, dx = env.state_dim, env.config.dx
+    beta = (5 * np.cos(7.35 * np.arccos(np.linspace(0, 1, nx)))).astype(np.float32)
+    spatial = np.linspace(dx, 1.0, nx)
+    theta = torch.from_numpy((5 * np.cos(7.35 * np.arccos(spatial))).astype(np.float32))
+    gain = transport_kernel(theta, dx).to(device)
+    for height, golden in ((1.0, 289.84), (10.0, 198.38)):
+        state, obs = env.init_from(np.full((1, nx), height, np.float32), beta[None])
+        batched = []
+        for _ in range(100):
+            state, out = env.step_batch(state, transport_control(gain, obs, dx))
+            obs = out.obs
+            batched.append(out.reward)
+        batched = torch.cat(batched).tolist()
+        adapter = pad.TransportPDE1D(
+            T=10.0, dt=1e-4, X=1.0, dx=1e-2, control_sample_rate=0.1,
+            limit_pde_state_size=True, max_state_value=1e10,
+            reward_class=TunedReward1D(int(round(10.0 / 1e-4)), -1e3, 3e2),
+            reset_init_condition_func=lambda n, h=height: np.full(n, h, np.float32),
+            reset_recirculation_func=lambda n: beta, device=device)
+        interval1d.LAUNCHES = 0
+        obs_np, _ = adapter.reset()
+        rewards, term = [], False
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(100):
+            action = transport_control(gain, torch.from_numpy(obs_np).to(device)[None], dx)
+            obs_np, reward, term, trunc, _ = adapter.step(action.cpu().numpy())
+            rewards.append(reward)
+        end.record()
+        end.synchronize()
+        launches = interval1d.LAUNCHES
+        if launches != 100 or not term:
+            raise AssertionError(f"[gym] golden u0={height}: {launches} launches, "
+                                 f"terminated {term}")
+        if rewards != batched:
+            worst = max(abs(a - b) for a, b in zip(rewards, batched))
+            raise AssertionError(f"[gym] golden u0={height}: the adapter's rewards differ "
+                                 f"from the batched env's by up to {worst}")
+        if abs(sum(rewards) - golden) > 0.5:
+            raise AssertionError(f"[gym] golden u0={height}: {sum(rewards)} vs {golden} +- 0.5")
+        log(f"[gym] transport golden u0={height} through TransportPDE1D: return "
+            f"{sum(rewards):.4f} (published {golden} +- 0.5), 100 launches, every step's "
+            f"reward equal to the batched env's at B=1 to the bit; "
+            f"{start.elapsed_time(end) / 100:.4f} ms a step with the policy, by CUDA "
+            f"events ({card})")
+
+    # (3) the brain tumor at 801 points under the therapy wrapper
+    wrapper = pad.TherapyWrapper(pad.BrainTumor1D(
+        **BRAIN_WIDE, total_dosage=61.2, verbose=False,
+        reset_init_condition_func=lambda X, n: 0.8e5 * np.exp(-0.25 * np.linspace(0, X, n) ** 2),
+        device=device))
+    bt.LAUNCHES = bt.WIDE_LAUNCHES = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    wrapper.reset()
+    stage = wrapper.unwrapped.stage
+    done, calls = False, 0
+    while not done:
+        _, _, term, trunc, _ = wrapper.step(0.05)
+        done, calls = term or trunc, calls + 1
+    end.record()
+    end.synchronize()
+    steps = wrapper.unwrapped.time_index
+    if bt.WIDE_LAUNCHES < steps or bt.LAUNCHES != 0 or stage != "Therapy":
+        raise AssertionError(f"[gym] therapy: {bt.WIDE_LAUNCHES} launches of B8w for "
+                             f"{steps} steps, {bt.LAUNCHES} of the warp kernel, stage {stage}")
+    log(f"[gym] TherapyWrapper(BrainTumor1D(dx=0.25, dt=0.125)), {wrapper.unwrapped.nx} "
+        f"points: {calls} wrapper steps after the reset, {steps} env steps, "
+        f"{bt.WIDE_LAUNCHES} launches of B8w, {wrapper.unwrapped.simulationDays} simulated "
+        f"steps, death step {wrapper.unwrapped.cDeathDay}; "
+        f"{start.elapsed_time(end) / steps:.4f} ms an env step by CUDA events ({card})")
+    bt.LAUNCHES = bt.WIDE_LAUNCHES = 0
+
+    # (4) the vector env at full width against the [transport] rollout
+    workload = transport_setup(torch, device)
+    env, policy, steps, _ = workload
+    outs, _, _ = run_episode(torch, workload, seed=1)
+    want = np.zeros(NUM_ENVS)
+    for reward in outs.reward.cpu().numpy():
+        want += reward
+    venv = PDEVectorEnv(env, NUM_ENVS, seed=1, device=device)
+    result = {}
+
+    def vector_episode():
+        obs, _ = venv.reset(seed=1)
+        returns = np.zeros(NUM_ENVS)
+        for _ in range(steps):
+            action = policy(torch.from_numpy(obs).to(device), None)
+            obs, reward, term, trunc, _ = venv.step(action.cpu().numpy())
+            returns += reward
+        result["returns"], result["term"] = returns, term
+
+    interval1d.LAUNCHES = 0
+    vector_episode()
+    torch.cuda.synchronize()
+    launches = interval1d.LAUNCHES
+    if launches != steps or not result["term"].all():
+        raise AssertionError(f"[gym] vector env: {launches} launches in {steps} steps, "
+                             f"every env ended {bool(result['term'].all())}")
+    if not np.array_equal(result["returns"], want):
+        worst = float(np.abs(result["returns"] - want).max())
+        raise AssertionError(f"[gym] vector env: returns differ from the rollout's by {worst}")
+    vector_ms = cuda_ms(torch, vector_episode)
+    rollout_ms = cuda_ms(torch, lambda: run_episode(torch, workload, seed=1))
+    interval1d.LAUNCHES = 0
+    log(f"[gym] PDEVectorEnv transport nx=128, {NUM_ENVS} envs x {steps} actions x 1000 "
+        f"sub-steps: {launches} launches, per-env returns equal to the [transport] rollout's "
+        f"from the same seed to the bit (mean {result['returns'].mean():.4f}); episode "
+        f"{vector_ms:.3f} ms against the rollout's {rollout_ms:.3f} ms (CUDA events, median "
+        f"of 3; the vector env adds a host read of obs, rewards and flags a step) ({card})")
+
+    # (5) checked_step_batch: clean on the transport row, raising on FTCS at F = 4
+    gen = torch.Generator(device=device).manual_seed(7)
+    state, obs = env.init_batch(NUM_ENVS, gen)
+    checked_step_batch(env)(state, policy(obs, None))
+    cfg = ReactionDiffusionConfig(T=10.0, dt=1e-2, X=1.0, dx=0.05, control_sample_rate=1e-1)
+    unstable = ReactionDiffusionEnv(cfg, TunedReward1D(cfg.nt, -1e3, 3e2), device=device)
+    n = unstable.state_dim
+    states, _ = unstable.init_from(torch.ones(NUM_ENVS, n), torch.zeros(NUM_ENVS, n))
+    step = checked_step_batch(unstable)
+    try:
+        for _ in range(50):
+            states, _ = step(states, torch.zeros(NUM_ENVS, device=device))
+    except FloatingPointError as exc:
+        log(f"[gym] checked_step_batch: the transport interval at {NUM_ENVS} envs passes; "
+            f"FTCS at Fourier number 4 raises FloatingPointError: {exc}")
+    else:
+        raise AssertionError("[gym] checked_step_batch let a diverged FTCS run pass")
+    interval1d.LAUNCHES = 0
 
 
 def neuron_live_rows(torch, spec, u, Z, L, t, K):
@@ -1692,8 +2037,9 @@ def _episode_line(torch, name, path, episode, units, unit, card, trace=None):
     return ms
 
 
-def family_kernel_times(torch, device, neuron_inputs, brain_inputs, card):
-    """The K-step block and the field pass alone, at their main paths' shapes."""
+def family_kernel_times(torch, device, neuron_inputs, brain_inputs, brain_wide_inputs, card):
+    """The K-step block and the field pass alone, at their main paths' shapes
+    (the field pass at 201 points, the warp kernel, and at 801, B8w)."""
     from pdecontrolgym_tpu_torch.ops import brain_tumor_interval as bt
     from pdecontrolgym_tpu_torch.ops import neuron_interval as ni
 
@@ -1730,21 +2076,24 @@ def family_kernel_times(torch, device, neuron_inputs, brain_inputs, card):
         f"{bound0:.5f} ms by {by0} over {live0} interior point updates, share "
         f"{bound0 / dev0:.3f} ({card})")
 
-    fspec, fu, applied, can = brain_inputs
-    call = lambda: bt.brain_tumor_field(fspec, fu, applied, can)  # noqa: E731
-    k = cuda_ms(torch, call, calls=20)
-    dev, _ = device_ms(torch, call, "brain_tumor_field_kernel")
-    p = cuda_ms(torch, lambda: bt.brain_tumor_field_plain(fspec, fu, applied, can))
-    bound, bound_by, nbytes, flops = brain_bound(fspec, fu.shape[0])
-    times["brain"] = {"ms": k, "device_ms": dev, "plain_ms": p, "bound_ms": bound,
+    for key, inputs, kernel in (("brain", brain_inputs, "brain_tumor_field_kernel"),
+                                ("brain_wide", brain_wide_inputs,
+                                 "brain_tumor_field_wide_kernel")):
+        fspec, fu, applied, can = inputs
+        call = lambda: bt.brain_tumor_field(fspec, fu, applied, can)  # noqa: E731
+        k = cuda_ms(torch, call, calls=20)
+        dev, _ = device_ms(torch, call, kernel)
+        p = cuda_ms(torch, lambda: bt.brain_tumor_field_plain(fspec, fu, applied, can))
+        bound, bound_by, nbytes, flops = brain_bound(fspec, fu.shape[0])
+        times[key] = {"ms": k, "device_ms": dev, "plain_ms": p, "bound_ms": bound,
                       "bound_by": bound_by, "library_ms": None}
-    log(f"[times] one brain-tumor field pass B={fu.shape[0]} nx={fspec.nx}: kernel "
-        f"{k:.4f} ms per call (20 back to back), {dev:.4f} ms on the device "
-        f"(torch.profiler); plain {p:.4f} ms; bound {bound:.5f} ms by {bound_by} "
-        f"({nbytes} bytes, {flops} operations), share of the bound reached "
-        f"{bound / dev:.3f}; no single PyTorch call computes the pass ({card})")
+        log(f"[times] one brain-tumor field pass B={fu.shape[0]} nx={fspec.nx} ({kernel}): "
+            f"kernel {k:.4f} ms per call (20 back to back), {dev:.4f} ms on the device "
+            f"(torch.profiler); plain {p:.4f} ms; bound {bound:.5f} ms by {bound_by} "
+            f"({nbytes} bytes, {flops} operations), share of the bound reached "
+            f"{bound / dev:.3f}; no single PyTorch call computes the pass ({card})")
     ni.LAUNCHES = 0  # timing launches do not count
-    bt.LAUNCHES = 0
+    bt.LAUNCHES = bt.WIDE_LAUNCHES = 0
     return times
 
 
@@ -1774,6 +2123,16 @@ def family_episode_times(torch, device, card, traced):
                 torch, workload, NUM_ENVS, seed=3, days=20)
             _episode_line(torch, "brain_tumor", path, episode, NUM_ENVS * 365,
                           "env-steps/s", card, (window, 20))
+        # brain_wide: 801 points, 2920 steps; the trace covers 160 of them
+        for backend, path in (("auto", "B8w field-pass kernel"), ("eager", "eager")):
+            workload = brain_setup(torch, device, backend=backend, **BRAIN_WIDE)
+            episode = lambda: run_brain_episode(  # noqa: E731
+                torch, workload, NUM_ENVS, seed=3, days=BRAIN_WIDE_STEPS)
+            window = lambda: run_brain_episode(  # noqa: E731
+                torch, workload, NUM_ENVS, seed=3, days=160)
+            _episode_line(torch, f"brain_wide ({BRAIN_WIDE_STEPS} steps, nx=801)", path,
+                          episode, NUM_ENVS * BRAIN_WIDE_STEPS, "env-steps/s", card,
+                          (window, 160))
     else:
         for backend, path in (("auto", "field-pass kernel"), ("eager", "eager")):
             tenv = TherapyEnv(brain_setup(torch, device, backend=backend)[0],
@@ -1789,7 +2148,7 @@ def family_episode_times(torch, device, card, traced):
                 f"step_batch calls after the batched init, {days / (ms / 1e3):.0f} simulated "
                 f"days/s at {NUM_ENVS} envs ({days} days) ({card})")
     ni.LAUNCHES = 0  # timing launches do not count
-    bt.LAUNCHES = 0
+    bt.LAUNCHES = bt.WIDE_LAUNCHES = 0
 
 
 # -- the wide rows and traffic: phases 14 to 18 --------------------------------------
@@ -3280,16 +3639,20 @@ def main():
     ns_wide_launches = phase_ns_wide(torch, device)
     neuron_err, neuron_inputs = phase_neuron_kernel(torch, device)
     neuron_wide_err, neuron_wide_inputs = phase_neuron_wide_kernel(torch, device)
-    brain_err, brain_inputs = phase_brain_kernel(torch, device)
+    brain_err, brain_inputs, brain_wide_err, brain_wide_inputs = phase_brain_kernel(
+        torch, device)
     neuron_launches = phase_neuron(torch, device)
     neuron_wide_launches = phase_neuron_wide(torch, device)
     brain_launches = phase_brain(torch, device)
+    brain_wide_launches = phase_brain_wide(torch, device)
     phase_traffic(torch, device)
+    phase_gym(torch, device, card)
     # times: the kernels alone first (their traces hold a few launches each),
     # then the episodes that are traced, the longest trace last, then the
     # episodes that are not (see device_rows)
     ns_ms = ns_kernel_times(torch, device, ns_inputs, card)
-    family_ms = family_kernel_times(torch, device, neuron_inputs, brain_inputs, card)
+    family_ms = family_kernel_times(torch, device, neuron_inputs, brain_inputs,
+                                    brain_wide_inputs, card)
     interval_ms = interval_kernel_times(torch, device, inputs, card)
     wide_ms = wide_kernel_times(torch, device, inputs["rd_implicit_wide"],
                                 neuron_wide_inputs, card)
@@ -3358,6 +3721,12 @@ def main():
          "source": f"{PKG}/csrc/brain_tumor_field.cu",
          "replaces": "pdecontrolgym_tpu/ops/brain_tumor_interval.py:115",
          "launches": brain_launches, "max_abs_err": brain_err, **family_ms["brain"]})
+    kernels.append(
+        {"name": "brain_tumor_field_wide", "route": "cuda",
+         "source": f"{PKG}/csrc/brain_tumor_field.cu",
+         "replaces": "pdecontrolgym_tpu/ops/brain_tumor_interval.py:115",
+         "launches": brain_wide_launches, "max_abs_err": brain_wide_err,
+         **family_ms["brain_wide"]})
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']}: its main path never launched it")

@@ -8,8 +8,9 @@ env with BrainTumorReward and its therapy wrappers, the ARZ traffic env with
 TrafficARZReward), the functional wrappers, the evaluation harness, the
 transport and parabolic backstepping controllers, the PPO and SAC trainers
 with their networks, checkpoints (flax msgpack policy files included) and
-metrics logger, the batched rollout, the tridiagonal solvers, and the
-kernels (``csrc/interval1d.cu`` and ``csrc/interval1d_wide.cu`` for the
+metrics logger, the batched rollout, the Gymnasium adapters and vector env,
+the debugging, profiling and plotting utilities, the tridiagonal solvers, and
+the kernels (``csrc/interval1d.cu`` and ``csrc/interval1d_wide.cu`` for the
 explicit 1D sub-steps, ``csrc/interval1d_pcr.cu`` and
 ``csrc/interval1d_pcr_wide.cu`` for the implicit θ-scheme, ``csrc/ns_fused.cu`` for the Navier-Stokes projection step,
 ``csrc/neuron_interval.cu`` and ``csrc/neuron_interval_wide.cu`` for K neuron
@@ -25,14 +26,25 @@ Layers:
                growth, brain tumor and ARZ traffic; observation/action wrappers
     rewards/   plug-in reward functions
     parallel/  batched lockstep rollout with autoreset
+    compat/    Gymnasium adapters with the reference's kwargs, the vector env
     agents/    backstepping controllers, actor-critic networks, PPO and SAC
-    utils/     checkpoints, the metrics logger, carrying JAX configs, states
-               and networks across
+    utils/     checkpoints, the metrics logger, NaN and stability checks,
+               timing and tracing, figures, carrying JAX configs, states and
+               networks across
     eval.py    batched episode returns and controller tables
 """
 
 from pdecontrolgym_tpu_torch.core.base import FunctionalEnv, RewardCtx, StepOut
 
 __version__ = "0.1.0"
+
+# Gymnasium registration of the adapters under PDEControlGymTorch-* (the JAX
+# package takes the reference's PDEControlGym-* IDs)
+try:
+    from pdecontrolgym_tpu_torch.compat.registration import register_all as _register_all
+
+    _register_all()
+except ImportError:  # gymnasium not installed; the adapters run on stand-ins
+    pass
 
 __all__ = ["FunctionalEnv", "RewardCtx", "StepOut", "__version__"]

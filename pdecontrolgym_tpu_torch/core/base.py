@@ -85,6 +85,19 @@ class RewardCtx:
 RewardFn = Callable[[RewardCtx], torch.Tensor]
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``. Raises for a CUDA device where there is
+    no card: the entry points run on the card unless asked for the CPU, and
+    never carry on on the CPU by themselves."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: this runs on the card by default; pass device='cpu' "
+            "to run on the CPU"
+        )
+    return device
+
+
 class FunctionalEnv:
     """Base class for batch-first PDE control environments. Instances hold
     static configuration only; all dynamic data lives in the state."""

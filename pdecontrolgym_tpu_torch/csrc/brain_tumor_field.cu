@@ -168,6 +168,94 @@ brain_tumor_field_kernel(const FieldArgs p) {
   block_copy(p.u_out + base, rows, n, vec);
 }
 
+// -- B8w: rows of 513 to kMaxNxBrainWide points, one block an env ----------------
+//
+// The same function for rows past one warp's reach, as simply as it can be
+// written. One block of kWideThreads threads an env; the row and its update
+// sit in dynamic shared memory (8*nx bytes, 64 KiB at 8192 points); thread t
+// takes the points t, t + kWideThreads, ... The two scans are block-wide
+// max-reductions of the column: redux.sync a warp, then one shared slot a
+// warp (each scan its own slots, so no barrier between a scan's read and the
+// next scan's write). The update reads its neighbours from shared memory
+// (zero beyond the row's ends, as the TPU kernel's shifts); after a barrier
+// columns 0 and nx-1 take the UPDATED columns 1 and nx-2, then the clip, then
+// the select on `can`; the new row goes to global memory from registers and
+// its T1 scan runs on the same values. The arithmetic is the warp kernel's,
+// expression for expression, so u' equals the plain version to the bit.
+
+constexpr int kWideThreads = 256;
+constexpr int kWideWarps = kWideThreads / 32;
+constexpr int kMaxNxBrainWide = 8192;  // ops/brain_tumor_interval.py::MAX_NX_WIDE
+
+// The largest of every thread's `best`, in every thread. Ends behind a barrier.
+__device__ __forceinline__ int block_max(int best, int* slots) {
+  best = __reduce_max_sync(kFull, best);
+  if ((threadIdx.x & 31) == 0) slots[threadIdx.x >> 5] = best;
+  __syncthreads();
+  int r = slots[0];
+#pragma unroll
+  for (int w = 1; w < kWideWarps; ++w) r = max(r, slots[w]);
+  return r;
+}
+
+__global__ void __launch_bounds__(kWideThreads)
+brain_tumor_field_wide_kernel(const FieldArgs p) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int slots[2][kWideWarps];
+  const int nx = p.nx;
+  float* s = smem;         // the incoming row
+  float* upd = smem + nx;  // its update, before the mirror
+  const int env = blockIdx.x;
+  const size_t base = static_cast<size_t>(env) * nx;
+  const float* row = p.u + base;
+
+  int best = -1;
+  for (int i = threadIdx.x; i < nx; i += kWideThreads) {
+    const float v = row[i];
+    s[i] = v;
+    if (v >= p.thr_t2) best = i;
+  }
+  const int i2 = block_max(best, slots[0]);  // its barrier also publishes s
+
+  const float applied = p.applied[env];
+  const bool can = p.can[env] != 0;
+  const float r_k = 1.0f / p.k, r_dx2 = 1.0f / p.dx2;
+  const bool ok_k = div_divisor_ok(p.k), ok_dx2 = div_divisor_ok(p.dx2);
+  const float radius = (i2 >= 0) ? static_cast<float>(i2) * p.dx + 25.0f : 0.0f;
+  const float bed = applied + applied * applied / p.abr;
+  const float r_in = 1.0f - expf(p.neg_alpha * bed);
+
+  for (int i = threadIdx.x; i < nx; i += kWideThreads) {
+    const float v = s[i];
+    const float ul = (i >= 1) ? s[i - 1] : 0.f;
+    const float ur = (i < nx - 1) ? s[i + 1] : 0.f;
+    const float R = (static_cast<float>(i) * p.dx <= radius) ? r_in : 0.0f;
+    const float logistic = v * (1.0f - div_exact(v, p.k, r_k, ok_k));
+    const float growth =
+        div_exact(p.D * (ur - 2.0f * v + ul), p.dx2, r_dx2, ok_dx2) + p.rho * logistic;
+    upd[i] = v + p.dt * (growth - R * logistic);
+  }
+  __syncthreads();
+
+  float* out = p.u_out + base;
+  best = -1;
+  for (int i = threadIdx.x; i < nx; i += kWideThreads) {
+    // the Neumann mirror reads the UPDATED columns 1 and nx-2
+    float r = (i == 0) ? upd[1] : upd[i];
+    r = (i == nx - 1) ? upd[nx - 2] : r;
+    r = fminf(fmaxf(r, 0.0f), p.k);
+    const float v = can ? r : s[i];
+    out[i] = v;
+    if (v >= p.thr_t1) best = i;
+  }
+  const int i1 = block_max(best, slots[1]);
+  if (threadIdx.x == 0) {
+    p.treatment_radius[env] = radius;
+    p.t1[env] = (i1 >= 0) ? static_cast<float>(i1) * p.dx : 0.0f;
+    p.has_t1[env] = (i1 >= 0) ? 1 : 0;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -203,6 +291,33 @@ int brain_tumor_field_launch(const float* u, const float* applied, const unsigne
 #undef PDECG_CASE
     default: brain_tumor_field_kernel<16><<<grid, block, 0, s>>>(p); break;
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same for rows of kMaxNx + 1 to kMaxNxBrainWide points: one block an env.
+int brain_tumor_field_wide_launch(const float* u, const float* applied,
+                                  const unsigned char* can, float* u_out,
+                                  float* treatment_radius, float* t1,
+                                  unsigned char* has_t1, int B, int nx, float dt, float dx,
+                                  float dx2, float D, float rho, float k, float neg_alpha,
+                                  float abr, float thr_t1, float thr_t2, int device,
+                                  void* stream) {
+  if (nx <= kMaxNx || nx > kMaxNxBrainWide || B < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int smem = 2 * nx * static_cast<int>(sizeof(float));
+  err = cudaFuncSetAttribute(brain_tumor_field_wide_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  FieldArgs p;
+  p.u = u; p.applied = applied; p.can = can;
+  p.u_out = u_out; p.treatment_radius = treatment_radius; p.t1 = t1; p.has_t1 = has_t1;
+  p.B = B; p.nx = nx;
+  p.dt = dt; p.dx = dx; p.dx2 = dx2; p.D = D; p.rho = rho; p.k = k;
+  p.neg_alpha = neg_alpha; p.abr = abr; p.thr_t1 = thr_t1; p.thr_t2 = thr_t2;
+  brain_tumor_field_wide_kernel<<<B, kWideThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

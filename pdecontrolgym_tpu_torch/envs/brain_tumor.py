@@ -42,7 +42,7 @@ import torch
 from pdecontrolgym_tpu_torch.core.base import FunctionalEnv, RewardCtx, StepOut
 from pdecontrolgym_tpu_torch.envs.common import _scalar
 from pdecontrolgym_tpu_torch.ops.brain_tumor_interval import (
-    MAX_NX,
+    MAX_NX_WIDE,
     BrainTumorFieldSpec,
     brain_tumor_field,
 )
@@ -356,10 +356,11 @@ class BrainTumorEnv(FunctionalEnv):
         """The field pass needs float32 and the stock BrainTumorReward
         (``_day_scalars`` builds one batched RewardCtx, valid only for
         elementwise rewards). ``backend="kernel"`` raises when ineligible.
-        Under ``"auto"`` the row must also be one the kernel takes
-        (``nx <= MAX_NX``), decided from the config before any launch; a wider
-        row steps eagerly (the JAX package's ``"auto"`` never picks its field
-        kernel), and ``"kernel"`` raises there at the launch."""
+        Under ``"auto"`` the row must also be within the TPU kernel's reach
+        (``nx <= MAX_NX_WIDE``; the warp kernel takes rows to 512 points, the
+        block-per-env kernel the rest), decided from the config before any
+        launch; a wider row steps eagerly, and ``"kernel"`` raises there at
+        the launch."""
         c = self.config
         if c.backend == "eager":
             return False
@@ -368,7 +369,7 @@ class BrainTumorEnv(FunctionalEnv):
             raise ValueError(
                 "backend='kernel' needs float32 and the stock BrainTumorReward"
             )
-        return eligible and (c.backend == "kernel" or c.nx <= MAX_NX)
+        return eligible and (c.backend == "kernel" or c.nx <= MAX_NX_WIDE)
 
     def observe_batch(self, state: BrainTumorState):
         """The observation is the density row itself."""

@@ -23,11 +23,13 @@ Two implementations, one contract:
 
 - :func:`brain_tumor_field_plain`, PyTorch on ``(B, nx)`` tensors: the CPU
   path, and the oracle for the kernel.
-- ``csrc/brain_tumor_field.cu``, CUDA C++ for ``sm_90a``: blocks of four envs,
-  whose rows are copied in and out through shared memory with 16-byte
-  accesses; one warp per env, the row in registers between; the two radius
-  scans one ``redux.sync`` each; ``u_new`` equal to the plain version's to the
-  bit.
+- ``csrc/brain_tumor_field.cu``, CUDA C++ for ``sm_90a``: for rows of up to
+  ``MAX_NX`` points, blocks of four envs, whose rows are copied in and out
+  through shared memory with 16-byte accesses; one warp per env, the row in
+  registers between; the two radius scans one ``redux.sync`` each. For rows of
+  ``MAX_NX + 1`` to ``MAX_NX_WIDE`` points (B8w), one block of 256 threads an
+  env, the row and its update in shared memory, the scans block-wide
+  max-reductions. Both give ``u_new`` equal to the plain version's to the bit.
 
 :func:`brain_tumor_field` dispatches on the tensors' device: the plain version
 for CPU tensors, the kernel for CUDA tensors. It never falls back from one to
@@ -47,10 +49,22 @@ import functools
 import numpy as np
 import torch
 
-# Launches of the CUDA kernel since import (or since a caller reset it).
+# Launches of the CUDA kernels since import (or since a caller reset them):
+# the warp kernel's, and the block-per-env kernel's for rows past MAX_NX.
 LAUNCHES = 0
+WIDE_LAUNCHES = 0
 
 MAX_NX = 512  # one warp holds a row of at most 32 * 16 points
+
+# The TPU kernel's reach, counted from its VMEM buffers under its
+# vmem_limit_bytes = 128 MiB at tile_b = 256 rows a grid step. A point of the
+# tile costs 256 * 4 B = 1 KiB in each (256, nx) float32 array. The u block in
+# and the u block out, each double-buffered: 4 KiB a point. The body's
+# full-row temporaries live at once (the column iota and x_scale, d, R, u_l,
+# u_r, logistic, growth, upd, the two mirror selects, nxt): about 12 KiB a
+# point. 16 KiB a point: 128 MiB / 16 KiB = 8192 points. Past it "auto" steps
+# eagerly (decided from the config) and "kernel" raises.
+MAX_NX_WIDE = 8192
 
 
 def _f32(x: float) -> float:
@@ -154,17 +168,26 @@ def brain_tumor_field_plain(spec: BrainTumorFieldSpec, u, applied, can):
     return u_new, treatment_radius, t1, has_t1
 
 
+def kernel_takes(nx: int) -> bool:
+    """Whether a CUDA kernel takes rows of ``nx`` points: the warp kernel to
+    ``MAX_NX``, the block-per-env kernel to ``MAX_NX_WIDE``, the TPU kernel's
+    reach."""
+    return 3 <= nx <= MAX_NX_WIDE
+
+
 def _brain_tumor_field_cuda(spec, u, applied, can):
-    """Launch the CUDA kernel on the tensors' stream. Raises on anything the
-    kernel does not take; allocates the outputs; does not synchronise."""
-    global LAUNCHES
+    """Launch a CUDA kernel on the tensors' stream: the warp kernel up to
+    ``MAX_NX`` points, the block-per-env kernel up to ``MAX_NX_WIDE``. Raises
+    on anything the kernels do not take; allocates the outputs; does not
+    synchronise."""
+    global LAUNCHES, WIDE_LAUNCHES
     from pdecontrolgym_tpu_torch.ops import _build
 
     B, nx = u.shape
-    if nx > MAX_NX:
+    if not kernel_takes(nx):
         raise ValueError(
-            f"brain_tumor_field kernel: nx {nx} > {MAX_NX} (one warp per env holds "
-            "at most 16 points a lane)"
+            f"brain_tumor_field kernel: nx {nx} > {MAX_NX_WIDE}, the reach of the TPU "
+            "kernel (see MAX_NX_WIDE)"
         )
     if not all(x.is_contiguous() for x in (u, applied, can)):
         raise ValueError("brain_tumor_field kernel: inputs must be contiguous")
@@ -173,7 +196,9 @@ def _brain_tumor_field_cuda(spec, u, applied, can):
     t1 = torch.empty_like(radius)
     has_t1 = torch.empty((B,), dtype=torch.bool, device=u.device)
     lib = _build.load()
-    err = lib.brain_tumor_field_launch(
+    wide = nx > MAX_NX
+    launch = lib.brain_tumor_field_wide_launch if wide else lib.brain_tumor_field_launch
+    err = launch(
         u.data_ptr(), applied.data_ptr(), can.data_ptr(),
         u_out.data_ptr(), radius.data_ptr(), t1.data_ptr(), has_t1.data_ptr(),
         B, nx, *spec.scalars(),
@@ -182,7 +207,10 @@ def _brain_tumor_field_cuda(spec, u, applied, can):
     )
     if err != 0:
         raise RuntimeError(
-            f"brain_tumor_field_launch failed: {lib.interval1d_error_string(err).decode()}"
+            f"brain_tumor_field launch failed: {lib.interval1d_error_string(err).decode()}"
         )
-    LAUNCHES += 1
+    if wide:
+        WIDE_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return u_out, radius, t1, has_t1

@@ -19,24 +19,36 @@ from pdecontrolgym_tpu_torch.utils.convert import (
     twin_critic_from_flax,
     twin_critic_to_flax,
 )
+from pdecontrolgym_tpu_torch.utils.debug import cfl_report, checked_step, checked_step_batch
 from pdecontrolgym_tpu_torch.utils.metrics import MetricsLogger
+from pdecontrolgym_tpu_torch.utils.plotting import ns_fields, spacetime_1d, surface_1d
+from pdecontrolgym_tpu_torch.utils.profiling import steps_per_second, time_device_fn, trace
 
 __all__ = [
     "MetricsLogger",
     "actor_critic_from_flax",
     "actor_critic_to_flax",
     "brain_tumor_state_from_numpy",
+    "cfl_report",
+    "checked_step",
+    "checked_step_batch",
     "config_from_fields",
     "load_params",
     "neuron_state_from_numpy",
     "neuron_tables_from_numpy",
+    "ns_fields",
     "ns_state_from_numpy",
     "restore",
     "sac_actor_from_flax",
     "sac_actor_to_flax",
     "save",
     "save_params",
+    "spacetime_1d",
     "state_from_numpy",
+    "steps_per_second",
+    "surface_1d",
+    "time_device_fn",
+    "trace",
     "traffic_state_from_numpy",
     "twin_critic_from_flax",
     "twin_critic_to_flax",

@@ -4,7 +4,8 @@ Values arrive as plain Python scalars and numpy arrays (``dataclasses.asdict``
 of a JAX config; ``np.asarray`` of each state leaf), so this module needs no
 JAX. The port holds batch-first states: a single-env JAX state (leaves without
 the env axis) becomes a batch of one. The trainers' networks cross in both
-directions, as flax parameter trees of numpy arrays.
+directions, as flax parameter trees of numpy arrays; the networks are built
+on ``device``, the card unless the caller asks for the CPU, as the envs are.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 
 from pdecontrolgym_tpu_torch.agents.networks import ActorCritic
 from pdecontrolgym_tpu_torch.agents.sac import Actor, TwinCritic
+from pdecontrolgym_tpu_torch.core.base import resolve_device
 from pdecontrolgym_tpu_torch.envs.brain_tumor import BrainTumorState
 from pdecontrolgym_tpu_torch.envs.common import Boundary1DState
 from pdecontrolgym_tpu_torch.envs.navier_stokes import NavierStokesState
@@ -153,7 +155,7 @@ def _num_dense(tree: dict) -> int:
     return sum(1 for name in tree if name.startswith("Dense_"))
 
 
-def actor_critic_from_flax(params: dict, device=None):
+def actor_critic_from_flax(params: dict, device="cuda"):
     """An :class:`~pdecontrolgym_tpu_torch.agents.networks.ActorCritic` with the
     weights of the JAX package's ``ActorCritic`` variables ``params``
     (``{"params": ...}``): ``Dense_0 ... Dense_n`` are the policy tower and the
@@ -161,7 +163,7 @@ def actor_critic_from_flax(params: dict, device=None):
     tree = params["params"]
     n = _num_dense(tree) // 2
     obs_dim, hidden, action_dim = _towers(tree, n)
-    net = ActorCritic(obs_dim, action_dim, hidden, device=device)
+    net = ActorCritic(obs_dim, action_dim, hidden, device=resolve_device(device))
     for k, layer in enumerate([*net.pi, *net.vf]):
         _dense_into(layer, tree[f"Dense_{k}"])
     with torch.no_grad():
@@ -177,14 +179,14 @@ def actor_critic_to_flax(net) -> dict:
     return {"params": tree}
 
 
-def sac_actor_from_flax(params: dict, device=None):
+def sac_actor_from_flax(params: dict, device="cuda"):
     """A SAC :class:`~pdecontrolgym_tpu_torch.agents.sac.Actor` from the JAX
     ``Actor``'s variables: ``Dense_0 ... Dense_{n-1}`` the tower, ``Dense_n``
     the mean head, ``Dense_{n+1}`` the log-σ head."""
     tree = params["params"]
     n = _num_dense(tree) - 1
     obs_dim, hidden, action_dim = _towers(tree, n)
-    actor = Actor(obs_dim, action_dim, hidden, device=device)
+    actor = Actor(obs_dim, action_dim, hidden, device=resolve_device(device))
     for k, layer in enumerate([*actor.tower, actor.mean, actor.log_std]):
         _dense_into(layer, tree[f"Dense_{k}"])
     return actor
@@ -196,13 +198,13 @@ def sac_actor_to_flax(actor) -> dict:
     return {"params": {f"Dense_{k}": _dense_leaf(layer) for k, layer in enumerate(layers)}}
 
 
-def twin_critic_from_flax(params: dict, action_dim: int, device=None):
+def twin_critic_from_flax(params: dict, action_dim: int, device="cuda"):
     """A :class:`~pdecontrolgym_tpu_torch.agents.sac.TwinCritic` from the JAX
     ``TwinCritic``'s variables: ``Critic_0`` and ``Critic_1``, each ``Dense_0
     ... Dense_n`` over ``[obs, action]``."""
     tree = params["params"]
     in_dim, hidden, _ = _towers(tree["Critic_0"], _num_dense(tree["Critic_0"]))
-    twin = TwinCritic(in_dim - action_dim, action_dim, hidden, device=device)
+    twin = TwinCritic(in_dim - action_dim, action_dim, hidden, device=resolve_device(device))
     for c, critic in enumerate(twin.critics):
         for k, layer in enumerate(critic.layers):
             _dense_into(layer, tree[f"Critic_{c}"][f"Dense_{k}"])

@@ -9,7 +9,9 @@ PyTorch for CUDA and ``nvcc`` and no flax::
     python -m pytest tests/test_torch_brain_tumor_cuda.py -m cuda
 
 ``chip_smoke.py`` makes the same comparison at the main path's shapes. The
-kernel's ``u'``, radii and ``has_t1`` equal the plain version's to the bit. The
+kernels' ``u'``, radii and ``has_t1`` (the warp kernel's to 512 points, the
+block-per-env kernel's to ``MAX_NX_WIDE``) equal the plain version's to the
+bit. The
 env paths are compared with bands: ``u`` rtol 1e-6 atol 1e-3 (densities of
 order 1e5; the eager path is other code).
 """
@@ -94,13 +96,83 @@ def test_cuda_kernel_equals_plain_version_to_the_bit(B, X, offset):
 
 @pytest.mark.cuda
 def test_cuda_wrapper_raises_above_its_cap():
+    """One point past the reach of the block-per-env kernel, MAX_NX_WIDE (the
+    TPU kernel's), the wrapper raises a ValueError that names it."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    env = BrainTumorEnv(BrainTumorConfig(X=600.0), BrainTumorReward())
-    u = torch.zeros((2, 601), device="cuda")
-    with pytest.raises(ValueError, match="512"):
+    nx = tbt.MAX_NX_WIDE + 1
+    env = BrainTumorEnv(BrainTumorConfig(X=float(nx - 1)), BrainTumorReward())
+    u = torch.zeros((2, nx), device="cuda")
+    with pytest.raises(ValueError, match=str(tbt.MAX_NX_WIDE)):
         tbt.brain_tumor_field(env._spec, u, torch.zeros(2, device="cuda"),
                               torch.ones(2, dtype=torch.bool, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 7, 1024])
+@pytest.mark.parametrize("X,dx", [(512.0, 1.0), (200.0, 0.25), (1023.0, 1.0), (2048.0, 1.0),
+                                  (200.0, 0.0625), (8191.0, 1.0)])
+def test_cuda_wide_kernel_equals_plain_version_to_the_bit(B, X, dx):
+    """The block-per-env kernel (B8w) at 513 to MAX_NX_WIDE points: u', the
+    radii and has_t1 equal the plain version's to the bit, doses zero and
+    non-zero, ``can`` mixed, rows below one or both thresholds; one launch
+    counted in WIDE_LAUNCHES and none in LAUNCHES."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    cfg = BrainTumorConfig(X=X, dx=dx)
+    assert tbt.MAX_NX < cfg.nx <= tbt.MAX_NX_WIDE
+    env = BrainTumorEnv(cfg, BrainTumorReward())
+    u = _rows(B, cfg.X, cfg.nx, seed=B + cfg.nx, peaks=(0.9e5, 0.4e5, 0.1e5, 0.0))
+    rng = np.random.default_rng(3)
+    applied = torch.from_numpy(rng.choice([0.0, 1.8, 15.0], size=B).astype(np.float32)).cuda()
+    can = torch.from_numpy(rng.random(B) < 0.8).cuda()
+    before = (tbt.LAUNCHES, tbt.WIDE_LAUNCHES)
+    got = tbt.brain_tumor_field(env._spec, u, applied, can)
+    torch.cuda.synchronize()
+    assert (tbt.LAUNCHES, tbt.WIDE_LAUNCHES) == (before[0], before[1] + 1)
+    want = tbt.brain_tumor_field_plain(env._spec, u, applied, can)
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert torch.equal(got[0][~can], u[~can])
+
+
+@pytest.mark.cuda
+def test_cuda_wide_env_kernel_path_matches_eager_path():
+    """The stock domain at dx = 0.25 (801 points) and dt = 0.125: ``"auto"``
+    on the card launches B8w once a day and agrees with the eager path over
+    400 days (integer fields and flags equal, ``u`` rtol 1e-6 atol 1e-3,
+    rewards rtol 1e-5 atol 1e-4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    cfg = BrainTumorConfig(dx=0.25, dt=0.125)
+    assert cfg.nx == 801
+    xs = np.linspace(0.0, cfg.X, cfg.nx)
+    r = np.linspace(10.0, 50.0, 8)[:, None]
+    ic = torch.from_numpy((0.9e5 * np.exp(-((xs[None] / r) ** 4))).astype(np.float32))
+    sampler = lambda n, gen: ic[:n].cuda()  # noqa: E731
+    auto = BrainTumorEnv(cfg, BrainTumorReward(), ic_sampler=sampler)
+    eager = BrainTumorEnv(dataclasses.replace(cfg, backend="eager"), BrainTumorReward(),
+                          ic_sampler=sampler)
+    sa, _ = auto.init_batch(8, None, t_benchmark=300)
+    se, _ = eager.init_batch(8, None, t_benchmark=300)
+    dose = torch.linspace(0.02, 1.0, 8, device="cuda")
+    before = (tbt.LAUNCHES, tbt.WIDE_LAUNCHES)
+    for _ in range(400):
+        sa, oa = auto.step_batch(sa, dose)
+        se, oe = eager.step_batch(se, dose)
+        for f in dataclasses.fields(sa):
+            a, e = getattr(sa, f.name), getattr(se, f.name)
+            if a.dtype == torch.int32:
+                assert torch.equal(a, e), f.name
+            else:
+                np.testing.assert_allclose(a.cpu().numpy(), e.cpu().numpy(),
+                                           rtol=1e-6, atol=1e-3, err_msg=f.name)
+        assert torch.equal(oa.terminated, oe.terminated)
+        assert torch.equal(oa.truncated, oe.truncated)
+        np.testing.assert_allclose(oa.reward.cpu().numpy(), oe.reward.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-4)
+    assert (tbt.LAUNCHES, tbt.WIDE_LAUNCHES) == (before[0], before[1] + 400)
 
 
 @pytest.mark.cuda

@@ -186,18 +186,22 @@ def test_auto_steps_eagerly_only_past_the_tpu_kernels_reach(nx, implicit, explic
 
 
 def test_brain_tumor_and_neuron_eligibility_follow_the_kernel_reach():
-    """Past 512 points the brain tumor's field pass is not eligible under
-    ``"auto"`` (the env steps eagerly on the card; the JAX package's
-    ``"auto"`` never picks that kernel); under ``"kernel"`` it stays eligible,
-    so the wrapper raises there on the card. The K-step neuron block stays
-    eligible past 512 under both, since the JAX package's ``"auto"`` runs its
-    kernel at every M: on the card the block-per-env kernel takes rows of
-    513 to 16384 points."""
+    """The brain tumor's field pass is eligible under ``"auto"`` up to the TPU
+    kernel's reach (``MAX_NX_WIDE`` = 8192 points: the warp kernel to 512, the
+    block-per-env kernel above) and not past it (the env steps eagerly on the
+    card); under ``"kernel"`` it stays eligible past it, so the wrapper raises
+    there on the card. The K-step neuron block stays eligible past 512 under
+    both, since the JAX package's ``"auto"`` runs its kernel at every M: on
+    the card the block-per-env kernel takes rows of 513 to 16384 points."""
     wide = dict(T=20.0, dt=1.0, X=600.0, dx=1.0)
     assert BrainTumorConfig(**wide).nx == 601
-    assert not BrainTumorEnv(BrainTumorConfig(**wide), BrainTumorReward(),
+    assert BrainTumorEnv(BrainTumorConfig(**wide), BrainTumorReward(),
+                         device="cpu")._kernel_eligible()
+    past = dict(wide, X=8192.0)
+    assert BrainTumorConfig(**past).nx == 8193
+    assert not BrainTumorEnv(BrainTumorConfig(**past), BrainTumorReward(),
                              device="cpu")._kernel_eligible()
-    assert BrainTumorEnv(BrainTumorConfig(**wide, backend="kernel"), BrainTumorReward(),
+    assert BrainTumorEnv(BrainTumorConfig(**past, backend="kernel"), BrainTumorReward(),
                          device="cpu")._kernel_eligible()
     assert BrainTumorEnv(BrainTumorConfig(), BrainTumorReward(), device="cpu")._kernel_eligible()
     long = dict(dtype=torch.float32, X=60e-6, LSubS=60e-6)

@@ -1,0 +1,53 @@
+"""The port's entry points run on the card unless the caller asks for the
+CPU: without a card, the network converters of ``utils/convert.py`` called
+with no device raise instead of quietly building on the CPU (they defaulted
+to ``device=None``, the CPU, before), and with ``device="cpu"`` they build
+there. The Gym adapters' and the vector env's default is tested in
+``tests/test_torch_gym_compat.py``."""
+
+import numpy as np
+import pytest
+import torch
+
+from pdecontrolgym_tpu_torch.agents.networks import ActorCritic
+from pdecontrolgym_tpu_torch.agents.sac import Actor, TwinCritic
+from pdecontrolgym_tpu_torch.core.base import resolve_device
+from pdecontrolgym_tpu_torch.utils import convert
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the default device where there is no card")
+
+
+def _params(kind):
+    """Flax-format parameters written by the port's own inverse converters."""
+    if kind == "actor_critic":
+        return (convert.actor_critic_from_flax,
+                convert.actor_critic_to_flax(ActorCritic(5, 2, (8, 8), device="cpu")), ())
+    if kind == "sac_actor":
+        return (convert.sac_actor_from_flax,
+                convert.sac_actor_to_flax(Actor(5, 2, (8, 8), device="cpu")), ())
+    return (convert.twin_critic_from_flax,
+            convert.twin_critic_to_flax(TwinCritic(5, 2, (8, 8), device="cpu")), (2,))
+
+
+@pytest.mark.parametrize("kind", ["actor_critic", "sac_actor", "twin_critic"])
+def test_converters_default_to_the_card(kind):
+    _no_card()
+    from_flax, params, extra = _params(kind)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        from_flax(params, *extra)
+    net = from_flax(params, *extra, device="cpu")
+    assert {p.device.type for p in net.parameters()} == {"cpu"}
+    back = _params(kind)[1]
+    leaves = back["params"]
+    first = leaves.get("Dense_0", leaves.get("Critic_0", {}).get("Dense_0"))
+    assert isinstance(first["kernel"], np.ndarray)
+
+
+def test_resolve_device():
+    assert resolve_device("cpu") == torch.device("cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            resolve_device("cuda")

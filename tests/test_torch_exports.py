@@ -8,7 +8,7 @@ import pkgutil
 
 import pytest
 
-SUBPACKAGES = ("envs", "ops", "rewards", "agents", "parallel", "utils")
+SUBPACKAGES = ("envs", "ops", "rewards", "agents", "parallel", "utils", "compat")
 
 
 def _defined_names(package):

@@ -245,12 +245,13 @@ def test_cuda_kernel_backend_past_the_explicit_reach_raises():
 
 @pytest.mark.cuda
 def test_cuda_auto_brain_tumor_past_the_kernel_reach_steps_eagerly():
-    """A 601-point brain-tumor row (past the field pass's 512) under
-    ``"auto"`` on the card steps eagerly without raising and equals the
-    ``"eager"`` env; ``"kernel"`` raises the wrapper's ValueError."""
+    """An 8193-point brain-tumor row (past the field pass's reach,
+    ``MAX_NX_WIDE`` = 8192) under ``"auto"`` on the card steps eagerly without
+    raising and equals the ``"eager"`` env; ``"kernel"`` raises the wrapper's
+    ValueError."""
     _need_card()
-    cfg = BrainTumorConfig(T=20.0, dt=1.0, X=600.0, dx=1.0)
-    assert cfg.nx == 601
+    cfg = BrainTumorConfig(T=20.0, dt=1.0, X=8192.0, dx=1.0)
+    assert cfg.nx == 8193
     xs = np.linspace(0.0, cfg.X, cfg.nx)
     r = np.linspace(20.0, 90.0, 4)[:, None]
     ic = torch.from_numpy((0.9e5 * np.exp(-((xs[None] / r) ** 4))).astype(np.float32))
@@ -261,16 +262,16 @@ def test_cuda_auto_brain_tumor_past_the_kernel_reach_steps_eagerly():
     sa, _ = auto.init_batch(4, None, t_benchmark=10)
     se, _ = eager.init_batch(4, None, t_benchmark=10)
     dose = torch.linspace(0.1, 1.0, 4, device="cuda")
-    before = tbt.LAUNCHES
+    before = (tbt.LAUNCHES, tbt.WIDE_LAUNCHES)
     for _ in range(5):
         sa, oa = auto.step_batch(sa, dose)
         se, oe = eager.step_batch(se, dose)
         _assert_same_states(sa, se)
         torch.testing.assert_close(oa.reward, oe.reward, rtol=0, atol=0, equal_nan=True)
-    assert tbt.LAUNCHES == before
+    assert (tbt.LAUNCHES, tbt.WIDE_LAUNCHES) == before
     kernel = BrainTumorEnv(dataclasses.replace(cfg, backend="kernel"), BrainTumorReward(),
                            ic_sampler=sampler)
-    with pytest.raises(ValueError, match="512"):
+    with pytest.raises(ValueError, match="8192"):
         kernel.step_batch(sa, dose)
 
 
