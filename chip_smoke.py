@@ -77,9 +77,12 @@ JAX package), builds the CUDA kernels from ``csrc/`` and runs:
                 the default 201-point domain and the 61-point one of the
                 tests at B = 4 and 4096; doses zero and non-zero; ``can``
                 mixed; rows below one or both detection thresholds; nx = 3
-                and 512; past 512 the block-per-env kernel (B8w) to the bit
-                at nx = 513, 801, 2049 (B = 4096) and 8192, the reach
-                (B = 1024); one point past the reach the wrapper raises.
+                and 512; past 512 B8w to the bit, in the layout that
+                ops/brain_tumor_interval.py::wide_layout picks (printed with
+                each case), at nx = 513, 801, 2049 (B = 4096) and 8192, the
+                reach (B = 1024), and one point below and at each point where
+                the layout changes (B = 4093); one point past the reach the
+                wrapper raises.
 12. neuron   -- the bench_families.py ``neuron_fused`` and
                 ``neuron_fused_reward`` workloads through the port's rollout:
                 4096 envs, float32, 10 calls of 100 dt-steps; at B=8 the
@@ -1453,8 +1456,9 @@ def brain_kernel_case(torch, label, env, B, seed, dosed=True):
     if wide and not torch.equal(k_out[0].view(torch.int32), p_out[0].view(torch.int32)):
         raise AssertionError(f"{label}: u' differs from the plain version's in some bit")
     err = _max_err(f"{label} u'", k_out[0], p_out[0], BRAIN_U_RTOL, BRAIN_U_ATOL)
-    log(f"[brain_kernel] {label}: B={B} nx={env.config.nx} dosed={int((applied > 0).sum())} "
-        f"can={int(can.sum())} has_t1={int(k_out[3].sum())} "
+    layout = bt.wide_layout(env.config.nx) if wide else "warp"
+    log(f"[brain_kernel] {label}: B={B} nx={env.config.nx} layout={layout} "
+        f"dosed={int((applied > 0).sum())} can={int(can.sum())} has_t1={int(k_out[3].sum())} "
         f"no_radius={int((k_out[1] == 0).sum())} max_abs_err u'={err:.3e} "
         f"(max |u'| {float(p_out[0].abs().max()):.3e})")
     return err, (env._spec, u, applied, can)
@@ -1474,9 +1478,15 @@ def phase_brain_kernel(torch, device):
             ("nx=512", brain_setup(torch, device, X=511.0)[0], 33, 25, True),
             ("nx=3", brain_setup(torch, device, X=2.0)[0], 7, 26, True)):
         err = max(err, brain_kernel_case(torch, label, e, B, seed, dosed)[0])
-    # B8w, the block-per-env kernel, from 513 points to the reach: to the bit
+    # B8w from 513 points to the reach, and on both sides of each point where
+    # its layout changes (ops/brain_tumor_interval.py::wide_layout): to the bit
     wide_err, wide_inputs = 0.0, None
-    for label, fields, B, seed, dosed in BRAIN_WIDE_CASES:
+    crossings = tuple(
+        (f"B8w nx={nx}, {side} the crossover at {c}", dict(X=float(nx - 1)), NUM_ENVS - 3,
+         40 + 2 * k + (side == "at"), True)
+        for k, c in enumerate(bt.wide_crossovers()[1:])
+        for side, nx in (("below", c - 1), ("at", c)))
+    for label, fields, B, seed, dosed in BRAIN_WIDE_CASES + crossings:
         e = brain_setup(torch, device, **fields)[0]
         case_err, case_inputs = brain_kernel_case(torch, label, e, B, seed, dosed)
         wide_err = max(wide_err, case_err)
@@ -2039,7 +2049,8 @@ def _episode_line(torch, name, path, episode, units, unit, card, trace=None):
 
 def family_kernel_times(torch, device, neuron_inputs, brain_inputs, brain_wide_inputs, card):
     """The K-step block and the field pass alone, at their main paths' shapes
-    (the field pass at 201 points, the warp kernel, and at 801, B8w)."""
+    (the field pass at 201 points, the warp kernel, and at 801, B8w: its
+    kernels' names all begin brain_tumor_field_wide)."""
     from pdecontrolgym_tpu_torch.ops import brain_tumor_interval as bt
     from pdecontrolgym_tpu_torch.ops import neuron_interval as ni
 
@@ -2077,8 +2088,7 @@ def family_kernel_times(torch, device, neuron_inputs, brain_inputs, brain_wide_i
         f"{bound0 / dev0:.3f} ({card})")
 
     for key, inputs, kernel in (("brain", brain_inputs, "brain_tumor_field_kernel"),
-                                ("brain_wide", brain_wide_inputs,
-                                 "brain_tumor_field_wide_kernel")):
+                                ("brain_wide", brain_wide_inputs, "brain_tumor_field_wide")):
         fspec, fu, applied, can = inputs
         call = lambda: bt.brain_tumor_field(fspec, fu, applied, can)  # noqa: E731
         k = cuda_ms(torch, call, calls=20)
@@ -3238,7 +3248,10 @@ def time_kernels(torch, device):
     multi-pass projection step at 1024 x 256x256, 512 x 320x320 and 16 x
     1024x1024 (all its kernels a call); the wide K-step kernels' B7_WIDE_ROWS (K=100, the
     reward's window) by the package's own layout, and in a package that has
-    both layouts each forced at every row ("_warp", "_block").
+    both layouts each forced at every row ("_warp", "_block"); B8w's
+    B8W_ROWS by the package's own layout, and in a package that has
+    ``wide_layout`` each layout forced ("_block", and "_s1" to "_s4": the
+    streamed kernel at that many stages, where they fit).
     A package that predates one of these kernels times the plain version
     there, with "path": "plain" (:func:`_compared_row`).
     Returns {name: {"ms", "device_ms", "max_abs_err"}}: ms per call of 20
@@ -3360,7 +3373,43 @@ def time_kernels(torch, device):
     out["b8"] = {"ms": cuda_ms(torch, call, runs=5, calls=20),
                  "device_ms": device_ms(torch, call, "brain_tumor_field_kernel")[0],
                  "max_abs_err": float(err)}
+    for name, B, nx in B8W_ROWS:
+        fields = BRAIN_WIDE if nx == 801 else dict(X=float(nx - 1))
+        env = brain_setup(torch, device, **fields)[0]
+        u = brain_rows(torch, env.config, B, nx).to(device)
+        rng = torch.Generator().manual_seed(nx)
+        applied = torch.tensor([0.0, 1.8, 15.0])[torch.randint(0, 3, (B,), generator=rng)]
+        can = torch.rand(B, generator=rng) < 0.8
+        args = (env._spec, u, applied.to(device), can.to(device))
+        row = lambda a=args: _compared_row(  # noqa: E731
+            torch, hasattr(bt, "MAX_NX_WIDE"), lambda: bt.brain_tumor_field(*a),
+            lambda: bt.brain_tumor_field_plain(*a), "brain_tumor_field_wide", 5, 20)
+        out[name] = row()
+        # a package with B8w's two layouts: each forced, and the streamed
+        # kernel at every stage count that fits (ops/brain_tumor_interval.py)
+        if hasattr(bt, "wide_layout"):
+            keep = (bt.STREAM_MAX_NX, bt.RING_BYTES)
+            forced = [("block", bt.MAX_NX, bt.RING_BYTES)] + [
+                (f"s{k}", bt.MAX_NX_WIDE, k * 4 * bt.GROUP_ENVS * nx)
+                for k in range(1, bt.MAX_STAGES + 1)
+                if bt.stream_shared_bytes(nx, k) <= bt.SHARED_BYTES]
+            for suffix, cut, ring in forced:
+                bt.STREAM_MAX_NX, bt.RING_BYTES = cut, ring
+                try:
+                    out[f"{name}_{suffix}"] = row()
+                finally:
+                    bt.STREAM_MAX_NX, bt.RING_BYTES = keep
     return out
+
+
+# B8w's rows in time_kernels (name, envs, points): the brain_wide row (801,
+# the stock domain at dx = 0.25), the first wide row, and wider rows on
+# domains of nx - 1 mm at dx = 1, past 4096 points at 1024 envs
+B8W_ROWS = (("b8w_513", NUM_ENVS, 513), ("b8w_801", NUM_ENVS, 801),
+            ("b8w_1201", NUM_ENVS, 1201), ("b8w_1537", NUM_ENVS, 1537),
+            ("b8w_1793", NUM_ENVS, 1793), ("b8w_2049", NUM_ENVS, 2049),
+            ("b8w_3073", NUM_ENVS, 3073), ("b8w_4097", NUM_ENVS, 4097),
+            ("b8w_6145", 1024, 6145), ("b8w_8192", 1024, 8192))
 
 
 # the explicit interval kernels whose SASS --compare counts, at the main paths'
@@ -3541,6 +3590,9 @@ def compare(roots):
                         or family.group(1) + key == "brain_tumor_field_kernel<7>"):
                     regs[family.group(1) + key] = (
                         f"{used.group(1)} registers, {n_spill} B spilled")
+            elif used and "brain_tumor_field_wide" in header:
+                kind = re.search(r"brain_tumor_field_wide(_stream)?_kernel", header).group(0)
+                regs[kind] = f"{used.group(1)} registers, {n_spill} B spilled"
             elif used and ("15interval_kernelI" in header
                            or "20interval_wide_kernelI" in header):
                 explicit += "15interval_kernelI" in header

@@ -164,9 +164,11 @@ def load() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         # u, applied, can, u_out, treatment_radius, t1, has_t1; B, nx; dt, dx,
         # dx*dx, D, rho, k, -alpha, alpha/beta, thr_t1, thr_t2
-        for fn in (lib.brain_tumor_field_launch, lib.brain_tumor_field_wide_launch):
-            fn.argtypes = [p] * 7 + [i] * 2 + [f] * 10 + tail
-            fn.restype = ctypes.c_int
+        lib.brain_tumor_field_launch.argtypes = [p] * 7 + [i] * 2 + [f] * 10 + tail
+        lib.brain_tumor_field_launch.restype = ctypes.c_int
+        # ... and the stages of the streamed kernel's ring (0: one block an env)
+        lib.brain_tumor_field_wide_launch.argtypes = [p] * 7 + [i] * 2 + [f] * 10 + [i] + tail
+        lib.brain_tumor_field_wide_launch.restype = ctypes.c_int
         # x, y, out; n, guarded
         lib.exact_div_launch.argtypes = [p] * 3 + [ctypes.c_longlong, i] + tail
         lib.exact_div_launch.restype = ctypes.c_int

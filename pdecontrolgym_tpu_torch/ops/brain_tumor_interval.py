@@ -27,9 +27,13 @@ Two implementations, one contract:
   ``MAX_NX`` points, blocks of four envs, whose rows are copied in and out
   through shared memory with 16-byte accesses; one warp per env, the row in
   registers between; the two radius scans one ``redux.sync`` each. For rows of
-  ``MAX_NX + 1`` to ``MAX_NX_WIDE`` points (B8w), one block of 256 threads an
-  env, the row and its update in shared memory, the scans block-wide
-  max-reductions. Both give ``u_new`` equal to the plain version's to the bit.
+  ``MAX_NX + 1`` to ``MAX_NX_WIDE`` points (B8w), the layout
+  :func:`wide_layout` picks: ``"stream"``, persistent blocks that stream
+  groups of four consecutive envs through a ring of shared-memory stages
+  with bulk copies (TMA), one warp an env, each scan one ``redux.sync`` a
+  row; or ``"block"``, one block of 256 threads an env, the
+  scans block-wide max-reductions. All give ``u_new`` equal to the plain
+  version's to the bit.
 
 :func:`brain_tumor_field` dispatches on the tensors' device: the plain version
 for CPU tensors, the kernel for CUDA tensors. It never falls back from one to
@@ -50,7 +54,7 @@ import numpy as np
 import torch
 
 # Launches of the CUDA kernels since import (or since a caller reset them):
-# the warp kernel's, and the block-per-env kernel's for rows past MAX_NX.
+# the warp kernel's, and B8w's (either layout) for rows past MAX_NX.
 LAUNCHES = 0
 WIDE_LAUNCHES = 0
 
@@ -65,6 +69,25 @@ MAX_NX = 512  # one warp holds a row of at most 32 * 16 points
 # point. 16 KiB a point: 128 MiB / 16 KiB = 8192 points. Past it "auto" steps
 # eagerly (decided from the config) and "kernel" raises.
 MAX_NX_WIDE = 8192
+
+# B8w's streamed kernel (csrc/brain_tumor_field.cu): a group is four
+# consecutive envs, 16 * nx bytes whatever nx, so every group's run starts on
+# a 16-byte boundary and moves by one bulk copy; a ring of 1 to MAX_STAGES
+# such stages in a block's shared memory, after RING_OFFSET bytes of
+# barriers; a block's shared memory is at most SHARED_BYTES (227 KiB on the
+# H100).
+GROUP_ENVS = 4
+MAX_STAGES = 4
+RING_OFFSET = 128
+SHARED_BYTES = 232448
+# The layout's two constants, measured on an H100 by chip_smoke.py --compare
+# (PERF.md, B8w): the streamed kernel takes rows up to STREAM_MAX_NX points
+# (faster to 1793 points, 2-3% slower at 2049), the block-per-env kernel
+# those above; its ring holds as many stages (at least one, at most
+# MAX_STAGES) as fit in RING_BYTES: two stages are as fast as three or four
+# to 801 points and faster at 1201-1537, one is faster from 1793.
+STREAM_MAX_NX = 2048
+RING_BYTES = 51200
 
 
 def _f32(x: float) -> float:
@@ -168,6 +191,49 @@ def brain_tumor_field_plain(spec: BrainTumorFieldSpec, u, applied, can):
     return u_new, treatment_radius, t1, has_t1
 
 
+def wide_layout(nx: int):
+    """B8w's launch for rows of ``nx`` points: ``("stream", GROUP_ENVS,
+    stages)``, the streamed kernel with a ring of ``stages`` stages, up to
+    ``STREAM_MAX_NX``; ``("block", 1, 0)``, one block an env and no ring,
+    above. None at or below ``MAX_NX`` (the warp kernel's rows) and past
+    ``MAX_NX_WIDE``."""
+    if nx <= MAX_NX or nx > MAX_NX_WIDE:
+        return None
+    if nx > STREAM_MAX_NX:
+        return ("block", 1, 0)
+    stage = 4 * GROUP_ENVS * nx
+    return ("stream", GROUP_ENVS, max(1, min(MAX_STAGES, RING_BYTES // stage)))
+
+
+def stream_takes(spec: BrainTumorFieldSpec) -> bool:
+    """Whether the streamed kernel takes ``spec``: it divides by ``k`` and
+    ``dx * dx`` (as float32) through reciprocals, for divisors of
+    2^-60 to 2^60 only (``csrc/exact_div.cuh``), and finds where the
+    radiation field ends from ``float(i) * dx`` rising with i, for a positive
+    finite ``dx``; the block-per-env kernel takes any."""
+    _, dx, dx2, _, _, k, _, _, _, _ = spec.scalars()
+    return (all(2.0 ** -60 <= y <= 2.0 ** 60 for y in (dx2, k))
+            and 0.0 < dx <= float(np.finfo(np.float32).max))
+
+
+def stream_shared_bytes(nx: int, stages: int) -> int:
+    """A streamed block's shared memory: the barriers and ``stages`` stages of
+    one group's rows."""
+    return RING_OFFSET + stages * 4 * GROUP_ENVS * nx
+
+
+def wide_crossovers():
+    """The row lengths where :func:`wide_layout` changes, each the first of
+    its layout, ``MAX_NX + 1`` first."""
+    out, before = [], None
+    for nx in range(MAX_NX + 1, MAX_NX_WIDE + 1):
+        layout = wide_layout(nx)
+        if layout != before:
+            out.append(nx)
+        before = layout
+    return out
+
+
 def kernel_takes(nx: int) -> bool:
     """Whether a CUDA kernel takes rows of ``nx`` points: the warp kernel to
     ``MAX_NX``, the block-per-env kernel to ``MAX_NX_WIDE``, the TPU kernel's
@@ -175,11 +241,18 @@ def kernel_takes(nx: int) -> bool:
     return 3 <= nx <= MAX_NX_WIDE
 
 
+@functools.lru_cache(maxsize=None)
+def _launch_constants(spec: BrainTumorFieldSpec):
+    """``(spec.scalars(), stream_takes(spec))``, worked out once a spec: the
+    float32 roundings cost the launch more host time than the rest of it."""
+    return spec.scalars(), stream_takes(spec)
+
+
 def _brain_tumor_field_cuda(spec, u, applied, can):
     """Launch a CUDA kernel on the tensors' stream: the warp kernel up to
-    ``MAX_NX`` points, the block-per-env kernel up to ``MAX_NX_WIDE``. Raises
-    on anything the kernels do not take; allocates the outputs; does not
-    synchronise."""
+    ``MAX_NX`` points, B8w in the layout :func:`wide_layout` picks up to
+    ``MAX_NX_WIDE``. Raises on anything the kernels do not take; allocates the
+    outputs; does not synchronise."""
     global LAUNCHES, WIDE_LAUNCHES
     from pdecontrolgym_tpu_torch.ops import _build
 
@@ -196,12 +269,19 @@ def _brain_tumor_field_cuda(spec, u, applied, can):
     t1 = torch.empty_like(radius)
     has_t1 = torch.empty((B,), dtype=torch.bool, device=u.device)
     lib = _build.load()
-    wide = nx > MAX_NX
+    scalars, streams = _launch_constants(spec)
+    layout = wide_layout(nx)
+    wide = layout is not None
+    if wide and layout[0] == "stream" and not streams:
+        layout = ("block", 1, 0)
+    args = [u.data_ptr(), applied.data_ptr(), can.data_ptr(),
+            u_out.data_ptr(), radius.data_ptr(), t1.data_ptr(), has_t1.data_ptr(),
+            B, nx, *scalars]
+    if wide:
+        args.append(layout[2])  # stages; 0 for the block-per-env kernel
     launch = lib.brain_tumor_field_wide_launch if wide else lib.brain_tumor_field_launch
     err = launch(
-        u.data_ptr(), applied.data_ptr(), can.data_ptr(),
-        u_out.data_ptr(), radius.data_ptr(), t1.data_ptr(), has_t1.data_ptr(),
-        B, nx, *spec.scalars(),
+        *args,
         u.device.index if u.device.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(u.device).cuda_stream,
     )

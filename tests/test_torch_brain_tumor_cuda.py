@@ -9,9 +9,9 @@ PyTorch for CUDA and ``nvcc`` and no flax::
     python -m pytest tests/test_torch_brain_tumor_cuda.py -m cuda
 
 ``chip_smoke.py`` makes the same comparison at the main path's shapes. The
-kernels' ``u'``, radii and ``has_t1`` (the warp kernel's to 512 points, the
-block-per-env kernel's to ``MAX_NX_WIDE``) equal the plain version's to the
-bit. The
+kernels' ``u'``, radii and ``has_t1`` (the warp kernel's to 512 points, B8w's
+to ``MAX_NX_WIDE`` in each layout ``wide_layout`` picks) equal the plain
+version's to the bit. The
 env paths are compared with bands: ``u`` rtol 1e-6 atol 1e-3 (densities of
 order 1e5; the eager path is other code).
 """
@@ -135,6 +135,74 @@ def test_cuda_wide_kernel_equals_plain_version_to_the_bit(B, X, dx):
     for g, w in zip(got[1:], want[1:]):
         assert g.dtype == w.dtype and torch.equal(g, w)
     assert torch.equal(got[0][~can], u[~can])
+
+
+def _wide_pass_to_the_bit(nx, B, seed, dosed=True, offset=0):
+    """One B8w pass at ``nx`` points on ``B`` envs (``offset`` rows of a larger
+    batch cut away, so that u starts off a 16-byte boundary) against the plain
+    version: u' equal to the bit (compared as int32), the radii and has_t1
+    equal, rows with can=False unchanged, one launch counted in
+    WIDE_LAUNCHES."""
+    cfg = BrainTumorConfig(X=float(nx - 1))
+    assert cfg.nx == nx
+    env = BrainTumorEnv(cfg, BrainTumorReward())
+    u = _rows(B + offset, cfg.X, cfg.nx, seed=seed, peaks=(0.9e5, 0.4e5, 0.1e5, 0.0))[offset:]
+    rng = np.random.default_rng(seed + 1)
+    doses = [0.0, 1.8, 15.0] if dosed else [0.0]
+    applied = torch.from_numpy(rng.choice(doses, size=B).astype(np.float32)).cuda()
+    can = torch.from_numpy(rng.random(B) < 0.8).cuda()
+    before = (tbt.LAUNCHES, tbt.WIDE_LAUNCHES)
+    got = tbt.brain_tumor_field(env._spec, u, applied, can)
+    torch.cuda.synchronize()
+    assert (tbt.LAUNCHES, tbt.WIDE_LAUNCHES) == (before[0], before[1] + 1)
+    want = tbt.brain_tumor_field_plain(env._spec, u, applied, can)
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert torch.equal(got[0][~can], u[~can])
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx", sorted({n for c in tbt.wide_crossovers() for n in (c - 1, c, c + 1)
+                                       if tbt.MAX_NX < n <= tbt.MAX_NX_WIDE}))
+def test_cuda_wide_kernel_on_both_sides_of_each_layout_crossover(nx):
+    """One point below, at and one past each row length where
+    ``wide_layout`` changes (the streamed kernel's stage counts, and the
+    block-per-env kernel where it takes over): B8w equals the plain version
+    to the bit on a ragged batch of more groups than persistent blocks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    _wide_pass_to_the_bit(nx, 4093, seed=nx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 4, 5, 4093, 4096])
+@pytest.mark.parametrize("nx", [801, 2049, 4097])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_wide_kernel_batch_shapes_and_alignment(B, nx, offset):
+    """Every batch shape the streamed kernel's groups of four meet (one env,
+    a ragged group alone, whole groups, a ragged last group, thousands), on
+    rows that start on and off a 16-byte boundary (``offset`` 1: every group
+    takes the 4-byte copies): u', the radii and has_t1 to the bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    want = _wide_pass_to_the_bit(nx, B, seed=B + nx + offset, offset=offset)
+    assert bool((~want[3]).any()) or B < 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dosed", [True, False])
+def test_cuda_wide_kernel_with_more_groups_than_persistent_blocks(dosed):
+    """16384 envs at 801 points are 4096 groups of four; a block of 160
+    threads leaves at most 12 blocks on an SM (2048 threads), so every
+    persistent block walks over several groups. Doses on and off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    B = 16384
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert B // tbt.GROUP_ENVS > 12 * sms
+    _wide_pass_to_the_bit(801, B, seed=5 + dosed, dosed=dosed)
 
 
 @pytest.mark.cuda
