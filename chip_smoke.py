@@ -156,6 +156,27 @@ JAX package), builds the CUDA kernels from ``csrc/`` and runs:
                 phase 4's from the same seed, its wall beside the rollout's;
                 checked_step_batch clean on a transport interval and raising
                 on an unstable FTCS config.
+22. dist     -- (last, in processes of their own: ``--rank``) the trainers of
+                phase 17 with ``mesh=`` (parallel/mesh.py), PPO and SAC on
+                transport nx=128 at 4096 envs in all: once on one NCCL rank on
+                the card, once on two gloo ranks that share it (2048 envs
+                each; NCCL takes no two ranks on one device); a warm-up
+                iteration and 3 timed (CUDA events, beside phase 17's
+                single-process iteration), the parameters equal to the bit on
+                every rank after each, finite metrics, one B2 launch an agent
+                step on every rank, the all_reduce calls an update and their
+                time in one more, synchronised iteration.
+23. spatial  -- (in the same ranks) parallel/spatial.py: the explicit transport
+                episode on one row of 65,536 points (dt = 0.01 dx, the horizon
+                cut to 10 intervals of 200 sub-steps) against TransportEnv's
+                eager episode, and the explicit Navier-Stokes step at
+                1024x1024, float64, Jacobi (100 sweeps), against the eager
+                step to 1e-12, each on one NCCL rank and on two gloo ranks
+                whose halos cross host memory (gloo takes no CUDA tensor point
+                to point); make_sharded_env over the transport bench row
+                (4096 x 128, eager, 2 actions) on the NCCL rank against the
+                unsharded eager rollout. A rank that fails, imports JAX or
+                outlives its time limit fails the run.
 19. times    -- CUDA events, median of 3 after a warm-up (eager episodes: one
                 run after a warm-up): one projection step
                 or one interval, kernel (per call, 20 back to back) against
@@ -2568,6 +2589,25 @@ def train_ns_env(torch, device):
     return FlatObsEnv(NavierStokesEnv(cfg, NSReward(0.1), U_ref, action_ref, device=device))
 
 
+def train_ppo_config():
+    """[train]'s PPO (bench_train.py): 4096 envs x 16 steps, 4 epochs x 4
+    minibatches, hidden (128, 128)."""
+    from pdecontrolgym_tpu_torch.agents.ppo import PPOConfig
+
+    return PPOConfig(num_envs=TRAIN_ENVS, num_steps=TRAIN_STEPS, num_epochs=4,
+                     num_minibatches=4, hidden=(128, 128))
+
+
+def train_sac_config():
+    """[train]'s SAC: 16 updates of 256 an iteration from a ring of 4096 x 64
+    rows, hidden (128, 128)."""
+    from pdecontrolgym_tpu_torch.agents.sac import SACConfig
+
+    return SACConfig(num_envs=TRAIN_ENVS, steps_per_iter=TRAIN_STEPS,
+                     updates_per_iter=TRAIN_STEPS, batch_size=256,
+                     buffer_size=max(TRAIN_ENVS * 64, 4 * TRAIN_ENVS), hidden=(128, 128))
+
+
 def trainer_halves(trainer):
     """``(collect, learn)``: the two halves of ``trainer.train_step``, so that
     the learner's share of an iteration can be timed; ``learn`` returns the
@@ -2654,7 +2694,7 @@ def train_case(torch, label, trainer, counter, sub_steps, card):
         f"({kernels_collect / steps:.1f} an agent step, {kernels_learn / updates:.1f} an "
         f"update of {updates}), idle share {1 - busy_ms / window_ms:.3f}; metrics "
         f"{', '.join(f'{k} {v:.5g}' for k, v in host.items())} ({card})")
-    return launches
+    return launches, ms
 
 
 def phase_train(torch, device, card):
@@ -2668,23 +2708,21 @@ def phase_train(torch, device, card):
     backstepping controller from the same 50 initial states. Its returns are
     reported, not gated."""
     from pdecontrolgym_tpu_torch.agents.ppo import PPOConfig, PPOTrainer
-    from pdecontrolgym_tpu_torch.agents.sac import SACConfig, SACTrainer
+    from pdecontrolgym_tpu_torch.agents.sac import SACTrainer
     from pdecontrolgym_tpu_torch.eval import compare_controllers, episode_returns
     from pdecontrolgym_tpu_torch.ops import interval1d, ns_fused
 
     env = transport_setup(torch, device)[0]
-    ppo = PPOConfig(num_envs=TRAIN_ENVS, num_steps=TRAIN_STEPS, num_epochs=4,
-                    num_minibatches=4, hidden=(128, 128))
-    launches = {"ppo": train_case(torch, "PPO, transport nx=128", PPOTrainer(env, ppo),
-                                  interval1d, env.config.sample_rate, card)}
-    sac = SACConfig(num_envs=TRAIN_ENVS, steps_per_iter=TRAIN_STEPS,
-                    updates_per_iter=TRAIN_STEPS, batch_size=256,
-                    buffer_size=max(TRAIN_ENVS * 64, 4 * TRAIN_ENVS), hidden=(128, 128))
-    launches["sac"] = train_case(torch, "SAC, transport nx=128", SACTrainer(env, sac),
-                                 interval1d, env.config.sample_rate, card)
-    launches["ppo_ns"] = train_case(torch, "PPO, Navier-Stokes 64x64",
-                                    PPOTrainer(train_ns_env(torch, device), ppo),
-                                    ns_fused, 1, card)
+    ppo = train_ppo_config()
+    runs = {"ppo": train_case(torch, "PPO, transport nx=128", PPOTrainer(env, ppo),
+                              interval1d, env.config.sample_rate, card)}
+    runs["sac"] = train_case(torch, "SAC, transport nx=128", SACTrainer(env, train_sac_config()),
+                             interval1d, env.config.sample_rate, card)
+    runs["ppo_ns"] = train_case(torch, "PPO, Navier-Stokes 64x64",
+                                PPOTrainer(train_ns_env(torch, device), ppo),
+                                ns_fused, 1, card)
+    launches = {k: v[0] for k, v in runs.items()}
+    train_ms = {k: v[1] for k, v in runs.items()}
 
     env_rl = transport_setup(torch, device, dx=1e-2, max_control_value=20.0, normalize=True)[0]
     env_bs, backstepping, steps, _ = transport_setup(torch, device, dx=1e-2,
@@ -2717,7 +2755,7 @@ def phase_train(torch, device, card):
         f"the best runner over 50 episodes: PPO {ppo_r['mean_return']:.4f} +- "
         f"{ppo_r['std_return']:.4f}, backstepping {bs_r['mean_return']:.4f} +- "
         f"{bs_r['std_return']:.4f} from the same initial states (reported, not gated; {card})")
-    return launches
+    return launches, train_ms
 
 
 def policy_envs(torch, device):
@@ -3659,11 +3697,460 @@ def time_root(root):
     print(json.dumps(time_kernels(torch, device)), flush=True)
 
 
+# -- phases 22 and 23: the distribution layer, on ranks of their own ------------------
+
+# [dist]: [train]'s PPO and SAC with mesh=, one warm-up iteration then DIST_TIMED
+# timed; [spatial]: the explicit references and make_sharded_env
+DIST_TIMED = 3
+DIST_RUNS = (("nccl", 1), ("gloo", 2))  # ranks that share the one card take gloo
+RANK_SECONDS = 420  # a run's ranks must all end within this
+FOREIGN = ("jax", "jaxlib", "flax", "optax", "pdecontrolgym_tpu")
+# the transport row past the wide kernel's 16384 points: the stock CFL number
+# (dt = 0.01 dx), SPATIAL_INTERVALS control intervals of SPATIAL_S sub-steps
+SPATIAL_NX = 65536
+SPATIAL_S = 200
+SPATIAL_LOOKBACK = 100
+SPATIAL_INTERVALS = 10
+# the Navier-Stokes step at 1024 x 1024, float64, Jacobi: SPATIAL_NS_ITERS sweeps
+# (the reference's 2000 cut), SPATIAL_NS_STEPS steps, band 1e-12
+SPATIAL_NS_N = 1024
+SPATIAL_NS_ITERS = 100
+SPATIAL_NS_STEPS = 2
+SPATIAL_NS_TOL = 1e-12
+SHARDED_STEPS = 2  # make_sharded_env on the transport bench row: 2 of its 50 actions
+
+
+def _flat_parameters(torch, runner):
+    tensors = trainer_parameters(runner)
+    if hasattr(runner, "target"):  # SAC: the targets and the temperature too
+        tensors += list(runner.target.parameters()) + [runner.log_alpha]
+    return torch.cat([t.detach().reshape(-1) for t in tensors])
+
+
+def _equal_on_every_rank(torch, runner, mesh):
+    """Whether this rank's parameters are rank 0's to the bit (one broadcast
+    of rank 0's, compared here)."""
+    import torch.distributed as dist
+
+    mine = _flat_parameters(torch, runner)
+    theirs = mine.clone()
+    if mesh.size() > 1:
+        dist.broadcast(theirs, src=dist.get_global_rank(mesh.get_group(), 0),
+                       group=mesh.get_group())
+    return bool(torch.equal(mine, theirs))
+
+
+def dist_case(torch, trainer, mesh):
+    """One trainer on ``mesh``: a warm-up iteration, DIST_TIMED iterations
+    timed by CUDA events (the B2 launches and the collectives counted), the
+    parameters held to rank 0's after every iteration; then one iteration
+    whose halves and collectives are timed apart by the host clock around
+    synchronised calls."""
+    from pdecontrolgym_tpu_torch.ops import interval1d
+    from pdecontrolgym_tpu_torch.parallel import mesh as pmesh
+
+    pmean = pmesh.pmean
+    calls, spans = [0], []
+
+    def counted(tensors, m):
+        calls[0] += 1
+        if spans is None:
+            return pmean(tensors, m)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = pmean(tensors, m)
+        torch.cuda.synchronize()
+        spans.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    pmesh.pmean = counted
+    try:
+        runner = trainer.init(0)
+        step = trainer.make_train_step()
+        spans = None
+        runner, _ = step(runner)
+        equal = [_equal_on_every_rank(torch, runner, mesh)]
+        interval1d.LAUNCHES, calls[0] = 0, 0
+        walls = []
+        for _ in range(DIST_TIMED):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            runner, metrics = step(runner)
+            end.record()
+            end.synchronize()
+            walls.append(start.elapsed_time(end))
+            equal.append(_equal_on_every_rank(torch, runner, mesh))
+        launches, per_iteration = interval1d.LAUNCHES, calls[0] / DIST_TIMED
+        # the halves of one more iteration, each collective synchronised
+        collect, learn = trainer_halves(trainer)
+        spans = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner = collect(runner)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        learn(runner)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        equal.append(_equal_on_every_rank(torch, runner, mesh))
+    finally:
+        pmesh.pmean = pmean
+    cfg = trainer.cfg
+    updates = getattr(cfg, "updates_per_iter", None) or cfg.num_epochs * cfg.num_minibatches
+    return {
+        "walls": walls, "ms": statistics.median(walls), "launches": launches,
+        "collectives_per_iteration": per_iteration, "updates": updates,
+        "collectives_per_update": len(spans) / updates,
+        "collective_ms": statistics.median(spans), "collectives_ms": sum(spans),
+        "collect_ms": (t1 - t0) * 1e3, "learn_ms": (t2 - t1) * 1e3,
+        "equal": equal, "envs": runner.obs.shape[0],
+        "metrics": {k: float(v) for k, v in metrics.items()},
+    }
+
+
+def rank_dist(torch, device, mesh):
+    """[dist] on this rank: [train]'s PPO and SAC on transport nx=128 (B2),
+    4096 envs in all, with ``mesh=``."""
+    from pdecontrolgym_tpu_torch.agents.ppo import PPOTrainer
+    from pdecontrolgym_tpu_torch.agents.sac import SACTrainer
+
+    env = transport_setup(torch, device)[0]
+    return {"ppo": dist_case(torch, PPOTrainer(env, train_ppo_config(), mesh=mesh), mesh),
+            "sac": dist_case(torch, SACTrainer(env, train_sac_config(), mesh=mesh), mesh)}
+
+
+def _max_abs(torch, a, b):
+    return float((a.double() - b.double()).abs().max())
+
+
+def _band_share(torch, got, want, rtol, atol):
+    """The largest ``|got - want| / (atol + rtol |want|)``: at most 1 within
+    the band."""
+    got, want = got.double(), want.double()
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def _timed(torch, fn):
+    """``fn()`` and its wall in ms, synchronised on both sides."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def spatial_transport(torch, device, world, rank):
+    """The explicit transport episode on this rank's slab of a SPATIAL_NX row,
+    held against ``TransportEnv``'s eager episode of the whole row (B = 1) on
+    this rank, under the same control law (gain -beta, the leading term of
+    the backstepping kernel: the rows are held to each other, not to a
+    stabilised state)."""
+    import numpy as np
+
+    from pdecontrolgym_tpu_torch.envs.common import Boundary1DConfig
+    from pdecontrolgym_tpu_torch.envs.transport import TransportEnv, chebyshev_beta
+    from pdecontrolgym_tpu_torch.parallel.spatial import (
+        make_spatial_transport_episode,
+        spatial_mesh,
+    )
+    from pdecontrolgym_tpu_torch.rewards.tuned import TunedReward1D
+
+    nx, S = SPATIAL_NX, SPATIAL_S
+    dx = 1.0 / nx
+    dt = 0.01 * dx
+    cfg = Boundary1DConfig(T=SPATIAL_INTERVALS * S * dt, dt=dt, X=1.0, dx=dx,
+                           control_sample_rate=S * dt, backend="eager")
+    if (cfg.nx, cfg.sample_rate, cfg.nt) != (nx, S, SPATIAL_INTERVALS * S + 1):
+        raise AssertionError(f"[spatial] transport config {cfg.nx, cfg.sample_rate, cfg.nt}")
+    env = TransportEnv(cfg, TunedReward1D(cfg.nt, -1e3, 3e2, lookback=SPATIAL_LOOKBACK),
+                       device=device)
+    beta = chebyshev_beta(nx, 7.35, 5.0, torch.float32, device)
+    kern = -beta
+    u0 = torch.as_tensor(np.random.default_rng(1).uniform(1.0, 5.0, nx).astype(np.float32),
+                         device=device)
+
+    def eager():
+        state, obs = env.init_from(u0[None], beta[None])
+        rewards = []
+        for _ in range(SPATIAL_INTERVALS):
+            state, out = env.step_batch(state, (obs @ kern) * dx)
+            obs = out.obs
+            rewards.append(out.reward[0])
+        return torch.stack(rewards), state.u[0]
+
+    (want_r, want_u), eager_ms = _timed(torch, eager)
+    fn = make_spatial_transport_episode(spatial_mesh(), dt=dt, dx=dx, sample_rate=S,
+                                        nt=cfg.nt, lookback=SPATIAL_LOOKBACK)
+    k = nx // world
+    rows = slice(rank * k, (rank + 1) * k)
+    (got_r, got_u), ms = _timed(torch, lambda: fn(u0[rows], beta[rows], kern[rows]))
+    # tests/test_spatial_sharding.py's bands: rewards rtol 2e-3 / atol 2e-2,
+    # the row rtol 1e-3 / atol 1e-4
+    return {"nx": nx, "dt": dt, "steps": SPATIAL_INTERVALS * S, "ms": ms,
+            "eager_ms": eager_ms, "reward_err": _max_abs(torch, got_r, want_r),
+            "reward_scale": float(want_r.abs().max()),
+            "u_err": _max_abs(torch, got_u, want_u[rows]),
+            "band": max(_band_share(torch, got_r, want_r, 2e-3, 2e-2),
+                        _band_share(torch, got_u, want_u[rows], 1e-3, 1e-4)),
+            "finite": bool(torch.isfinite(got_u).all() and torch.isfinite(got_r).all()),
+            "staged": fn.stages_through_host,
+            "stock_substeps": int(round(5.0 / dt))}
+
+
+def spatial_ns(torch, device, world, rank):
+    """The explicit Navier-Stokes step on this rank's row slabs of a
+    SPATIAL_NS_N grid, float64, Jacobi, held against ``NavierStokesEnv``'s
+    eager step of the whole grid on this rank."""
+    import numpy as np
+
+    from pdecontrolgym_tpu_torch.envs.navier_stokes import NavierStokesConfig, NavierStokesEnv
+    from pdecontrolgym_tpu_torch.parallel.spatial import make_spatial_ns_step, spatial_mesh
+    from pdecontrolgym_tpu_torch.rewards.ns import NSReward
+
+    n = SPATIAL_NS_N
+    h = 1.0 / (n - 1)
+    cfg = NavierStokesConfig(T=SPATIAL_NS_STEPS * 2e-6, dt=2e-6, X=1.0, dx=h, Y=1.0, dy=h,
+                             viscosity=0.05, dtype=torch.float64, pressure_solver="jacobi",
+                             maximum_pressure_iteration=SPATIAL_NS_ITERS,
+                             step_backend="eager", boundary_condition=MIXED_BC)
+    env = NavierStokesEnv(cfg, NSReward(0.1),
+                          torch.zeros((cfg.nt, n, n, 2), dtype=torch.float64),
+                          torch.zeros(cfg.nt, dtype=torch.float64), device=device)
+    rng = np.random.default_rng(1)
+    u, v, p = (torch.as_tensor(rng.normal(size=(n, n)), device=device) for _ in range(3))
+    action = 1.5
+
+    def eager():
+        state, _ = env.init_from(u[None], v[None], p[None])
+        for _ in range(SPATIAL_NS_STEPS):
+            state, _ = env.step(state, torch.full((1, 1), action, dtype=torch.float64,
+                                                  device=device))
+        return state.u[0], state.v[0], state.p[0]
+
+    want, eager_ms = _timed(torch, eager)
+    step = make_spatial_ns_step(spatial_mesh(), dx=h, dy=h, dt=cfg.dt,
+                                viscosity=cfg.viscosity, density=cfg.density,
+                                iters=SPATIAL_NS_ITERS,
+                                boundary_condition=cfg.boundary_condition, ny=n)
+    k = n // world
+    rows = slice(rank * k, (rank + 1) * k)
+
+    def sharded():
+        fields = (u[rows], v[rows], p[rows])
+        for _ in range(SPATIAL_NS_STEPS):
+            fields = step(*fields, action)
+        return fields
+
+    got, ms = _timed(torch, sharded)
+    return {"n": n, "ms": ms, "eager_ms": eager_ms,
+            "errs": [_max_abs(torch, g, w[rows]) for g, w in zip(got, want)],
+            "scale": max(float(w.abs().max()) for w in want),
+            "band": max(_band_share(torch, g, w[rows], SPATIAL_NS_TOL, SPATIAL_NS_TOL)
+                        for g, w in zip(got, want)),
+            "staged": step.stages_through_host}
+
+
+def sharded_bench_row(torch, device):
+    """``make_sharded_env`` over the transport bench row (4096 x 128, eager)
+    on a one-rank ``("env", "x")`` mesh, SHARDED_STEPS actions of the
+    backstepping policy (the observations gathered for it), against the
+    unsharded eager rollout."""
+    from pdecontrolgym_tpu_torch.parallel.rollout import rollout
+    from pdecontrolgym_tpu_torch.parallel.spatial import (
+        _whole,
+        env_spatial_mesh,
+        make_sharded_env,
+    )
+
+    env, policy, _, S = transport_setup(torch, device, backend="eager")
+    senv = make_sharded_env(env, env_spatial_mesh(spatial_shards=1))
+
+    def run(e):
+        gen = torch.Generator(device=device).manual_seed(1)
+        (state, _), outs = rollout(e, lambda obs, g: policy(_whole(obs), g), NUM_ENVS,
+                                   SHARDED_STEPS, gen, keep_obs=False)
+        return state.u, outs.reward
+
+    (su, sr), ms = _timed(torch, lambda: run(senv))
+    (uu, ur), eager_ms = _timed(torch, lambda: run(env))
+    return {"ms": ms, "eager_ms": eager_ms, "u_err": _max_abs(torch, _whole(su), uu),
+            "reward_err": _max_abs(torch, _whole(sr), ur), "placements": str(su.placements),
+            "substeps": SHARDED_STEPS * S, "finite": bool(torch.isfinite(_whole(su)).all())}
+
+
+def rank_spatial(torch, device, world, rank):
+    out = {"transport": spatial_transport(torch, device, world, rank),
+           "ns": spatial_ns(torch, device, world, rank)}
+    if world == 1:
+        out["sharded_env"] = sharded_bench_row(torch, device)
+    return out
+
+
+def rank_main(rank, world, backend, rundir):
+    """``python3 chip_smoke.py --rank RANK WORLD BACKEND RUNDIR``: one rank of
+    [dist] and [spatial], its results in ``RUNDIR/out{RANK}.json``."""
+    import torch
+    import torch.distributed as dist
+
+    rank, world = int(rank), int(world)
+    import_port()
+    from pdecontrolgym_tpu_torch.parallel.mesh import multihost_env_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = multihost_env_mesh(f"file://{os.path.join(rundir, 'store')}", world, rank,
+                              backend=backend)
+    device = torch.device("cuda", torch.cuda.current_device())
+    out = {"device": str(device), "backend": dist.get_backend(),
+           "dist": rank_dist(torch, device, mesh),
+           "spatial": rank_spatial(torch, device, world, rank)}
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
+    if foreign:
+        raise AssertionError(f"rank {rank} imported {foreign}")
+    with open(os.path.join(rundir, f"out{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def run_ranks(backend, world):
+    """Start ``world`` ranks of ``--rank`` on the card, join them within
+    RANK_SECONDS, and return their results; a rank that fails or outlives
+    the limit fails the run, and every rank still running is killed."""
+    import shutil
+    import tempfile
+
+    rundir = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    procs = []
+    try:
+        for rank in range(world):
+            with open(os.path.join(rundir, f"err{rank}.txt"), "w") as err:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--rank", str(rank),
+                     str(world), backend, rundir],
+                    cwd=ROOT, stdout=err, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + RANK_SECONDS
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    try:
+        codes = [p.returncode for p in procs]
+        if any(codes):
+            tails = "\n".join(
+                f"--- rank {r} ({backend}, exit {c}) ---\n"
+                + open(os.path.join(rundir, f"err{r}.txt")).read()[-6000:]
+                for r, c in enumerate(codes))
+            raise AssertionError(f"{world} {backend} ranks: exit codes {codes} (negative: "
+                                 f"killed after {RANK_SECONDS} s)\n{tails}")
+        outs = []
+        for r in range(world):
+            with open(os.path.join(rundir, f"out{r}.json")) as f:
+                outs.append(json.load(f))
+        return outs
+    finally:
+        shutil.rmtree(rundir, ignore_errors=True)
+
+
+def phase_dist_spatial(torch, card, train_ms):
+    """[dist] and [spatial] on ranks of their own: one NCCL rank on the card,
+    then two gloo ranks that share it (NCCL refuses two ranks on one device).
+    Returns the B2 launches the ranks' timed [dist] iterations made."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    launches = 0
+    for backend, world in DIST_RUNS:
+        t = time.perf_counter()
+        outs = run_ranks(backend, world)
+        seconds = time.perf_counter() - t
+        where = f"{world} {backend} rank{'s' if world > 1 else ''} on {outs[0]['device']}"
+        for name, label, sub_steps in (("ppo", "PPO", 1000), ("sac", "SAC", 1000)):
+            runs = [o["dist"][name] for o in outs]
+            first = runs[0]
+            steps = TRAIN_STEPS * DIST_TIMED
+            for r, run in enumerate(runs):
+                if not all(run["equal"]):
+                    raise AssertionError(f"[dist] {label}, {where}: rank {r}'s parameters "
+                                         f"left rank 0's: {run['equal']}")
+                if not all(math.isfinite(v) for v in run["metrics"].values()):
+                    raise AssertionError(f"[dist] {label}, {where}: non-finite metrics "
+                                         f"{run['metrics']}")
+                if run["launches"] != steps:
+                    raise AssertionError(f"[dist] {label}, {where}: rank {r} made "
+                                         f"{run['launches']} B2 launches in {DIST_TIMED} "
+                                         f"iterations of {TRAIN_STEPS} agent steps")
+            launches += sum(run["launches"] for run in runs)
+            ms = max(run["ms"] for run in runs)
+            rate = TRAIN_ENVS * TRAIN_STEPS / (ms / 1e3)
+            log(f"[dist] {label}, transport nx=128, {where}, {first['envs']} envs a rank "
+                f"({TRAIN_ENVS} in all) x {TRAIN_STEPS} agent steps: "
+                f"{', '.join(f'{run['ms']:.3f}' for run in runs)} ms an iteration by rank "
+                f"(median of {DIST_TIMED} after a warm-up; rank 0: "
+                f"{', '.join(f'{w:.3f}' for w in first['walls'])}), {rate:.0f} agent "
+                f"env-steps/s, beside [train]'s single process {train_ms[name]:.3f} ms; "
+                f"parameters equal to the bit on every rank after each of "
+                f"{len(first['equal'])} iterations; {first['collectives_per_iteration']:.0f} "
+                f"all_reduce an iteration ({first['collectives_per_update']:.0f} an update of "
+                f"{first['updates']}, 1 for the metrics); one more iteration, synchronised: "
+                f"an all_reduce {first['collective_ms']:.3f} ms (median), "
+                f"{first['collectives_ms']:.3f} ms of the learner's "
+                f"{first['learn_ms']:.3f} ms ({first['collectives_ms'] / first['learn_ms']:.3f}),"
+                f" collecting {first['collect_ms']:.3f} ms; B2 launches by rank "
+                f"{[run['launches'] for run in runs]}; metrics "
+                f"{', '.join(f'{k} {v:.5g}' for k, v in first['metrics'].items())} ({card})")
+        trs = [o["spatial"]["transport"] for o in outs]
+        nss = [o["spatial"]["ns"] for o in outs]
+        staged = backend == "gloo" and world > 1 and outs[0]["device"].startswith("cuda")
+        for r, (tr, ns) in enumerate(zip(trs, nss)):
+            if not tr["finite"] or tr["band"] > 1.0:
+                raise AssertionError(f"[spatial] transport, {where}, rank {r}: {tr}")
+            if ns["band"] > 1.0:
+                raise AssertionError(f"[spatial] Navier-Stokes, {where}, rank {r}: {ns}")
+            if tr["staged"] != staged or ns["staged"] != staged:
+                raise AssertionError(f"[spatial] {where}: staging {tr['staged']}, {ns['staged']}")
+        staging = ("the halos staged through host memory (gloo takes no CUDA tensor point "
+                   "to point)" if staged else "no staging")
+        tr, ns = trs[0], nss[0]
+        log(f"[spatial] transport episode, {where}: one row of {tr['nx']} points (past the "
+            f"wide kernel's 16384), dt = 0.01 dx = {tr['dt']:.6g}, horizon cut from the stock "
+            f"T=5 ({tr['stock_substeps']} sub-steps) to {SPATIAL_INTERVALS} intervals of "
+            f"{SPATIAL_S} ({tr['steps']} sub-steps), lookback {SPATIAL_LOOKBACK}: "
+            f"{', '.join(f'{t['ms']:.1f}' for t in trs)} ms by rank against TransportEnv's "
+            f"eager episode of the whole row {tr['eager_ms']:.1f} ms; largest |reward error| "
+            f"{max(t['reward_err'] for t in trs):.3g} (rewards up to {tr['reward_scale']:.4g}), "
+            f"|u error| {max(t['u_err'] for t in trs):.3g}, "
+            f"{max(t['band'] for t in trs):.3g} of the band; {staging} ({card})")
+        log(f"[spatial] Navier-Stokes step, {where}: {ns['n']}x{ns['n']} float64, Jacobi "
+            f"{SPATIAL_NS_ITERS} sweeps (the reference's 2000 cut), {SPATIAL_NS_STEPS} steps, "
+            f"rows split {ns['n'] // world} a rank: {', '.join(f'{n['ms']:.1f}' for n in nss)} "
+            f"ms by rank against the eager step of the whole grid {ns['eager_ms']:.1f} ms; "
+            f"largest |error| of u, v, p {max(e for n in nss for e in n['errs']):.3g} (fields up "
+            f"to {ns['scale']:.4g}), {max(n['band'] for n in nss):.3g} of the band rtol = atol "
+            f"= {SPATIAL_NS_TOL:g}; {staging} ({card})")
+        if "sharded_env" in outs[0]["spatial"]:
+            se = outs[0]["spatial"]["sharded_env"]
+            if se["u_err"] > 1e-5 or se["reward_err"] > 1e-4 or not se["finite"]:
+                raise AssertionError(f"[spatial] make_sharded_env: {se}")
+            log(f"[spatial] make_sharded_env on the transport bench row, {where}: "
+                f"{NUM_ENVS} envs x nx=128 eager, {SHARDED_STEPS} actions of 50 "
+                f"({se['substeps']} sub-steps), state placed {se['placements']}: "
+                f"{se['ms']:.1f} ms against the unsharded eager rollout's "
+                f"{se['eager_ms']:.1f} ms; |u error| {se['u_err']:.3g}, |reward error| "
+                f"{se['reward_err']:.3g} ({card})")
+        log(f"[dist] {where}: the ranks took {seconds:.1f} s from start to join")
+    return launches
+
+
 def main():
     if sys.argv[1:2] == ["--compare"] and len(sys.argv) > 2:
         return compare(sys.argv[2:])
     if sys.argv[1:2] == ["--time-root"] and len(sys.argv) == 3:
         return time_root(sys.argv[2])
+    if sys.argv[1:2] == ["--rank"] and len(sys.argv) == 6:
+        return rank_main(*sys.argv[2:])
     if len(sys.argv) > 1:
         raise SystemExit("usage: python3 chip_smoke.py [--compare ROOT [ROOT ...]]")
     modules_at_start = set(sys.modules)
@@ -3712,12 +4199,14 @@ def main():
     family_episode_times(torch, device, card, traced=True)
     wide_episode_times(torch, device, card)
     # the trainers trace one iteration each: before the longest trace
-    train_launches = phase_train(torch, device, card)
+    train_launches, train_ms = phase_train(torch, device, card)
     phase_policies(torch, device, card)
     interval_episode_times(torch, device, card, "auto")
     ns_eager_times(torch, device, card)
     family_episode_times(torch, device, card, traced=False)
     interval_episode_times(torch, device, card, "eager")
+    # the distribution layer, on ranks of their own (nothing traced here)
+    dist_launches = phase_dist_spatial(torch, card, train_ms)
 
     foreign = sorted(m for m in set(sys.modules) - modules_at_start
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
@@ -3745,6 +4234,8 @@ def main():
     ]
     # the launches of the trainers' timed iterations (phase_train)
     kernels[0]["train_launches"] = {"ppo": train_launches["ppo"], "sac": train_launches["sac"]}
+    # the B2 launches of [dist]'s timed iterations, every rank of both runs
+    kernels[0]["dist_launches"] = dist_launches
     # the wide kernel's other bodies, checked in phase_kernel and not timed
     kernels[-2]["other_bodies_max_abs_err"] = {
         "transport": errs["transport_wide"], "reaction_diffusion": errs["rd_explicit_wide"]}

@@ -9,7 +9,9 @@ TrafficARZReward), the functional wrappers, the evaluation harness, the
 transport and parabolic backstepping controllers, the PPO and SAC trainers
 with their networks, checkpoints (flax msgpack policy files included) and
 metrics logger, the batched rollout, the Gymnasium adapters and vector env,
-the debugging, profiling and plotting utilities, the tridiagonal solvers, and
+the debugging, profiling and plotting utilities, the distribution layer
+(env-axis data parallelism and spatial sharding over ``torch.distributed``),
+the tridiagonal solvers, and
 the kernels (``csrc/interval1d.cu`` and ``csrc/interval1d_wide.cu`` for the
 explicit 1D sub-steps, ``csrc/interval1d_pcr.cu`` and
 ``csrc/interval1d_pcr_wide.cu`` for the implicit θ-scheme, ``csrc/ns_fused.cu`` for the Navier-Stokes projection step,
@@ -25,7 +27,8 @@ Layers:
     envs/      transport, Burgers, reaction-diffusion, Navier-Stokes, neuron
                growth, brain tumor and ARZ traffic; observation/action wrappers
     rewards/   plug-in reward functions
-    parallel/  batched lockstep rollout with autoreset
+    parallel/  batched lockstep rollout with autoreset; env-axis data
+               parallelism and spatial sharding over torch.distributed
     compat/    Gymnasium adapters with the reference's kwargs, the vector env
     agents/    backstepping controllers, actor-critic networks, PPO and SAC
     utils/     checkpoints, the metrics logger, NaN and stability checks,

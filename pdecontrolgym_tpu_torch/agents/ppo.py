@@ -1,14 +1,22 @@
 """PPO on a batch of lockstep envs.
 
-Counterpart of ``pdecontrolgym_tpu/agents/ppo.py`` with ``mesh=None``. One
-training iteration is a rollout of ``num_steps`` actions of every env (the
-env stepped through its ``step_batch``, so the interval and projection-step
+Counterpart of ``pdecontrolgym_tpu/agents/ppo.py``. One training iteration
+is a rollout of ``num_steps`` actions of every env (the env stepped through
+its ``step_batch``, so the interval and projection-step
 kernels carry it on the card), GAE, and ``num_epochs`` x ``num_minibatches``
 clipped-surrogate updates, each one global-norm clip and one Adam step, as
 ``optax.chain(clip_by_global_norm, adam(lr, eps=1e-5))``. Everything stays on
 the env's device: :meth:`PPOTrainer.train_step` reads nothing back to the
 host, and its metrics are tensors until :meth:`PPOTrainer.train`'s callback
 reads them.
+
+``mesh=`` (an ``("env",)`` mesh of ``parallel/mesh.py``) splits the envs over
+its ranks, one process a rank, as the JAX trainer's ``shard_map``: each rank
+steps ``num_envs / world`` envs with a generator of its own
+(``parallel.mesh.rank_seed``), starts from rank 0's network, and mean-reduces
+each update's gradients and loss in one ``all_reduce`` before the clip and
+Adam, as JAX's ``pmean`` before ``tx.update``; so every rank takes the same
+update and the parameters stay equal to the bit.
 
 Precision: the network's products are float32 ``torch.matmul``s. On the card
 PyTorch computes them in full float32 unless the caller allows TF32
@@ -30,6 +38,7 @@ from pdecontrolgym_tpu_torch.agents.networks import (
     gaussian_logp,
     sample_action,
 )
+from pdecontrolgym_tpu_torch.parallel import mesh as pmesh
 from pdecontrolgym_tpu_torch.parallel.rollout import batch_step, env_device, env_noise_fn
 
 
@@ -100,11 +109,14 @@ def gae(values, rewards, dones, last_value, gamma: float, lam: float):
 
 class PPOTrainer:
     def __init__(self, env, config: PPOConfig = PPOConfig(), mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "PPOTrainer: mesh= is not ported yet (ROADMAP A13, distribution)")
         self.env = env
         self.cfg = config
+        self.mesh = mesh
+        world = 1 if mesh is None else mesh.size()
+        if config.num_envs % world:
+            raise ValueError(
+                f"num_envs={config.num_envs} must divide over mesh size {world}")
+        self.local_envs = config.num_envs // world
         self.device = env_device(env)
         # the envs' batched step with autoreset; an env with a noise function
         # (anywhere in its wrapper chain) gets the generator to draw it
@@ -132,12 +144,18 @@ class PPOTrainer:
         return obs.clamp(-c, c) if c > 0 else obs
 
     def init(self, seed: int) -> Runner:
+        """A fresh runner: this rank's envs and generator, and on a mesh rank
+        0's network (one broadcast a tensor)."""
         cfg = self.cfg
-        generator = torch.Generator(device=self.device).manual_seed(seed)
-        env_state, obs = self.env.init_batch(cfg.num_envs, generator)
+        generator = torch.Generator(device=self.device).manual_seed(
+            pmesh.rank_seed(seed, self.mesh))
+        env_state, obs = self.env.init_batch(self.local_envs, generator)
         obs = self._clip_obs(obs)
         net = ActorCritic(obs.shape[-1], self.env.action_dim, cfg.hidden,
                           device=self.device, generator=generator)
+        if self.mesh is not None:
+            net.load_state_dict(pmesh.put_global(net.state_dict(), self.mesh,
+                                                 pmesh.replicated(self.mesh)))
         return Runner(net=net, opt=self.optimizer(net), env_state=env_state, obs=obs,
                       generator=generator)
 
@@ -203,17 +221,23 @@ class PPOTrainer:
 
     def update(self, runner: Runner, obs, packed) -> torch.Tensor:
         """One clip + Adam update of ``runner.net`` on one minibatch; returns
-        the minibatch's loss (a tensor)."""
+        the minibatch's loss (a tensor). On a mesh the gradients and the loss
+        are first averaged over the ranks, in one ``all_reduce``."""
         net, opt = runner.net, runner.opt
         for group in opt.param_groups:
             group["lr"] = self.learning_rate(runner.updates)
         opt.zero_grad(set_to_none=False)
         total, _ = self.loss(net, obs, packed)
         total.backward()
-        clip_by_global_norm_([p.grad for p in net.parameters()], self.cfg.max_grad_norm)
+        grads = [p.grad for p in net.parameters()]
+        loss = total.detach()
+        if self.mesh is not None:
+            *mean_grads, loss = pmesh.pmean(grads + [loss], self.mesh)
+            torch._foreach_copy_(grads, mean_grads)
+        clip_by_global_norm_(grads, self.cfg.max_grad_norm)
         opt.step()
         runner.updates += 1
-        return total.detach()
+        return loss
 
     def learn(self, runner: Runner, batch) -> torch.Tensor:
         """``num_epochs`` passes over ``batch``, each a fresh permutation cut
@@ -234,10 +258,17 @@ class PPOTrainer:
     def train_step(self, runner: Runner):
         """One iteration: :meth:`rollout`, then :meth:`learn`. Updates the
         runner in place and returns ``(runner, metrics)``, the metrics as
-        tensors on the device."""
+        tensors on the device (on a mesh, means over the ranks)."""
         runner, batch, mean_reward = self.rollout(runner)
         loss = self.learn(runner, batch)
+        if self.mesh is not None:
+            (mean_reward,) = pmesh.pmean([mean_reward], self.mesh)
         return runner, {"mean_reward": mean_reward, "loss": loss}
+
+    def make_train_step(self):
+        """``train_step(runner) -> (runner, metrics)``, the JAX trainer's entry
+        point: :meth:`train_step` itself (nothing to compile)."""
+        return self.train_step
 
     # -- convenience ----------------------------------------------------------
 
@@ -277,11 +308,17 @@ def train_loop(trainer, runner, num_iterations, log_every, callback, eval_fn,
     (``pdecontrolgym_tpu/agents/ppo.py:305-340``). ``evaluated(runner)`` is
     what ``eval_fn`` scores."""
     best_score, best_runner = -float("inf"), None
+    train_step = trainer.make_train_step()
     for it in range(num_iterations):
-        runner, metrics = trainer.train_step(runner)
+        runner, metrics = train_step(runner)
         last = it == num_iterations - 1
         if eval_fn is not None and (it % eval_every == 0 or last):
             score = float(eval_fn(evaluated(runner)))
+            if trainer.mesh is not None:
+                # every rank keeps the same best runner: the mean score decides
+                score = float(pmesh.pmean(
+                    [torch.tensor([score], dtype=torch.float64, device=trainer.device)],
+                    trainer.mesh)[0])
             if score > best_score:
                 # the WHOLE runner: the best parameters with the last
                 # iteration's Adam moments would resume along stale directions

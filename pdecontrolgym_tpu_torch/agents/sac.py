@@ -1,13 +1,21 @@
 """SAC on a batch of lockstep envs.
 
-Counterpart of ``pdecontrolgym_tpu/agents/sac.py`` with ``mesh=None``: a
-device-resident circular replay ring, a tanh-squashed Gaussian actor, twin Q
-critics with Polyak-averaged targets, and a learned temperature. One training
+Counterpart of ``pdecontrolgym_tpu/agents/sac.py``: a device-resident
+circular replay ring, a tanh-squashed Gaussian actor, twin Q critics with
+Polyak-averaged targets, and a learned temperature. One training
 iteration collects ``steps_per_iter`` actions of every env into the ring (one
 contiguous slice write an iteration) and takes ``updates_per_iter`` updates
 on uniformly sampled batches. Nothing is read back to the host during
 training: the ring's write position and fill level follow from the config
 alone and are kept as Python ints.
+
+``mesh=`` (an ``("env",)`` mesh of ``parallel/mesh.py``) shards the envs AND
+the replay ring over its ranks, as the JAX trainer: each rank collects into its
+own slice of ``buffer_size / world`` rows (its own ``ptr`` and ``size``) and
+samples ``batch_size`` rows from it; the networks start as rank 0's, and the
+critic's gradients (one ``all_reduce``), then the actor's and the
+temperature's (one more) are mean-reduced before their Adam steps. The target
+update stays local: the parameters are equal to the bit on every rank.
 
 Precision: float32 ``torch.matmul`` products, as in ``agents/ppo.py``.
 """
@@ -24,6 +32,7 @@ from torch import nn
 
 from pdecontrolgym_tpu_torch.agents.networks import dense, run_tower, tower
 from pdecontrolgym_tpu_torch.agents.ppo import train_loop
+from pdecontrolgym_tpu_torch.parallel import mesh as pmesh
 from pdecontrolgym_tpu_torch.parallel.rollout import batch_step, env_device, env_noise_fn
 
 
@@ -146,9 +155,6 @@ class SACRunner:
 
 class SACTrainer:
     def __init__(self, env, config: SACConfig = SACConfig(), mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "SACTrainer: mesh= is not ported yet (ROADMAP A13, distribution)")
         self.env = env
         # The ring's capacity rounds UP to whole iterations, so that the
         # contiguous slice write is the default and the write position stays on
@@ -159,6 +165,14 @@ class SACTrainer:
             config = dataclasses.replace(
                 config, buffer_size=-(-config.buffer_size // rows) * rows)
         self.cfg = config
+        self.mesh = mesh
+        world = 1 if mesh is None else mesh.size()
+        if config.num_envs % world or config.buffer_size % world:
+            raise ValueError("num_envs and buffer_size must divide over the mesh")
+        # this rank's envs and slice of the ring (the JAX trainer rounds the
+        # capacity with the global rows, then splits it)
+        self.local_envs = config.num_envs // world
+        self.local_capacity = config.buffer_size // world
         self.adim = env.action_dim
         self.target_entropy = -float(self.adim)
         self.device = env_device(env)
@@ -176,19 +190,24 @@ class SACTrainer:
     def init(self, seed: int) -> SACRunner:
         cfg = self.cfg
         dev = self.device
-        generator = torch.Generator(device=dev).manual_seed(seed)
-        env_state, obs = self.env.init_batch(cfg.num_envs, generator)
+        generator = torch.Generator(device=dev).manual_seed(pmesh.rank_seed(seed, self.mesh))
+        env_state, obs = self.env.init_batch(self.local_envs, generator)
         odim = obs.shape[-1]
         actor = Actor(odim, self.adim, cfg.hidden, dev, generator)
         critic = TwinCritic(odim, self.adim, cfg.hidden, dev, generator)
+        if self.mesh is not None:
+            for net in (actor, critic):
+                net.load_state_dict(pmesh.put_global(net.state_dict(), self.mesh,
+                                                     pmesh.replicated(self.mesh)))
         # the targets start as a copy of the critic, not an alias of it
         target = copy.deepcopy(critic).requires_grad_(False)
         log_alpha = torch.tensor(math.log(cfg.init_alpha), dtype=torch.float32,
                                  device=dev, requires_grad=True)
         opts = (self.optimizer(actor.parameters()), self.optimizer(critic.parameters()),
                 self.optimizer([log_alpha]))
-        # the ring in the networks' float32, whatever the env's dtype
-        n, f32 = cfg.buffer_size, torch.float32
+        # the ring (this rank's slice) in the networks' float32, whatever the
+        # env's dtype
+        n, f32 = self.local_capacity, torch.float32
         buffer = Buffer(
             obs=torch.zeros((n, odim), dtype=f32, device=dev),
             action=torch.zeros((n, self.adim), dtype=f32, device=dev),
@@ -269,7 +288,10 @@ class SACTrainer:
         next_obs, done)`` with the unit normal draws ``noise = (eps_next,
         eps_actor)``: the critics toward the soft target, the actor against
         the freshly updated critics, the temperature, and the Polyak targets.
-        Updates the runner in place; returns ``(critic_loss, actor_loss)``."""
+        Updates the runner in place; returns ``(critic_loss, actor_loss)``.
+        On a mesh each gradient and loss is averaged over the ranks before its
+        Adam step: the critic's in one ``all_reduce``, the actor's and the
+        temperature's in another."""
         cfg = self.cfg
         obs, act, rew, nobs, done = batch
         eps_next, eps_actor = noise
@@ -288,6 +310,7 @@ class SACTrainer:
         q1, q2 = critic(obs, act)
         closs = torch.mean((q1 - target) ** 2 + (q2 - target) ** 2)
         closs.backward()
+        closs = self._mean_grads(list(critic.parameters()), closs.detach())
         opt_critic.step()
 
         # through the updated critics; only the actor's gradients are taken
@@ -297,20 +320,36 @@ class SACTrainer:
         q1, q2 = critic(obs, a)
         aloss = torch.mean(alpha * logp - torch.minimum(q1, q2))
         aloss.backward(inputs=list(actor.parameters()))
-        opt_actor.step()
-
+        # the temperature's loss reads the actor's log-probabilities from
+        # before the actor's step, so both gradients are reduced together
+        params = list(actor.parameters())
         if cfg.learn_alpha:
             opt_alpha.zero_grad(set_to_none=False)
             lloss = -torch.mean(torch.exp(runner.log_alpha)
                                 * (logp.detach() + self.target_entropy))
             lloss.backward()
+            params.append(runner.log_alpha)
+        aloss = self._mean_grads(params, aloss.detach())
+        opt_actor.step()
+        if cfg.learn_alpha:
             opt_alpha.step()
 
         with torch.no_grad():
             tp = list(runner.target.parameters())
             torch._foreach_mul_(tp, 1.0 - cfg.tau)
             torch._foreach_add_(tp, list(critic.parameters()), alpha=cfg.tau)
-        return closs.detach(), aloss.detach()
+        return closs, aloss
+
+    def _mean_grads(self, params, loss):
+        """On a mesh, replace the gradients of ``params`` by their means over
+        the ranks and return the mean of ``loss``, in one ``all_reduce``;
+        without one, return ``loss``."""
+        if self.mesh is None:
+            return loss
+        grads = [p.grad for p in params]
+        *mean_grads, loss = pmesh.pmean(grads + [loss.reshape(1)], self.mesh)
+        torch._foreach_copy_(grads, mean_grads)
+        return loss[0]
 
     def update(self, runner: SACRunner):
         """``updates_per_iter`` updates on fresh samples. Returns the mean
@@ -326,6 +365,8 @@ class SACTrainer:
         tensors on the device."""
         runner, mean_reward = self.collect(runner)
         closs, aloss = self.update(runner)
+        if self.mesh is not None:
+            (mean_reward,) = pmesh.pmean([mean_reward], self.mesh)
         return runner, {"mean_reward": mean_reward, "critic_loss": closs,
                         "actor_loss": aloss,
                         "alpha": torch.exp(runner.log_alpha.detach())}
@@ -337,6 +378,11 @@ class SACTrainer:
         the snapshot holds the replay ring too."""
         return train_loop(self, self.init(seed), num_iterations, log_every, callback,
                           eval_fn, eval_every, select_best, lambda r: r.actor)
+
+    def make_train_step(self):
+        """``train_step(runner) -> (runner, metrics)``, the JAX trainer's entry
+        point: :meth:`train_step` itself (nothing to compile)."""
+        return self.train_step
 
     def policy(self, actor: Actor, deterministic: bool = True):
         """``act(obs, generator=None) -> actions`` in ``[action_low,

@@ -5,7 +5,9 @@ env's autoreset step (``parallel/rollout.py::batch_step``) as a standard
 ``gymnasium.vector.VectorEnv``, so a library built on the vector API can drive
 thousands of envs on the card from one process: each ``step`` runs the env's
 ``step_batch`` (the CUDA kernels on the card), and observations, rewards and
-flags cross to numpy once, in one host read.
+flags cross to numpy once, in one host read. A spatially sharded env
+(``parallel/spatial.py::make_sharded_env``) hands out DTensors: they are
+gathered whole before that read.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 from pdecontrolgym_tpu_torch.compat._gym import SAME_STEP, VectorEnv, batch_space, spaces
 from pdecontrolgym_tpu_torch.core.base import resolve_device
 from pdecontrolgym_tpu_torch.parallel.rollout import batch_step, env_device
+from pdecontrolgym_tpu_torch.parallel.spatial import _whole
 
 
 class PDEVectorEnv(VectorEnv):
@@ -69,7 +72,7 @@ class PDEVectorEnv(VectorEnv):
         if seed is not None:
             self._generator.manual_seed(seed)
         self._state, obs = self.fenv.init_batch(self.num_envs, self._generator)
-        return obs.to(torch.float32).cpu().numpy(), {}
+        return _whole(obs).to(torch.float32).cpu().numpy(), {}
 
     def step(self, actions):
         a = torch.as_tensor(np.asarray(actions, np.float32), device=self.device)
@@ -79,8 +82,9 @@ class PDEVectorEnv(VectorEnv):
         B = self.num_envs
         # the ONE host read: obs | reward | terminated | truncated, per env
         packed = torch.cat([
-            out.obs.reshape(B, -1).to(torch.float32),
-            *(x.to(torch.float32)[:, None] for x in (out.reward, out.terminated, out.truncated)),
+            _whole(out.obs).reshape(B, -1).to(torch.float32),
+            *(_whole(x).to(torch.float32)[:, None]
+              for x in (out.reward, out.terminated, out.truncated)),
         ], dim=1).cpu().numpy()
         obs = packed[:, :-3].reshape((B,) + self.single_observation_space.shape)
         return (

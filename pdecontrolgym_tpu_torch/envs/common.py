@@ -229,21 +229,28 @@ class Boundary1DEnv(FunctionalEnv):
         u, t, bsum = state.u, state.time_index, state.bsum
         # the row one SUB-step before the final row, not one interval before
         prev_u = state.prev_u
-        B = u.shape[0]
-        positions = self._norm_offsets()
-        norms = torch.zeros((B, S), dtype=c.dtype, device=self.device)
-        aux = torch.zeros_like(norms) if self._needs_aux else None
+        # the norms of the last min(W, S) sub-steps, each where the reward
+        # reads it; gathered in dicts and stacked once (no in-place writes,
+        # so that the step also runs on DTensors: parallel/spatial.py)
+        window = range(S - min(W, S), S)
+        reads = set(self._norm_offsets()) & set(window)
+        norms, aux = {}, {}
         for j in range(S):
             u, prev_u, t, bsum = self._masked_substep(u, prev_u, t, bsum, state.beta,
                                                       control)
-            if j in positions:
-                norms[:, j] = torch.linalg.vector_norm(u, dim=-1)
+            if j in reads:
+                norms[j] = torch.linalg.vector_norm(u, dim=-1)
                 if self._needs_aux:
-                    aux[:, j] = self._aux_norm(u)
-        trailing = self._trailing(state.norm_ring, norms[:, -min(W, S):])
+                    aux[j] = self._aux_norm(u)
+
+        def in_window(values):
+            # a sub-step the reward never reads holds zero (S - 1 is always read)
+            zero = torch.zeros_like(values[S - 1])
+            return torch.stack([values.get(j, zero) for j in window], dim=-1)
+
+        trailing = self._trailing(state.norm_ring, in_window(norms))
         aux_trailing = (
-            self._trailing(state.aux_ring, aux[:, -min(W, S):])
-            if self._needs_aux else None
+            self._trailing(state.aux_ring, in_window(aux)) if self._needs_aux else None
         )
         return self._finish(state, u, prev_u, t, bsum, trailing, generator,
                             aux_trailing)
@@ -347,6 +354,18 @@ class Boundary1DEnv(FunctionalEnv):
                 )
         return self._spec or None
 
+    def batch_spec(self, device):
+        """``(spec, control transform)`` of the interval path that
+        :meth:`step_batch` takes for a state on ``device``, or None where it
+        steps eagerly (see :meth:`step_batch`)."""
+        if self.config.backend == "eager" or self._needs_prev or self._needs_aux:
+            return None
+        spec = self.interval_spec()
+        if spec is not None and self.config.backend == "auto" \
+                and device.type == "cuda" and auto_steps_eagerly(spec[0]):
+            return None
+        return spec
+
     def step_batch(self, state, actions, generator=None):
         """Step the batch through the interval path when ``backend`` is
         ``"kernel"`` or ``"auto"``, the env has a spec and the reward needs
@@ -356,11 +375,7 @@ class Boundary1DEnv(FunctionalEnv):
         package's ``"auto"`` picks its kernel per size, decided from the spec
         before any launch (``auto_steps_eagerly``); within that reach a CUDA
         kernel takes every row. ``"kernel"`` past a kernel's reach raises."""
-        eager = self.config.backend == "eager" or self._needs_prev or self._needs_aux
-        spec = None if eager else self.interval_spec()
-        if spec is not None and self.config.backend == "auto" \
-                and state.u.device.type == "cuda" and auto_steps_eagerly(spec[0]):
-            spec = None
+        spec = self.batch_spec(state.u.device)
         if spec is None:
             return self.step(state, actions, generator)
         spec, ctrl_transform = spec

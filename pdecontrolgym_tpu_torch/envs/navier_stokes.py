@@ -186,9 +186,11 @@ def stack_frames(u, v):
     0.38 ms a step on an H100 against the kernel's 0.53 ms, and a rollout whose
     policy reads no obs values needs none of it (the JAX package leaves the
     same elimination to XLA). The port never writes a state's fields in place,
-    so the view stays valid. Otherwise ``torch.stack``."""
+    so the view stays valid. Otherwise, and for a tensor subclass such as a
+    DTensor (which has no storage of its own), ``torch.stack``."""
     if (
-        u.shape == v.shape and u.is_contiguous() and v.is_contiguous()
+        type(u) is torch.Tensor and type(v) is torch.Tensor
+        and u.shape == v.shape and u.is_contiguous() and v.is_contiguous()
         and not (u.requires_grad or v.requires_grad)
         and u.untyped_storage().data_ptr() == v.untyped_storage().data_ptr()
         and v.storage_offset() == u.storage_offset() + u.numel()

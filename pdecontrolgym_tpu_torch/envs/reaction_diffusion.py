@@ -154,12 +154,12 @@ class ReactionDiffusionEnv(Boundary1DEnv):
         dt, th = _scalar(c.dt, c.dtype), _scalar(c.theta, c.dtype)
         F = _scalar(c.dt / c.dx**2, c.dtype)
 
-        off = torch.full_like(u, _scalar(-th * F, c.dtype))
-        off[:, 0] = 0.0
-        off[:, -1] = 0.0
-        diag = 1.0 + th * (2.0 * F - dt * beta)
-        diag[:, 0] = 1.0
-        diag[:, -1] = 1.0
+        # the edge rows are selected, not written in place, so that the step
+        # also runs on DTensors (parallel/spatial.py)
+        col = torch.arange(u.shape[-1], device=u.device)
+        edge = (col == 0) | (col == u.shape[-1] - 1)
+        off = torch.where(edge, 0.0, torch.full_like(u, _scalar(-th * F, c.dtype)))
+        diag = torch.where(edge, 1.0, 1.0 + th * (2.0 * F - dt * beta))
         # explicit part of the operator
         expl = _scalar(1.0 - th, c.dtype) * (
             F * (torch.roll(u, 1, dims=-1) - 2.0 * u + torch.roll(u, -1, dims=-1))

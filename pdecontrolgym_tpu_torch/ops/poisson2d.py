@@ -16,31 +16,32 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
-def _interior(f, values):
-    """``values`` on the interior of a zero field shaped like ``f``."""
-    out = torch.zeros_like(f)
-    out[..., 1:-1, 1:-1] = values
-    return out
+def _interior(values):
+    """``values`` on the interior of a zero field one point wider on each
+    side: a zero pad, not a write into a slice, so that it also holds on
+    DTensors (``parallel/spatial.py``), where a slice of a sharded field is a
+    copy."""
+    return F.pad(values, (1, 1, 1, 1))
 
 
 def ddx(f, dx):
     """Interior central difference along axis -1 (the reference's "x"), zero
     on the border ring."""
-    return _interior(f, (f[..., 1:-1, 2:] - f[..., 1:-1, :-2]) / (2.0 * dx))
+    return _interior((f[..., 1:-1, 2:] - f[..., 1:-1, :-2]) / (2.0 * dx))
 
 
 def ddy(f, dy):
     """Interior central difference along axis -2 (the reference's "y")."""
-    return _interior(f, (f[..., 2:, 1:-1] - f[..., :-2, 1:-1]) / (2.0 * dy))
+    return _interior((f[..., 2:, 1:-1] - f[..., :-2, 1:-1]) / (2.0 * dy))
 
 
 def laplacian(f, dx, dy):
     """Interior 5-point Laplacian scaled by 1/(dx·dy) (the reference's
     convention), zero on the border ring."""
     return _interior(
-        f,
         (
             f[..., 1:-1, :-2]
             + f[..., :-2, 1:-1]
@@ -100,9 +101,9 @@ def jacobi_pressure(u, v, p0, dx, dy, dt, density, iters: int):
             + p[..., 2:, 1:-1]
             - dx * dy * rhs_c
         )
-        p = p.clone()
-        p[..., 1:-1, 1:-1] = interior
-        p = _neumann_edges(p)
+        # the sequential Neumann copies overwrite the whole ring from the
+        # interior: mirror_ring is the same copies in one gather
+        p = mirror_ring(interior)
     return p
 
 
@@ -185,9 +186,7 @@ def direct_pressure(u, v, p0, dx, dy, dt, density, basis):
     t = torch.einsum("im,...ij,jn->...mn", qy, g, qx)
     t = t * inv  # per-mode inverse eigenvalue; the (0, 0) null mode -> 0
     p_int = torch.einsum("im,...mn,jn->...ij", qy, t, qx)
-    p = torch.zeros_like(u)
-    p[..., 1:-1, 1:-1] = p_int.to(u.dtype)
-    return _neumann_edges(p)
+    return mirror_ring(p_int.to(u.dtype))
 
 
 def matpow_pressure_setup(ny: int, nx: int, dx, dy, iters: int,
@@ -256,7 +255,7 @@ def matpow_pressure(u, v, p0, dx, dy, dt, density, mats):
     ny, nx = u.shape[-2], u.shape[-1]
     lead = u.shape[:-2]
     rhs = _interior(
-        u, density / dt * _divergence_interior(u, v, dx, dy)
+        density / dt * _divergence_interior(u, v, dx, dy)
     ).reshape(lead + (ny * nx,))
     pf = p0.reshape(lead + (ny * nx,))
     out = pf @ mats["A"].T + rhs @ mats["B"].T

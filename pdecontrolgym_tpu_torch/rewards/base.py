@@ -35,3 +35,7 @@ class BaseReward:
 
     def __call__(self, ctx: RewardCtx) -> torch.Tensor:
         raise NotImplementedError
+
+    def reset(self) -> None:
+        """No-op: a reward keeps no state between episodes. Kept for API parity
+        with the reference's ``base_reward.py:26-32``, whose scripts call it."""

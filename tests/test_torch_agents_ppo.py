@@ -245,9 +245,20 @@ def test_default_device_is_the_card(algo):
         trainer.init(0)
 
 
+class _ThreeRanks:
+    """A stand-in for a mesh of three ranks: all the trainers' constructors
+    read of it."""
+
+    def size(self):
+        return 3
+
+
 def test_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A13"):
-        PPOTrainer(_port_env(), PPOConfig(), mesh=object())
+    """A mesh whose size does not divide ``num_envs`` raises the JAX
+    trainer's ``ValueError``. (The name is older than the port of ``mesh=``,
+    which tests/test_torch_dist_trainers.py runs on gloo ranks.)"""
+    with pytest.raises(ValueError, match="divide over mesh size 3"):
+        PPOTrainer(_port_env(), PPOConfig(), mesh=_ThreeRanks())
 
 
 def _noise(obs, generator):

@@ -218,5 +218,15 @@ def test_targets_start_as_a_copy_and_config_matches_jax_defaults():
     for t, c in zip(runner.target.parameters(), runner.critic.parameters()):
         assert torch.equal(t, c) and t.data_ptr() != c.data_ptr() and not t.requires_grad
     assert dataclasses.asdict(SACConfig()) == dataclasses.asdict(jsac.SACConfig())
-    with pytest.raises(NotImplementedError, match="A13"):
-        SACTrainer(_port_env(), SACConfig(), mesh=object())
+    # mesh= is ported (tests/test_torch_dist_trainers.py): 64 envs do not
+    # divide over three ranks
+    with pytest.raises(ValueError, match="must divide over the mesh"):
+        SACTrainer(_port_env(), SACConfig(), mesh=_ThreeRanks())
+
+
+class _ThreeRanks:
+    """A stand-in for a mesh of three ranks: all the trainers' constructors
+    read of it."""
+
+    def size(self):
+        return 3

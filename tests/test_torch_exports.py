@@ -39,3 +39,26 @@ def test_utils_exports_every_converter():
               and getattr(v, "__module__", "") == convert.__name__]
     assert "traffic_state_from_numpy" in public
     assert not [n for n in public if n not in utils.__all__]
+
+
+def test_parallel_exports_the_twelve_names_of_its_twin():
+    """The distribution layer is ported: ``parallel`` exports every name of
+    the JAX package's ``parallel.__all__``, ``multihost_env_mesh`` and
+    ``put_global`` stay in ``parallel.mesh`` and the ``make_spatial_*``
+    references and ``spatial_mesh`` in ``parallel.spatial``, as there."""
+    from pdecontrolgym_tpu import parallel as twin
+    from pdecontrolgym_tpu.parallel import mesh as twin_mesh
+    from pdecontrolgym_tpu.parallel import spatial as twin_spatial
+    from pdecontrolgym_tpu_torch import parallel
+    from pdecontrolgym_tpu_torch.parallel import mesh, spatial
+
+    assert len(twin.__all__) == 12
+    assert sorted(parallel.__all__) == sorted(twin.__all__)
+    for module, twin_module, names in (
+            (mesh, twin_mesh, ("multihost_env_mesh", "put_global")),
+            (spatial, twin_spatial, ("spatial_mesh", "make_spatial_transport_interval",
+                                     "make_spatial_transport_episode",
+                                     "make_spatial_ns_step"))):
+        for name in names:
+            assert callable(getattr(twin_module, name)) and callable(getattr(module, name))
+    assert parallel.ENV_AXIS == twin.ENV_AXIS and parallel.X_AXIS == twin.X_AXIS

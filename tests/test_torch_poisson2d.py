@@ -50,12 +50,17 @@ def test_neumann_edges_leaves_its_input_alone():
     assert torch.equal(f, before)
 
 
+@pytest.mark.parametrize("ring", ["zero", "random"])
 @pytest.mark.parametrize("shape", [(3, 3), (3, 5), (4, 4), (9, 13)])
-def test_mirror_ring_is_the_clamp_form_of_the_sequential_copies(shape):
+def test_mirror_ring_is_the_clamp_form_of_the_sequential_copies(shape, ring):
+    """Whatever the ring held before (a Jacobi sweep's field has one), the
+    copies overwrite all of it from the interior."""
     ny, nx = shape
     rng = np.random.default_rng(1)
     p_int = torch.from_numpy(rng.normal(size=(2, ny - 2, nx - 2)))
     embedded = torch.zeros((2, ny, nx), dtype=p_int.dtype)
+    if ring == "random":
+        embedded = torch.from_numpy(rng.normal(size=(2, ny, nx)))
     embedded[..., 1:-1, 1:-1] = p_int
     want = tp._neumann_edges(embedded)
     got = tp.mirror_ring(p_int)
