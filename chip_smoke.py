@@ -175,8 +175,12 @@ JAX package), builds the CUDA kernels from ``csrc/`` and runs:
                 whose halos cross host memory (gloo takes no CUDA tensor point
                 to point); make_sharded_env over the transport bench row
                 (4096 x 128, eager, 2 actions) on the NCCL rank against the
-                unsharded eager rollout. A rank that fails, imports JAX or
-                outlives its time limit fails the run.
+                unsharded eager rollout, and over a transport row of 65,536
+                points (256 envs, 2 actions of 200 sub-steps) on the two
+                gloo ranks at (env=1, x=2), each rank's slab against the
+                unsharded rollout's in the transport bands, with each rank's
+                peak device memory beside the unsharded env's. A rank that
+                fails, imports JAX or outlives its time limit fails the run.
 19. times    -- CUDA events, median of 3 after a warm-up (eager episodes: one
                 run after a warm-up): one projection step
                 or one interval, kernel (per call, 20 back to back) against
@@ -3718,6 +3722,15 @@ SPATIAL_NS_ITERS = 100
 SPATIAL_NS_STEPS = 2
 SPATIAL_NS_TOL = 1e-12
 SHARDED_STEPS = 2  # make_sharded_env on the transport bench row: 2 of its 50 actions
+# make_sharded_env on the SPATIAL_NX transport row: SHARDED_ROW_ENVS envs,
+# SHARDED_STEPS actions of SPATIAL_S sub-steps. The state (the row, which the
+# sub-steps give to the bit, and the norm ring) in the sharded env's state
+# band, rtol = atol = 1e-5; the rewards, differences of two norms summed in
+# another order over the ranks (one float32 ulp of a norm of 2560 is 2.4e-4),
+# in the band of tests/test_spatial_sharding.py for a sharded transport row's
+# rewards, rtol 2e-3 / atol 2e-2; their share of the sharded env's 1e-4 band
+# at nx=256 is logged beside it
+SHARDED_ROW_ENVS = 256
 
 
 def _flat_parameters(torch, runner):
@@ -3978,11 +3991,71 @@ def sharded_bench_row(torch, device):
             "substeps": SHARDED_STEPS * S, "finite": bool(torch.isfinite(_whole(su)).all())}
 
 
+def sharded_wide_row(torch, device, world, devices=None):
+    """``make_sharded_env`` over a SPATIAL_NX transport row (dt = 0.01 dx, as
+    the explicit episode), SHARDED_ROW_ENVS envs, SHARDED_STEPS actions, on an
+    ``(env=1, x=world)`` mesh of this process group, against the unsharded
+    eager rollout on this rank: each rank's slab of the final state and the
+    rewards, its wall, and its peak device memory in each run. The policy
+    reads no observation (a seeded draw, the same on every rank), so nothing
+    gathers the row."""
+    from pdecontrolgym_tpu_torch.envs.common import Boundary1DConfig
+    from pdecontrolgym_tpu_torch.envs.transport import TransportEnv
+    from pdecontrolgym_tpu_torch.parallel.rollout import rollout
+    from pdecontrolgym_tpu_torch.parallel.spatial import env_spatial_mesh, make_sharded_env
+    from pdecontrolgym_tpu_torch.rewards.tuned import TunedReward1D
+
+    nx, S = SPATIAL_NX, SPATIAL_S
+    dx = 1.0 / nx
+    dt = 0.01 * dx
+    cfg = Boundary1DConfig(T=SPATIAL_INTERVALS * S * dt, dt=dt, X=1.0, dx=dx,
+                           control_sample_rate=S * dt, backend="eager")
+    env = TransportEnv(cfg, TunedReward1D(cfg.nt, -1e3, 3e2, lookback=SPATIAL_LOOKBACK),
+                       device=device)
+    senv = make_sharded_env(env, env_spatial_mesh(world, devices))
+
+    def policy(obs, generator):
+        return 0.5 + torch.rand((SHARDED_ROW_ENVS, 1), generator=generator, device=device)
+
+    def run(e):
+        gen = torch.Generator(device=device).manual_seed(2)
+        (state, _), outs = rollout(e, policy, SHARDED_ROW_ENVS, SHARDED_STEPS, gen,
+                                   keep_obs=False)
+        return state.u, state.norm_ring, outs.reward
+
+    peaks = {}
+    for name, e in (("sharded", senv), ("unsharded", env)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        peaks[name] = run(e), _timed(torch, lambda: run(e))[1]
+        peaks[name] += (torch.cuda.max_memory_allocated(device) - base,)
+    (su, sring, sr), ms, mem = peaks["sharded"]
+    (uu, uring, ur), eager_ms, eager_mem = peaks["unsharded"]
+    ax = senv._axis
+    mine, want = su.to_local(), uu[:, ax.start:ax.stop]
+    ring, rewards = sring.to_local(), sr.to_local()
+    return {"ms": ms, "eager_ms": eager_ms, "peak_bytes": mem, "eager_peak_bytes": eager_mem,
+            "slab": [ax.start, ax.stop], "placements": str(su.placements),
+            "u_err": _max_abs(torch, mine, want), "ring_err": _max_abs(torch, ring, uring),
+            "reward_err": _max_abs(torch, rewards, ur),
+            "band": max(_band_share(torch, mine, want, 1e-5, 1e-5),
+                        _band_share(torch, ring, uring, 1e-5, 1e-5),
+                        _band_share(torch, rewards, ur, 2e-3, 2e-2)),
+            "reward_share_1e4": _band_share(torch, rewards, ur, 1e-4, 1e-4),
+            "norm_scale": float(uring.abs().max()),
+            "finite": bool(torch.isfinite(mine).all() and torch.isfinite(rewards).all()),
+            "substeps": SHARDED_STEPS * S, "envs": SHARDED_ROW_ENVS, "nx": nx}
+
+
 def rank_spatial(torch, device, world, rank):
     out = {"transport": spatial_transport(torch, device, world, rank),
            "ns": spatial_ns(torch, device, world, rank)}
     if world == 1:
         out["sharded_env"] = sharded_bench_row(torch, device)
+    else:
+        out["sharded_row"] = sharded_wide_row(torch, device, world)
     return out
 
 
@@ -4138,8 +4211,30 @@ def phase_dist_spatial(torch, card, train_ms):
                 f"{NUM_ENVS} envs x nx=128 eager, {SHARDED_STEPS} actions of 50 "
                 f"({se['substeps']} sub-steps), state placed {se['placements']}: "
                 f"{se['ms']:.1f} ms against the unsharded eager rollout's "
-                f"{se['eager_ms']:.1f} ms; |u error| {se['u_err']:.3g}, |reward error| "
-                f"{se['reward_err']:.3g} ({card})")
+                f"{se['eager_ms']:.1f} ms ({se['ms'] / se['eager_ms']:.3f}x); |u error| "
+                f"{se['u_err']:.3g}, |reward error| {se['reward_err']:.3g} ({card})")
+        if "sharded_row" in outs[0]["spatial"]:
+            rows = [o["spatial"]["sharded_row"] for o in outs]
+            for r, sr in enumerate(rows):
+                if sr["band"] > 1.0 or not sr["finite"]:
+                    raise AssertionError(f"[spatial] make_sharded_env, {where}, rank {r}: {sr}")
+            sr = rows[0]
+            mib = 2.0 ** 20
+            log(f"[spatial] make_sharded_env on a transport row of {sr['nx']} points, "
+                f"{where} at (env=1, x={world}): {sr['envs']} envs, {SHARDED_STEPS} actions "
+                f"({sr['substeps']} sub-steps), state placed {sr['placements']}, slabs "
+                f"{[s['slab'] for s in rows]}: "
+                f"{', '.join(f'{s['ms']:.1f}' for s in rows)} ms by rank against the "
+                f"unsharded eager rollout's {', '.join(f'{s['eager_ms']:.1f}' for s in rows)} "
+                f"ms on each rank; peak device memory by rank "
+                f"{', '.join(f'{s['peak_bytes'] / mib:.1f}' for s in rows)} MiB against the "
+                f"unsharded env's {', '.join(f'{s['eager_peak_bytes'] / mib:.1f}' for s in rows)}"
+                f" MiB; largest |u error| {max(s['u_err'] for s in rows):.3g}, |norm ring "
+                f"error| {max(s['ring_err'] for s in rows):.3g} (norms up to "
+                f"{sr['norm_scale']:.5g}), |reward error| {max(s['reward_err'] for s in rows):.3g}"
+                f", {max(s['band'] for s in rows):.3g} of the bands (state 1e-5, rewards "
+                f"2e-3 / 2e-2); the rewards' share of the 1e-4 band "
+                f"{max(s['reward_share_1e4'] for s in rows):.3g}; {staging} ({card})")
         log(f"[dist] {where}: the ranks took {seconds:.1f} s from start to join")
     return launches
 

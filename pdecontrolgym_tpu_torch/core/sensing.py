@@ -3,7 +3,10 @@
 Counterpart of ``pdecontrolgym_tpu/core/sensing.py``: each variant of the
 reference's sensing/control matrix becomes a small function chosen once at env
 construction. The functions take batch-first tensors; ``...`` indexing keeps
-them valid for a single row too.
+them valid for a single row too. The sensed points come through the spatial
+axis of ``core/axis.py`` (rank 0's head, the last rank's tail), so that a
+rank that holds a slab of the row senses what the whole row gives; a
+full-state observation is the slab, as a value of the row.
 
 The reference spells Dirichlet ``"Dirchilet"``; both spellings are accepted.
 """
@@ -11,6 +14,8 @@ The reference spells Dirichlet ``"Dirchilet"``; both spellings are accepted.
 from __future__ import annotations
 
 from typing import Callable
+
+from pdecontrolgym_tpu_torch.core.axis import axis
 
 DIRICHLET = "dirichlet"
 NEUMANN = "neumann"
@@ -79,23 +84,33 @@ def make_sensing_fn(
     _canon(control_type, "control_type")
 
     if loc == "full":
-        return (lambda u: u), -1
+        return (lambda u: axis().row(u)), -1
 
     if loc == "collocated":
         if _canon(control_type, "control_type") == NEUMANN:
-            return (lambda u: u[..., -1:]), 1
-        return (lambda u: (u[..., -1:] - u[..., -2:-1]) / dx), 1
+            return (lambda u: axis().tail(u)), 1
+
+        def trace(u):
+            t = axis().tail(u, 2)
+            return (t[..., 1:] - t[..., :1]) / dx
+
+        return trace, 1
 
     if loc == "opposite":
         st = _canon(sensing_type, "sensing_type")
         if st == NEUMANN:
-            return (lambda u: (u[..., 1:2] - u[..., 0:1]) / dx), 1
+
+            def gradient(u):
+                h = axis().head(u, 2)
+                return (h[..., 1:] - h[..., :1]) / dx
+
+            return gradient, 1
         if left_dirichlet_fixed_zero:
             raise ValueError(
                 "In the parabolic PDE system, u(0, t)=0 and so Dirichlet sensing "
                 "at u(0, t) is not viable."
             )
-        return (lambda u: u[..., 0:1]), 1
+        return (lambda u: axis().head(u)), 1
 
     raise ValueError(
         f"Invalid sensing_loc parameter {sensing_loc!r}. "

@@ -7,7 +7,9 @@ First-order finite volumes with the Godunov flux (the exact Riemann solver
 for f(u)=u²/2, ``F = f(max(ul, −ur, 0))``) or the Rusanov flux; the explicit
 viscous term is folded into the face flux. Left boundary: zero-gradient
 outflow (``u[0] = u[1]``). Right boundary: Dirichlet (the action) or Neumann
-(``action·dx + u[-2]`` of the previous row).
+(``action·dx + u[-2]`` of the previous row). Written against the spatial axis
+(``core/axis.py``): a slab of the row takes one point from each neighbour,
+and the Neumann neighbour ``u[-2]`` comes from the last rank.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import math
 
 import torch
 
+from pdecontrolgym_tpu_torch.core.axis import axis
 from pdecontrolgym_tpu_torch.core.sensing import is_neumann
 from pdecontrolgym_tpu_torch.envs.common import Boundary1DConfig, Boundary1DEnv, _scalar
 from pdecontrolgym_tpu_torch.ops.interval1d import BurgersBody
@@ -39,11 +42,14 @@ class BurgersEnv(Boundary1DEnv):
         c = self.config
         dt, dx = _scalar(c.dt, c.dtype), _scalar(c.dx, c.dtype)
         nu = _scalar(c.viscosity, c.dtype)
-        boundary = self._control_fn(control, u[:, -2:-1])
+        ax = axis()
+        boundary = self._control_fn(control, self._neighbour(u))
 
-        # face flux at the nx-1 interior faces; the viscous term folded in
+        # face flux at the faces between neighbouring points (of the slab and
+        # its neighbours' edge points); the viscous term folded in
         # (F -= ν·(u_r−u_l)/dx) reproduces ν·dt/dx²·(u_{i-1}−2u_i+u_{i+1})
-        ul, ur = u[:, :-1], u[:, 1:]
+        ue = ax.extend(u, left=1, right=1)
+        ul, ur = ue[:, :-1], ue[:, 1:]
         if c.flux == "godunov":
             m = torch.clamp_min(torch.maximum(ul, -ur), 0.0)
             flux = 0.5 * (m * m)
@@ -53,8 +59,8 @@ class BurgersEnv(Boundary1DEnv):
         if c.viscosity:
             flux = flux - _scalar(nu / dx, c.dtype) * (ur - ul)
 
-        interior = u[:, 1:-1] - _scalar(dt / dx, c.dtype) * (flux[:, 1:] - flux[:, :-1])
-        u_new = torch.cat([interior[:, :1], interior, boundary], dim=1)
+        interior = ue[:, 1:-1] - _scalar(dt / dx, c.dtype) * (flux[:, 1:] - flux[:, :-1])
+        u_new = ax.close(interior, left=interior[:, :1], right=boundary)
         return u_new, boundary
 
     def _interval_spec(self):

@@ -10,7 +10,11 @@ Finished envs freeze, so batches run in lockstep.
 Two paths advance a control interval:
 
 - :meth:`Boundary1DEnv.step`, the eager path: a Python loop over sub-steps of
-  the env's ``_advance`` (the counterpart of ``jax.vmap(env.step)``).
+  the env's ``_advance`` (the counterpart of ``jax.vmap(env.step)``). It is
+  written against the spatial axis of ``core/axis.py``, so that it also steps
+  one rank's slab of the row under ``parallel/spatial.py``: the norms are
+  sums over the ranks, the boundary column is written on the last rank, and
+  the sensed points come from the rank that holds them.
 - :meth:`Boundary1DEnv.step_batch`, the interval path: one call of
   ``ops.interval1d.interval`` per control interval (the CUDA kernel for tensors
   on the card), when the env has a spec for it, the reward reads nothing
@@ -26,8 +30,9 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from pdecontrolgym_tpu_torch.core.axis import axis
 from pdecontrolgym_tpu_torch.core.base import FunctionalEnv, RewardCtx, StepOut, roll_ring
-from pdecontrolgym_tpu_torch.core.sensing import make_control_fn, make_sensing_fn
+from pdecontrolgym_tpu_torch.core.sensing import is_neumann, make_control_fn, make_sensing_fn
 from pdecontrolgym_tpu_torch.ops.interval1d import (
     IntervalSpec,
     auto_steps_eagerly,
@@ -144,6 +149,7 @@ class Boundary1DEnv(FunctionalEnv):
         self._control_fn = make_control_fn(
             config.control_type, config.normalize, config.max_control_value, config.dx
         )
+        self._neumann = is_neumann(config.control_type)
         self._sensing_fn, self._obs_dim = make_sensing_fn(
             config.sensing_loc,
             config.control_type,
@@ -210,10 +216,16 @@ class Boundary1DEnv(FunctionalEnv):
             state.aux_ring[:, -1] = self._aux_norm(u0)
         return state, self._observe(state, None)
 
+    def _neighbour(self, u):
+        """``u[:, -2:-1]``, the Neumann boundary's neighbour of the row (from
+        the last rank, on every rank); Dirichlet control reads no neighbour."""
+        return axis().tail(u, 2)[:, :1] if self._neumann else 0.0
+
     def _aux_norm(self, u):
+        ax = axis()
         if self._aux_ord == "1":
-            return u.abs().sum(dim=-1)
-        return u.abs().amax(dim=-1)  # "inf"
+            return ax.psum(u.abs().sum(dim=-1))
+        return ax.pmax(u.abs().amax(dim=-1))  # "inf"
 
     def _observe(self, state, generator):
         obs = self._sensing_fn(state.u)
@@ -225,6 +237,7 @@ class Boundary1DEnv(FunctionalEnv):
         """Eager path: every sub-step of the interval as separate tensor ops."""
         c = self.config
         S, W = c.sample_rate, self.window
+        ax = axis()
         control = torch.as_tensor(actions, dtype=c.dtype, device=self.device).reshape(-1, 1)
         u, t, bsum = state.u, state.time_index, state.bsum
         # the row one SUB-step before the final row, not one interval before
@@ -239,7 +252,7 @@ class Boundary1DEnv(FunctionalEnv):
             u, prev_u, t, bsum = self._masked_substep(u, prev_u, t, bsum, state.beta,
                                                       control)
             if j in reads:
-                norms[j] = torch.linalg.vector_norm(u, dim=-1)
+                norms[j] = ax.norm(u)
                 if self._needs_aux:
                     aux[j] = self._aux_norm(u)
 
@@ -257,7 +270,8 @@ class Boundary1DEnv(FunctionalEnv):
 
     def _masked_substep(self, u, prev_u, t, bsum, beta, control):
         """One sub-step of the eager path; an env whose row index has reached
-        ``nt - 1`` keeps its row, previous row, index and boundary sum."""
+        ``nt - 1`` keeps its row, previous row, index and boundary sum.
+        ``_advance`` returns the boundary value on every rank of the axis."""
         active = t < self.config.nt - 1
         u_new, boundary = self._advance(u, beta, control)
         if self._needs_prev:
@@ -406,6 +420,7 @@ class Boundary1DEnv(FunctionalEnv):
         the same window in the reward's ``ring_ord`` when that is not L2."""
         c = self.config
         nt = c.nt
+        ax = axis()
         cur_norm = trailing[:, -1]
         terminated = t >= nt - 1
         if c.limit_pde_state_size:
@@ -415,17 +430,19 @@ class Boundary1DEnv(FunctionalEnv):
         if c.truncate_on_nonfinite:
             truncated = truncated | ~torch.isfinite(cur_norm)
 
+        # a reward is written for the whole row: it reads this rank's slab
+        # as a value of the row (core/axis.py, Axis.row)
         ctx = RewardCtx(
-            u=u,
+            u=ax.row(u),
             time_index=t,
             executed=t - state.time_index,
             terminated=terminated,
             truncated=truncated,
-            action=u[:, -1],
+            action=ax.tail(u)[:, 0],
             norms=trailing,
             bsum=bsum,
             ring=self.window,
-            extras={"prev_u": prev_u} if self._needs_prev else None,
+            extras={"prev_u": ax.row(prev_u)} if self._needs_prev else None,
             aux_norms=aux_trailing,
         )
         reward = self.reward(ctx)

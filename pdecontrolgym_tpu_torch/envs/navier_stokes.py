@@ -20,7 +20,11 @@ stability guard is kept, with its message.
 Two paths advance a step:
 
 - :meth:`NavierStokesEnv.step`, the eager path: any dtype and solver, each
-  env rewarded against its own ``U_ref[t]`` row.
+  env rewarded against its own ``U_ref[t]`` row. The eager projection is
+  written against the spatial axis of ``core/axis.py``, so that it also steps
+  one rank's slab of rows under ``parallel/spatial.py`` (``ops/poisson2d.py``
+  says what crosses the ranks); the frames and targets reach the reward as
+  values of the whole field (``Axis.row``), whose sums go over the ranks.
 - :meth:`NavierStokesEnv.step_batch`: one call of ``ops.ns_fused.ns_step`` (the
   CUDA kernel for tensors on the card) when the config is eligible
   (``pressure_solver="direct"``, float32, ``action_dim == 1``), else the eager
@@ -34,6 +38,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from pdecontrolgym_tpu_torch.core.axis import axis
 from pdecontrolgym_tpu_torch.core.base import FunctionalEnv, RewardCtx, StepOut
 from pdecontrolgym_tpu_torch.ops.ns_fused import (
     CONDITIONS,
@@ -298,11 +303,11 @@ class NavierStokesEnv(FunctionalEnv):
         """The reference's edge loop on ``(B, ny, nx)`` fields under
         ``(B, action_dim)`` actions. A scalar action is broadcast; a vector
         action lies along the edge: ``(nx,)`` for lower and upper, ``(ny,)``
-        for left and right."""
+        for left and right (on a slab of rows, its rows of it)."""
         if actions.shape[-1] == 1:
             a_row = a_col = actions[:, :, None]
         else:
-            a_row, a_col = actions[:, None, :], actions[:, :, None]
+            a_row, a_col = actions[:, None, :], axis().local(actions[:, :, None], dim=-2)
         return apply_boundary(u, v, self.config.boundary_condition, a_row, a_col)
 
     # -- protocol -------------------------------------------------------------
@@ -375,6 +380,8 @@ class NavierStokesEnv(FunctionalEnv):
             state.u.shape[0], -1)
 
     def _reward(self, frames, ts, terminated, actions, frame_ref, action_ref):
+        """The reward of ``frames`` against ``frame_ref``, both values of the
+        whole field (``Axis.row``)."""
         ctx = RewardCtx(
             u=frames,
             time_index=ts,
@@ -382,8 +389,8 @@ class NavierStokesEnv(FunctionalEnv):
             terminated=terminated,
             truncated=torch.zeros_like(terminated),
             action=actions,
-            norms=frames.new_zeros((frames.shape[0], 1)),
-            bsum=frames.new_zeros((frames.shape[0],)),
+            norms=actions.new_zeros((actions.shape[0], 1)),
+            bsum=actions.new_zeros((actions.shape[0],)),
             ring=1,
             extras={
                 "frame": frames,
@@ -409,7 +416,7 @@ class NavierStokesEnv(FunctionalEnv):
         actions = self._actions(state, actions)
         u, v, p = self._projection(state.u, state.v, state.p, actions)
         ts = state.time_index + 1
-        frames = stack_frames(u, v)
+        frames = axis().row(stack_frames(u, v), dim=1)
         terminated = ts >= self.config.nt - 1
         return self._out(u, v, p, ts, frames, terminated,
                          self._gathered_reward(frames, ts, terminated, actions))
@@ -422,8 +429,10 @@ class NavierStokesEnv(FunctionalEnv):
 
     def _gathered_reward(self, frames, ts, terminated, actions):
         rows = self._target_rows(ts)
+        ax = axis()
         return self._reward(
-            frames, ts, terminated, actions, self.U_ref.index_select(0, rows),
+            frames, ts, terminated, actions,
+            ax.row(ax.local(self.U_ref.index_select(0, rows), dim=1), dim=1),
             self.action_ref.index_select(0, rows)[:, None],
         )
 
@@ -450,7 +459,8 @@ class NavierStokesEnv(FunctionalEnv):
         else:
             u, v, p = ns_step(self._fused_spec, state.u, state.v, actions)
         terminated = ts >= c.nt - 1
-        frames = stack_frames(u, v)
+        ax = axis()
+        frames = ax.row(stack_frames(u, v), dim=1)
 
         if c.lockstep_targets:
             arow = self.action_ref.index_select(0, first)
@@ -462,7 +472,8 @@ class NavierStokesEnv(FunctionalEnv):
             else:
                 reward = self._reward(
                     frames, ts, terminated, actions,
-                    self.U_ref.index_select(0, first)[0], arow,
+                    ax.row(ax.local(self.U_ref.index_select(0, first)[0], dim=0), dim=0),
+                    arow,
                 )
             # fail loud on a hand-built mixed-time batch instead of rewarding
             # every env against env 0's target row

@@ -17,6 +17,12 @@ Two schemes:
   ``ReactionDiffusionConfig.implicit_solver``). Stable for any ``dt``, so far
   fewer sub-steps are needed per control interval.
 
+The eager sub-steps are written against the spatial axis
+(``core/axis.py``), so that they also step one rank's slab of the row
+(``parallel/spatial.py``): one-point halos for FTCS and the θ-scheme's
+right-hand side, PCR's shifts across ranks, the row gathered once a sub-step
+for Thomas and the dense propagator (as GSPMD does for the JAX package).
+
 On the interval path the explicit scheme runs through the FTCS body of
 ``csrc/interval1d.cu`` and the implicit scheme with the PCR solver through
 ``csrc/interval1d_pcr.cu``.
@@ -29,6 +35,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from pdecontrolgym_tpu_torch.core.axis import axis
 from pdecontrolgym_tpu_torch.core.sensing import is_neumann
 from pdecontrolgym_tpu_torch.envs.common import Boundary1DConfig, Boundary1DEnv, _scalar
 from pdecontrolgym_tpu_torch.envs.transport import chebyshev_beta
@@ -82,7 +89,8 @@ class ReactionDiffusionEnv(Boundary1DEnv):
 
     def _advance(self, u, beta, control):
         c = self.config
-        boundary = self._control_fn(control, u[:, -2:-1])
+        ax = axis()
+        boundary = self._control_fn(control, self._neighbour(u))
         if c.scheme == "implicit":
             if self._solver == "dense":
                 if u.is_cuda and torch.backends.cuda.matmul.allow_tf32:
@@ -91,7 +99,9 @@ class ReactionDiffusionEnv(Boundary1DEnv):
                         "torch.backends.cuda.matmul.allow_tf32 must be False"
                     )
                 P, q = self._dense_propagator()
-                u_new = u @ P.T + q * boundary
+                # this rank's points of P·u from the whole row
+                (whole,) = ax.gathers((u,))
+                u_new = whole @ ax.local(P, dim=0).T + ax.local(q) * boundary
             else:
                 u_new = self._implicit_interior(u, beta, boundary)
         else:
@@ -99,9 +109,10 @@ class ReactionDiffusionEnv(Boundary1DEnv):
             dt = _scalar(c.dt, c.dtype)
             # folded FTCS: u·(1 − 2F + dt·β) + F·(um + up), the association of
             # the interval body (ops/interval1d.ReactionDiffusionBody)
-            diag = _scalar(1.0 - 2.0 * F, c.dtype) + beta[:, 1:-1] * dt
-            interior = u[:, 1:-1] * diag + F * (u[:, :-2] + u[:, 2:])
-            u_new = torch.cat([torch.zeros_like(boundary), interior, boundary], dim=1)
+            ue = ax.extend(u, left=1, right=1)
+            diag = _scalar(1.0 - 2.0 * F, c.dtype) + ax.trim(beta, 1, 1) * dt
+            interior = ue[:, 1:-1] * diag + F * (ue[:, :-2] + ue[:, 2:])
+            u_new = ax.close(interior, left=torch.zeros_like(boundary), right=boundary)
         return u_new, boundary
 
     def _dense_propagator(self):
@@ -151,25 +162,28 @@ class ReactionDiffusionEnv(Boundary1DEnv):
         """One θ-scheme sub-step: (I − θ·dt·L) u⁺ = (I + (1−θ)·dt·L) u with
         L = ∂²/∂x² + diag(β), the edge rows pinned to u(0)=0 and u(X)=boundary."""
         c = self.config
+        ax = axis()
         dt, th = _scalar(c.dt, c.dtype), _scalar(c.theta, c.dtype)
         F = _scalar(c.dt / c.dx**2, c.dtype)
 
-        # the edge rows are selected, not written in place, so that the step
-        # also runs on DTensors (parallel/spatial.py)
-        col = torch.arange(u.shape[-1], device=u.device)
-        edge = (col == 0) | (col == u.shape[-1] - 1)
+        # the edge rows are selected by their global column
+        col = ax.index(u)
+        edge = (col == 0) | (col == ax.size(u) - 1)
         off = torch.where(edge, 0.0, torch.full_like(u, _scalar(-th * F, c.dtype)))
         diag = torch.where(edge, 1.0, 1.0 + th * (2.0 * F - dt * beta))
-        # explicit part of the operator
+        # explicit part of the operator (the rolls' wrapped points land on
+        # the pinned rows)
         expl = _scalar(1.0 - th, c.dtype) * (
-            F * (torch.roll(u, 1, dims=-1) - 2.0 * u + torch.roll(u, -1, dims=-1))
+            F * (ax.roll(u, 1) - 2.0 * u + ax.roll(u, -1))
             + dt * beta * u
         )
         rhs = u + expl
         # pin the boundary rows: u[0] = 0, u[-1] = boundary
-        rhs = torch.cat([torch.zeros_like(boundary), rhs[:, 1:-1], boundary], dim=1)
-        solve = pcr if self._solver == "pcr" else thomas
-        return solve(off, diag, off, rhs)
+        rhs = ax.close(ax.trim(rhs, 1, 1), left=torch.zeros_like(boundary), right=boundary)
+        if self._solver == "pcr":
+            return pcr(off, diag, off, rhs)
+        # Thomas sweeps the whole row: gathered once a sub-step
+        return ax.local(thomas(*ax.gathers((off, diag, off, rhs))))
 
     def _interval_spec(self):
         c = self.config

@@ -6,6 +6,9 @@ PDE: ``u_t = u_x + β(x) u(0, t)`` on x ∈ [0, X], controlled at x = X.
 - First-order explicit upwind: the new interior row (0..nx-2) is
   ``u + dtdx·(u⁺ − u) + u[0]·(dt·β)`` on the *previous* row. This folded
   association is the JAX package's; the interval kernel keeps it too.
+- Written against the spatial axis (``core/axis.py``): the right
+  neighbour's first point and rank 0's ``u[:, :1]`` come through it when the
+  row is split over ranks (``parallel/spatial.py``).
 - The reference writes the boundary (nx-1) before the interior, so Neumann
   control reads the new row's ``[-2]`` while it is still zero: the Neumann
   neighbour term is identically 0. Replicated for trajectory parity.
@@ -15,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from pdecontrolgym_tpu_torch.core.axis import axis
+from pdecontrolgym_tpu_torch.core.base import resolve_device
 from pdecontrolgym_tpu_torch.envs.common import Boundary1DConfig, Boundary1DEnv, _scalar
 from pdecontrolgym_tpu_torch.ops.interval1d import TransportBody
 
@@ -26,12 +31,18 @@ class TransportEnv(Boundary1DEnv):
         c = self.config
         dt = _scalar(c.dt, c.dtype)
         dtdx = _scalar(c.dt / c.dx, c.dtype)
+        ax = axis()
         # the Neumann neighbour is the new row's [-2], still zero at write time
         boundary = self._control_fn(control, 0.0)
+        # points 0..nx-2 from their right neighbours: the slab and the next
+        # slab's first point (none on the last rank, whose last point is the
+        # boundary)
+        ue = ax.extend(u, right=1)
         interior = (
-            u[:, :-1] + dtdx * (u[:, 1:] - u[:, :-1]) + u[:, :1] * (dt * beta[:, :-1])
+            ue[:, :-1] + dtdx * (ue[:, 1:] - ue[:, :-1])
+            + ax.head(u) * (dt * ax.trim(beta, right=1))
         )
-        return torch.cat([interior, boundary], dim=1), boundary
+        return ax.close(interior, right=boundary), boundary
 
     def _interval_spec(self):
         c = self.config
@@ -58,8 +69,10 @@ class TransportEnv(Boundary1DEnv):
 
 
 def chebyshev_beta(nx: int, gamma: float = 7.35, scale: float = 5.0,
-                   dtype=torch.float32, device="cpu") -> torch.Tensor:
+                   dtype=torch.float32, device="cuda") -> torch.Tensor:
     """β(x) = scale·cos(γ·acos x) on a uniform [0, 1] grid of nx points
-    (computed in float64 on ``device``, then cast)."""
+    (computed in float64 on ``device``, the card unless the caller asks for
+    the CPU, then cast)."""
+    device = resolve_device(device)
     x = torch.linspace(0.0, 1.0, nx, dtype=torch.float64, device=device)
     return (scale * torch.cos(gamma * torch.arccos(x))).to(dtype)

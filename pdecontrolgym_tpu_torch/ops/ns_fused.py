@@ -59,6 +59,8 @@ import ctypes
 import numpy as np
 import torch
 
+from pdecontrolgym_tpu_torch.core.axis import axis
+from pdecontrolgym_tpu_torch.core.base import resolve_device
 from pdecontrolgym_tpu_torch.ops.poisson2d import dct2_basis_np, mirror_ring
 
 # Launches of the CUDA step since import (or since a caller reset it), and
@@ -113,8 +115,10 @@ def fused_basis_np(ny: int, nx: int):
             "invT": inv_pad.T}
 
 
-def fused_basis(ny: int, nx: int, dtype=torch.float32, device="cpu"):
-    """:func:`fused_basis_np` rounded to ``dtype``, as tensors on ``device``."""
+def fused_basis(ny: int, nx: int, dtype=torch.float32, device="cuda"):
+    """:func:`fused_basis_np` rounded to ``dtype``, as tensors on ``device``
+    (the card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     return {k: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
             for k, a in fused_basis_np(ny, nx).items()}
 
@@ -231,9 +235,12 @@ def apply_boundary(u, v, boundary_condition, a_row, a_col):
     left, right, for u and then v, so corner overwrites match. A Neumann edge
     reads the CURRENT field's inner neighbour. ``a_row`` is the control value
     along the lower and upper edges, ``a_col`` along the left and right ones;
-    both broadcast against ``(B, ny, nx)``."""
-    ny, nx = u.shape[-2], u.shape[-1]
-    row = torch.arange(ny, device=u.device)[:, None]
+    both broadcast against ``(B, ny, nx)``. On a slab of rows (the spatial
+    axis of ``core/axis.py``), the rows are selected by their global index and
+    a row edge is written by the slab that holds it."""
+    ax = axis()
+    ny, nx = ax.size(u, -2), u.shape[-1]
+    row = ax.index(u, -2)[:, None]
     col = torch.arange(nx, device=u.device)[None, :]
     edges = {"lower": row == 0, "upper": row == ny - 1,
              "left": col == 0, "right": col == nx - 1}

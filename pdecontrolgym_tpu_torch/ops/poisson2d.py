@@ -6,6 +6,15 @@ and its pressure-Poisson solvers. Every function is plain PyTorch on
 ``(..., ny, nx)`` tensors of any float dtype, with the leading axes free, so a
 batch of envs goes through in one call.
 
+The stencils and solvers are written against the spatial axis of
+``core/axis.py``, whose split dimension here is the rows (axis -2): on one
+rank they are the whole-grid formulas, and under ``parallel/spatial.py`` each
+rank holds a slab of rows. Then ∂/∂y, the Laplacian and each Jacobi sweep
+take one row from each neighbour, the mirror ring is written by the edge
+slabs, the direct solve gathers the divergence once (its spectral products
+need every row), and the ``matpow`` and flattened-Jacobi solvers gather their
+inputs once.
+
 The matrix products of the ``direct`` and ``matpow`` solvers are
 ``torch.matmul``. On the card a float32 product runs in full float32 unless
 the caller has set ``torch.backends.cuda.matmul.allow_tf32``; this module
@@ -18,29 +27,47 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pdecontrolgym_tpu_torch.core.axis import axis
+from pdecontrolgym_tpu_torch.core.base import resolve_device
+
+ROWS = -2  # the dimension the spatial axis splits
+
 
 def _interior(values):
     """``values`` on the interior of a zero field one point wider on each
-    side: a zero pad, not a write into a slice, so that it also holds on
-    DTensors (``parallel/spatial.py``), where a slice of a sharded field is a
-    copy."""
-    return F.pad(values, (1, 1, 1, 1))
+    side (on a slab of rows, wider at the grid's first and last rows only): a
+    zero pad, not a write into a slice."""
+    return F.pad(values, (1, 1) + axis().at_edges(1, 1))
+
+
+def _rows(f):
+    """``f``'s interior rows (the slab's rows but the grid's first and
+    last)."""
+    return axis().trim(f, 1, 1, dim=ROWS)
+
+
+def _with_halo(f):
+    """``f`` with the neighbouring slabs' edge rows around it."""
+    return axis().extend(f, 1, 1, dim=ROWS)
 
 
 def ddx(f, dx):
     """Interior central difference along axis -1 (the reference's "x"), zero
     on the border ring."""
-    return _interior((f[..., 1:-1, 2:] - f[..., 1:-1, :-2]) / (2.0 * dx))
+    f = _rows(f)
+    return _interior((f[..., 2:] - f[..., :-2]) / (2.0 * dx))
 
 
 def ddy(f, dy):
     """Interior central difference along axis -2 (the reference's "y")."""
+    f = _with_halo(f)
     return _interior((f[..., 2:, 1:-1] - f[..., :-2, 1:-1]) / (2.0 * dy))
 
 
 def laplacian(f, dx, dy):
     """Interior 5-point Laplacian scaled by 1/(dx·dy) (the reference's
     convention), zero on the border ring."""
+    f = _with_halo(f)
     return _interior(
         (
             f[..., 1:-1, :-2]
@@ -71,16 +98,23 @@ def mirror_ring(p_int):
     ``p[y, x] = p_int[clamp(y, 1, ny-2) - 1, clamp(x, 1, nx-2) - 1]``. The four
     sequential copies reduce to this clamp because each corner ends up reading
     the interior corner next to it (tests/test_torch_poisson2d.py holds the
-    two forms equal)."""
+    two forms equal). On a slab of interior rows, the edge slabs add the
+    first and last rows."""
+    return _mirror(p_int, *axis().at_edges(1, 1))
+
+
+def _mirror(p_int, top, bottom):
+    """:func:`mirror_ring` with ``top`` and ``bottom`` rows (0 or 1) added."""
     m, n = p_int.shape[-2], p_int.shape[-1]
-    iy = torch.arange(-1, m + 1, device=p_int.device).clamp(0, m - 1)
+    iy = torch.arange(-top, m + bottom, device=p_int.device).clamp(0, m - 1)
     ix = torch.arange(-1, n + 1, device=p_int.device).clamp(0, n - 1)
     return p_int[..., iy[:, None], ix[None, :]]
 
 
 def _divergence_interior(u, v, dx, dy):
+    u, v = _rows(u), _with_halo(v)
     return (
-        (u[..., 1:-1, 2:] - u[..., 1:-1, :-2]) / (2.0 * dx)
+        (u[..., 2:] - u[..., :-2]) / (2.0 * dx)
         + (v[..., 2:, 1:-1] - v[..., :-2, 1:-1]) / (2.0 * dy)
     )
 
@@ -94,6 +128,7 @@ def jacobi_pressure(u, v, p0, dx, dy, dt, density, iters: int):
     rhs_c = density / dt * _divergence_interior(u, v, dx, dy)
     p = p0
     for _ in range(iters):
+        p = _with_halo(p)
         interior = 0.25 * (
             p[..., 1:-1, :-2]
             + p[..., :-2, 1:-1]
@@ -110,7 +145,10 @@ def jacobi_pressure(u, v, p0, dx, dy, dt, density, iters: int):
 def jacobi_pressure_flat(u, v, p0, dx, dy, dt, density, iters: int):
     """The same sweep as :func:`jacobi_pressure` on the grid flattened into the
     trailing axis: a (ny, nx) field is a row-major (ny·nx,) vector, neighbour
-    access is a roll by ±1 / ±nx, edge handling is masked selects."""
+    access is a roll by ±1 / ±nx, edge handling is masked selects. On a slab
+    of rows, the sweeps run on the whole grid, gathered once."""
+    ax = axis()
+    u, v, p0 = ax.gathers((u, v, p0), dim=ROWS)
     ny, nx = u.shape[-2], u.shape[-1]
     lead = u.shape[:-2]
     n = ny * nx
@@ -142,7 +180,7 @@ def jacobi_pressure_flat(u, v, p0, dx, dy, dt, density, iters: int):
         pf = torch.where(row == 0, sh(pf, nx), pf)
         pf = torch.where(col == 0, sh(pf, 1), pf)
         pf = torch.where(row == ny - 1, sh(pf, -nx), pf)
-    return pf.reshape(lead + (ny, nx))
+    return ax.local(pf.reshape(lead + (ny, nx)), dim=ROWS)
 
 
 def dct2_basis_np(n: int):
@@ -158,14 +196,16 @@ def dct2_basis_np(n: int):
     return q, lam
 
 
-def dct2_basis(n: int, dtype=torch.float32, device="cpu"):
-    """:func:`dct2_basis_np` as tensors ``(Q, λ)`` of ``dtype`` on ``device``."""
+def dct2_basis(n: int, dtype=torch.float32, device="cuda"):
+    """:func:`dct2_basis_np` as tensors ``(Q, λ)`` of ``dtype`` on ``device``
+    (the card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     q, lam = dct2_basis_np(n)
     return (torch.as_tensor(q, dtype=dtype, device=device),
             torch.as_tensor(lam, dtype=dtype, device=device))
 
 
-def direct_pressure_setup(ny: int, nx: int, dtype=torch.float32, device="cpu"):
+def direct_pressure_setup(ny: int, nx: int, dtype=torch.float32, device="cuda"):
     """The spectral factors of :func:`direct_pressure` on the (ny−2)×(nx−2)
     interior grid. As the JAX package, the bases are rounded to ``dtype``
     first and ``inv`` is formed from the rounded eigenvalues."""
@@ -180,17 +220,20 @@ def direct_pressure(u, v, p0, dx, dy, dt, density, basis):
     """Direct (spectral) solve of the pressure-Poisson fixed point:
     ``P = Q_y · [(Q_yᵀ G Q_x) ⊘ (λ_y ⊕ λ_x)] · Q_xᵀ`` with the (0, 0) mode
     zeroed, embedded with the reference's mirror ring. ``p0`` is accepted for
-    signature parity and ignored."""
+    signature parity and ignored. On a slab of rows the products take the
+    whole divergence, gathered once."""
+    ax = axis()
     qy, qx, inv = basis["qy"], basis["qx"], basis["inv"]
     g = (-dx * dy * density / dt) * _divergence_interior(u, v, dx, dy)
+    (g,) = ax.gathers((g,), dim=ROWS, left=1, right=1)
     t = torch.einsum("im,...ij,jn->...mn", qy, g, qx)
     t = t * inv  # per-mode inverse eigenvalue; the (0, 0) null mode -> 0
     p_int = torch.einsum("im,...mn,jn->...ij", qy, t, qx)
-    return mirror_ring(p_int.to(u.dtype))
+    return ax.local(_mirror(p_int.to(u.dtype), 1, 1), dim=ROWS)
 
 
 def matpow_pressure_setup(ny: int, nx: int, dx, dy, iters: int,
-                          dtype=torch.float32, device="cpu"):
+                          dtype=torch.float32, device="cuda"):
     """Collapse ``iters`` Jacobi sweeps into two dense matrices.
 
     One sweep of the reference's pressure iteration is an affine map on the
@@ -244,6 +287,7 @@ def matpow_pressure_setup(ny: int, nx: int, dx, dy, iters: int,
         P, Q = P @ P, P @ Q + Q
         k >>= 1
     B = S @ w_mat
+    device = resolve_device(device)
     return {"A": torch.as_tensor(A, dtype=dtype, device=device),
             "B": torch.as_tensor(B, dtype=dtype, device=device)}
 
@@ -251,12 +295,14 @@ def matpow_pressure_setup(ny: int, nx: int, dx, dy, iters: int,
 def matpow_pressure(u, v, p0, dx, dy, dt, density, mats):
     """Apply the precomputed ``iters``-sweep affine map (two batched products;
     see :func:`matpow_pressure_setup`). Equal to ``jacobi_pressure(..., iters)``
-    in float64 to about 1e-11."""
-    ny, nx = u.shape[-2], u.shape[-1]
-    lead = u.shape[:-2]
-    rhs = _interior(
-        density / dt * _divergence_interior(u, v, dx, dy)
-    ).reshape(lead + (ny * nx,))
+    in float64 to about 1e-11. On a slab of rows the products take the whole
+    right-hand side and pressure, gathered once."""
+    ax = axis()
+    rhs = _interior(density / dt * _divergence_interior(u, v, dx, dy))
+    rhs, p0 = ax.gathers((rhs, p0), dim=ROWS)
+    ny, nx = p0.shape[-2], p0.shape[-1]
+    lead = p0.shape[:-2]
+    rhs = rhs.reshape(lead + (ny * nx,))
     pf = p0.reshape(lead + (ny * nx,))
     out = pf @ mats["A"].T + rhs @ mats["B"].T
-    return out.reshape(lead + (ny, nx))
+    return ax.local(out.reshape(lead + (ny, nx)), dim=ROWS)

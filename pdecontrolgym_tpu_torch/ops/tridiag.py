@@ -5,7 +5,10 @@ Counterpart of ``pdecontrolgym_tpu/ops/tridiag.py``. Two algorithms:
 - :func:`thomas`: the classic O(n) forward/back sweep, a Python loop over the
   rows whose per-row work is elementwise over the leading batch dims. A
   reference solver, not a hot path.
-- :func:`pcr`: parallel cyclic reduction, ceil(log2 n) fully vectorised steps.
+- :func:`pcr`: parallel cyclic reduction, ceil(log2 n) fully vectorised steps,
+  written against the spatial axis (``core/axis.py``): on a slab of the row a
+  shift by ``k`` takes its ``k`` points (at most the slab's width) from the
+  rank that holds them, however far away.
 
 Both take ``(..., n)`` diagonals: ``lower[..., i]`` multiplies ``x[i-1]``
 (``lower[..., 0]`` ignored), ``upper[..., i]`` multiplies ``x[i+1]``
@@ -15,6 +18,8 @@ Both take ``(..., n)`` diagonals: ``lower[..., i]`` multiplies ``x[i-1]``
 from __future__ import annotations
 
 import torch
+
+from pdecontrolgym_tpu_torch.core.axis import _shift, axis
 
 
 def thomas(lower, diag, upper, rhs):
@@ -41,13 +46,7 @@ def thomas(lower, diag, upper, rhs):
 def shift(x, k: int, fill: float = 0.0):
     """``x[..., i] -> x[..., i-k]`` with ``fill`` at the vacated entries (``k``
     may be negative)."""
-    n = x.shape[-1]
-    if k == 0:
-        return x
-    pad = x.new_full(x.shape[:-1] + (min(abs(k), n),), fill)
-    if k > 0:
-        return torch.cat([pad, x[..., : max(n - k, 0)]], dim=-1)
-    return torch.cat([x[..., min(-k, n):], pad], dim=-1)
+    return _shift(x, k, fill)
 
 
 def pcr_steps(n: int) -> int:
@@ -57,11 +56,12 @@ def pcr_steps(n: int) -> int:
 
 def pcr(lower, diag, upper, rhs):
     """Parallel cyclic reduction: ceil(log2 n) vectorised elimination steps."""
+    ax = axis()
     a, b, c, d = torch.broadcast_tensors(lower, diag, upper, rhs)
     stride = 1
-    for _ in range(pcr_steps(d.shape[-1])):
-        am, bm, cm, dm = (shift(x, stride) for x in (a, b, c, d))
-        ap, bp, cp_, dp_ = (shift(x, -stride) for x in (a, b, c, d))
+    for _ in range(pcr_steps(ax.size(d))):
+        am, bm, cm, dm = ax.shifts((a, b, c, d), stride)
+        ap, bp, cp_, dp_ = ax.shifts((a, b, c, d), -stride)
         # a zero-filled neighbour row must not divide by zero
         bm = torch.where(bm == 0, torch.ones_like(bm), bm)
         bp = torch.where(bp == 0, torch.ones_like(bp), bp)

@@ -9,31 +9,36 @@ reach it as halos.
 Two tiers, as in the JAX package:
 
 - **The public path**, :func:`make_sharded_env` over :func:`env_spatial_mesh`:
-  every batched state leaf becomes a ``DTensor`` on a 2D ``("env", "x")``
-  mesh, its batch over ``env`` and its grid over ``x``, and the env's own
-  eager step runs on those DTensors, so ``parallel/rollout.py`` drives it
-  unchanged. Where the JAX package lets GSPMD exchange one-point halos for the
-  stencils' slices and rolls, DTensor GATHERS the whole row (or the whole
-  field) along ``x`` first: a stencil's slice of a sharded axis comes back
-  ``Replicate()`` on ``x``, and the step computes on the full grid on every
-  ``x`` rank until the state is placed again. The answers are the same; the
-  memory and the bytes are not those of a halo exchange.
-- **Explicit-collective references**, in which each rank holds its slab as a
-  plain local tensor and the collectives are written out: the transport
-  upwind stencil (:func:`make_spatial_transport_interval`,
+  every batched state leaf is a ``DTensor`` on a 2D ``("env", "x")`` mesh,
+  its batch over ``env`` and its grid over ``x``, so ``parallel/rollout.py``
+  drives it unchanged. Each step, every rank takes its local shards, runs the
+  env's own eager step on those plain tensors with an :class:`_XAxis` that
+  knows the rank's place (``core/axis.py``), and hands the results back as
+  DTensors. The steps exchange what GSPMD exchanges for the JAX package:
+  one-point halos (PCR: its strides, from the rank as far away as the stride
+  reaches), rank 0's head and the last rank's tail by broadcast, the norms'
+  sums by ``all_reduce``. Thomas and the dense propagator gather the row once
+  a sub-step; the Navier-Stokes direct solve gathers its divergence once a
+  step, and its frames are gathered for the observation, which is replicated
+  over ``x``.
+- **Explicit-collective references**, on a one-dimensional ``("x",)`` mesh,
+  on one env's slab as a plain local tensor: the transport interval and
+  closed-loop episode (:func:`make_spatial_transport_interval`,
   :func:`make_spatial_transport_episode`) and the 2D Navier-Stokes projection
-  step (:func:`make_spatial_ns_step`). These are the halo-exchange forms: the
-  upwind update needs the RIGHT neighbour's first point (``isend``/``irecv``),
-  ``beta * u(0, t)`` needs rank 0's head (a ``broadcast``), the controller's
-  dot product and the reward's norms are ``all_reduce`` sums.
+  step with Jacobi sweeps (:func:`make_spatial_ns_step`), each the env's own
+  sub-step on an :class:`_XAxis`, with the controller's dot product and the
+  reward's norms written out as ``all_reduce`` sums.
 
 Gloo takes CUDA tensors in ``broadcast`` and ``all_reduce`` but not in
 point-to-point sends; ranks that share a card over gloo therefore stage the
-halos through host memory (the functions say so in ``stages_through_host``).
-NCCL ranks never stage.
+halos and the gathers through host memory (the references say so in
+``stages_through_host``). NCCL ranks never stage.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import math
 
 import torch
 import torch.distributed as dist
@@ -41,6 +46,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 from torch.distributed.tensor.experimental import implicit_replication
 
+from pdecontrolgym_tpu_torch.core.axis import ONE, Axis, using
 from pdecontrolgym_tpu_torch.parallel.mesh import ENV_AXIS, _mesh, _tree_map
 
 X_AXIS = "x"
@@ -73,6 +79,222 @@ def _whole(x):
     return x.full_tensor() if isinstance(x, DTensor) else x
 
 
+def _contiguous_stride(shape) -> tuple:
+    stride, step = [], 1
+    for size in reversed(tuple(shape)):
+        stride.append(step)
+        step *= max(size, 1)
+    return tuple(reversed(stride))
+
+
+# -- the x axis --------------------------------------------------------------------------
+
+
+class _XAxis(Axis):
+    """The ``x`` axis of a mesh: this rank's index ``i`` of ``n``, its slab
+    of a row of ``length`` points laid out as DTensor lays out ``Shard`` (the
+    chunks of ``torch.chunk``), and the exchanges of ``core.axis.Axis`` written
+    with ``torch.distributed`` over the axis's group."""
+
+    def __init__(self, mesh: DeviceMesh, length=None):
+        self.group = mesh.get_group(X_AXIS)
+        self.n = mesh.size(mesh.mesh_dim_names.index(X_AXIS))
+        self.i = mesh.get_local_rank(X_AXIS)
+        self.ranks = [dist.get_global_rank(self.group, j) for j in range(self.n)]
+        self.mesh = mesh[X_AXIS] if mesh.ndim > 1 else mesh
+        # gloo sends no CUDA tensor point to point: stage those through the host
+        self.staged = (self.n > 1 and mesh.device_type == "cuda"
+                       and dist.get_backend(self.group) == "gloo")
+        self.length = None
+        if length is not None:
+            self.set_length(length)
+
+    def set_length(self, length: int) -> None:
+        """Lay out a row of ``length`` points over the ranks."""
+        if length == self.length:
+            return
+        chunk = -(-length // self.n)
+        self.length, self.chunk = length, chunk
+        self.sizes = [max(0, min(chunk, length - j * chunk)) for j in range(self.n)]
+        self.starts = [min(j * chunk, length) for j in range(self.n)]
+        self.start, self.stop = self.starts[self.i], self.starts[self.i] + self.sizes[self.i]
+
+    # -- layout ----------------------------------------------------------------
+
+    def size(self, x, dim=-1):
+        return self.length
+
+    def index(self, x, dim=-1):
+        return torch.arange(self.start, self.stop, device=x.device)
+
+    def at_edges(self, left, right):
+        return (left if self.first else 0, right if self.last else 0)
+
+    def trim(self, x, left=0, right=0, dim=-1):
+        a, b = self.at_edges(left, right)
+        return x.narrow(dim, a, x.shape[dim] - a - b)
+
+    def close(self, x, left=None, right=None):
+        return super().close(x, left if self.first else None,
+                             right if self.last else None)
+
+    def local(self, x, dim=-1):
+        return x.narrow(dim, self.start, self.stop - self.start)
+
+    def row(self, x, dim=-1):
+        dim = dim % x.ndim
+        shape = list(x.shape)
+        shape[dim] = self.length
+        return DTensor.from_local(x, self.mesh, [Shard(dim)], run_check=False,
+                                  shape=torch.Size(shape), stride=_contiguous_stride(shape))
+
+    # -- exchanges ---------------------------------------------------------------
+
+    def _segments(self, lo: int, count: int, wrap: bool):
+        """The runs ``(owner, a, b)`` that cover the global points ``[lo, lo +
+        count)``: ``owner`` holds ``[a, b)``; ``owner`` None stands for ``b -
+        a`` points off the row (with ``wrap``, the row repeats instead)."""
+        runs, g, end, L = [], lo, lo + count, self.length
+        while g < end:
+            if wrap or 0 <= g < L:
+                at = g % L
+                owner = at // self.chunk
+                stop = min(end, g + self.starts[owner] + self.sizes[owner] - at)
+                runs.append((owner, at, at + stop - g))
+            else:
+                stop = min(end, 0) if g < 0 else end
+                runs.append((None, 0, stop - g))
+            g = stop
+        return runs
+
+    def _p2p(self, send: dict, need: dict, like, dim: int) -> dict:
+        """Send ``send[r]`` to rank ``r`` and receive ``need[r]`` points along
+        ``dim`` from rank ``r``, in one batch of point-to-point operations."""
+        ops, recv = [], {}
+        for r, t in send.items():
+            t = t.contiguous()
+            ops.append(dist.P2POp(dist.isend, t.cpu() if self.staged else t,
+                                  self.ranks[r], self.group))
+        for r, count in need.items():
+            shape = list(like.shape)
+            shape[dim] = count
+            recv[r] = torch.empty(shape, dtype=like.dtype,
+                                  device="cpu" if self.staged else like.device)
+            ops.append(dist.P2POp(dist.irecv, recv[r], self.ranks[r], self.group))
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        return {r: t.to(like.device) for r, t in recv.items()}
+
+    def _fetch(self, x, want, fill, wrap: bool, dim: int):
+        """Every rank ``r`` asks for the global ranges ``want(r)``, a list of
+        ``(lo, count)``; returns this rank's, one tensor each, from whichever
+        ranks hold them (one message a pair of ranks). Points off the row are
+        ``fill``, or with ``fill`` None left out (a range wholly off the row
+        comes back None)."""
+        dim = dim % x.ndim
+        plans = [[self._segments(lo, count, wrap) for lo, count in want(r)]
+                 for r in range(self.n)]
+        me = self.i
+        send = {}
+        for r, ranges in enumerate(plans):
+            if r != me:
+                pieces = [x.narrow(dim, a - self.start, b - a)
+                          for runs in ranges for owner, a, b in runs if owner == me]
+                if pieces:
+                    send[r] = torch.cat(pieces, dim) if len(pieces) > 1 else pieces[0]
+        need = {}
+        for runs in plans[me]:
+            for owner, a, b in runs:
+                if owner is not None and owner != me:
+                    need[owner] = need.get(owner, 0) + b - a
+        got = self._p2p(send, need, x, dim)
+        used = dict.fromkeys(got, 0)
+        out = []
+        for runs in plans[me]:
+            parts = []
+            for owner, a, b in runs:
+                if owner is None:
+                    if fill is not None:
+                        shape = list(x.shape)
+                        shape[dim] = b - a
+                        parts.append(x.new_full(shape, fill))
+                elif owner == me:
+                    parts.append(x.narrow(dim, a - self.start, b - a))
+                else:
+                    parts.append(got[owner].narrow(dim, used[owner], b - a))
+                    used[owner] += b - a
+            out.append(None if not parts else
+                       torch.cat(parts, dim) if len(parts) > 1 else parts[0])
+        return out
+
+    def extend(self, x, left=0, right=0, dim=-1):
+        if not (left or right):
+            return x
+        before, after = self._fetch(
+            x, lambda r: [(self.starts[r] - left, left),
+                          (self.starts[r] + self.sizes[r], right)], None, False, dim)
+        parts = [p for p in (before, x, after) if p is not None]
+        return torch.cat(parts, dim=dim) if len(parts) > 1 else x
+
+    def _shifted(self, x, k, fill, wrap):
+        return self._fetch(x, lambda r: [(self.starts[r] - k, self.sizes[r])],
+                           fill, wrap, -1)[0]
+
+    def shifts(self, xs, k, fill=0.0):
+        if k == 0:
+            return tuple(xs)
+        return self._shifted(torch.stack(xs), k, fill, False).unbind(0)
+
+    def roll(self, x, k):
+        return self._shifted(x, k, None, True)
+
+    def _broadcast(self, x, src):
+        x = x.contiguous().clone()
+        dist.broadcast(x, src=self.ranks[src], group=self.group)
+        return x
+
+    def head(self, x, k=1):
+        return self._broadcast(super().head(x, k), 0)
+
+    def tail(self, x, k=1):
+        return self._broadcast(super().tail(x, k), self.n - 1)
+
+    def _reduce(self, x, op):
+        s = x.reshape(-1).clone()
+        dist.all_reduce(s, op=op, group=self.group)
+        return s.reshape(x.shape)
+
+    def psum(self, x):
+        return self._reduce(x, dist.ReduceOp.SUM)
+
+    def pmax(self, x):
+        return self._reduce(x, dist.ReduceOp.MAX)
+
+    def norm(self, u):
+        return torch.sqrt(self.psum(torch.sum(u * u, dim=-1)))
+
+    def gathers(self, xs, dim=-1, left=0, right=0):
+        dim = dim % xs[0].ndim + 1
+        x = torch.stack(xs)
+        sizes = list(self.sizes)
+        sizes[0] -= left
+        sizes[-1] -= right
+        width = max(sizes)
+        pad = list(x.shape)
+        pad[dim] = width - x.shape[dim]
+        if pad[dim]:
+            x = torch.cat([x, x.new_zeros(pad)], dim)
+        wire = x.contiguous().cpu() if self.staged else x.contiguous()
+        parts = [torch.empty_like(wire) for _ in range(self.n)]
+        dist.all_gather(parts, wire, group=self.group)
+        whole = torch.cat([p.narrow(dim, 0, s) for p, s in zip(parts, sizes)], dim)
+        return whole.to(x.device).unbind(0)
+
+
+# -- the public path ----------------------------------------------------------------------
+
+
 def _takes_kernel(env, device: torch.device) -> bool:
     """Whether ``env.step_batch`` leaves the eager step on ``device``, at any
     layer of a wrapped env (each layer's ``env``): the fused Navier-Stokes
@@ -96,6 +318,24 @@ def _takes_kernel(env, device: torch.device) -> bool:
     return False
 
 
+def _zip_map(fn, new, old):
+    """``fn(new_leaf, old_leaf)`` on every tensor of ``new``, a tree of the
+    same structure as ``old`` (``old_leaf`` None where ``old`` has none)."""
+    if isinstance(new, torch.Tensor):
+        return fn(new, old if isinstance(old, torch.Tensor) else None)
+    if dataclasses.is_dataclass(new) and not isinstance(new, type):
+        return dataclasses.replace(new, **{
+            f.name: _zip_map(fn, getattr(new, f.name), getattr(old, f.name, None))
+            for f in dataclasses.fields(new) if f.init})
+    if isinstance(new, dict):
+        old = old if isinstance(old, dict) else {}
+        return type(new)((k, _zip_map(fn, v, old.get(k))) for k, v in new.items())
+    if isinstance(new, (list, tuple)):
+        old = old if isinstance(old, (list, tuple)) and len(old) == len(new) else [None] * len(new)
+        return type(new)(_zip_map(fn, v, o) for v, o in zip(new, old))
+    return new
+
+
 class SpatialShardedEnv:
     """Batched env whose state is sharded over a 2D ``("env", "x")`` mesh: the
     env batch over ``env`` and the GRID over ``x``.
@@ -104,13 +344,19 @@ class SpatialShardedEnv:
     trailing ``state_dim`` axis (1D fields, beta) or a trailing ``(ny, nx)``
     pair (Navier-Stokes fields, sharded over rows) goes to ``x``, and every
     leaf's batch axis to ``env``. :meth:`constrain` places the state there
-    before and after each step; the env's eager step runs on the DTensors, its
-    constants (targets, bases) taking part as replicated tensors. What the
-    wrapper hands out (state, observations, rewards, flags) is DTensors, which
-    ``parallel/rollout.py`` drives unchanged; a policy reads the observations
-    as DTensors (``obs.full_tensor()`` for a plain tensor), and plain actions
-    are placed on the mesh by the wrapper. Every rank runs the same program
-    with the same generator seed, as the JAX package's processes do.
+    before each step. The step runs on each rank's local shards as plain
+    tensors: the env's own eager step, its stencils reaching the neighbouring
+    slabs through an :class:`_XAxis` (halos, heads, tails, sums), its
+    constants (targets, bases) whole on every rank. The new state comes back
+    as DTensors with the placements it came in with; the ``StepOut`` by the
+    same rule (rewards and flags over ``env``; a full-state 1D observation
+    over ``x`` too; the Navier-Stokes frames gathered over ``x``, where the
+    rule replicates them). ``parallel/rollout.py`` drives the wrapper
+    unchanged; a policy reads the observations as DTensors
+    (``obs.full_tensor()`` for a plain tensor), and plain actions are placed
+    on the mesh by the wrapper. Every rank runs the same program with the
+    same generator seed, as the JAX package's processes do, so a plain tensor
+    handed to the wrapper must hold the same values on every rank.
 
     Use through the normal rollout API::
 
@@ -119,18 +365,18 @@ class SpatialShardedEnv:
         (state, obs), outs = rollout(senv, policy, num_envs, steps, generator)
 
     The wrapped env must step eagerly, as the JAX package's must run its XLA
-    path: a CUDA kernel is opaque to DTensor, so build 1D envs with
+    path: a CUDA kernel steps a whole row, so build 1D envs with
     ``backend="eager"`` and Navier-Stokes with ``step_backend="eager"``;
     the constructor raises otherwise, also for a kernel inside a wrapped env.
-    Every family's eager step runs on DTensors: transport, Burgers,
-    reaction-diffusion (explicit; implicit through PCR, Thomas and the dense
-    propagator), Navier-Stokes, neuron growth, brain tumor and traffic are
-    each held against their unsharded rollouts in
-    ``tests/test_torch_dist_sharded_env.py``. A write into a slice of a leaf
-    sharded over ``x`` would land in a copy (or raise), so those steps select
-    (``torch.where``, ``torch.cat``, ``F.pad``) instead; the families without
-    a ``state_dim`` (neuron, brain tumor, traffic) keep ``x`` replicated, as
-    in the JAX package, and shard over ``env`` only.
+    Transport, Burgers, reaction-diffusion (explicit; implicit through PCR,
+    Thomas and the dense propagator) and Navier-Stokes shard their grid over
+    ``x``, each slab at least 2 points (rows) wide; the families without a
+    ``state_dim`` (neuron, brain tumor, traffic) keep ``x`` replicated, as in
+    the JAX package, and shard over ``env`` only. Each is held against its
+    unsharded rollout in ``tests/test_torch_dist_sharded_env.py``, and the
+    exchanges are counted in ``tests/test_torch_dist_halo.py``. An env's
+    observation map (``envs/wrappers.py``) runs on each rank's part of the
+    observation as DTensor lays it out.
     """
 
     def __init__(self, env, mesh: DeviceMesh):
@@ -141,7 +387,7 @@ class SpatialShardedEnv:
             raise ValueError(
                 "spatial sharding needs the eager step: build the env with "
                 "backend='eager' (step_backend='eager' for Navier-Stokes); a "
-                "kernel is opaque to DTensor")
+                "kernel steps the whole row")
         self.env = env
         self.mesh = mesh
         self._env_dim = names.index(ENV_AXIS)
@@ -153,31 +399,41 @@ class SpatialShardedEnv:
             if cfg is not None and hasattr(cfg, "ny") and hasattr(cfg, "nx")
             else None
         )
+        length = self._grid2d[0] if self._grid2d is not None else self._sdim
+        self._axis = ONE
+        if length is not None and mesh.size(self._x_dim) > 1:
+            self._axis = _XAxis(mesh, length)
+            if min(self._axis.sizes) < 2:
+                raise ValueError(
+                    f"a row of {length} points over {self._axis.n} x ranks leaves a "
+                    f"slab of {min(self._axis.sizes)}: each needs at least 2")
 
     def __getattr__(self, name):
         if name == "env":  # not set yet: __init__ raised before it
             raise AttributeError(name)
         return getattr(self.env, name)
 
-    def _placements(self, leaf):
-        """A batched leaf ``(B, ...)``: its batch over ``env``, a spatial
-        trailing axis over ``x``."""
+    def _placements(self, shape):
+        """The placements of a batched leaf of global ``shape`` ``(B, ...)``:
+        its batch over ``env``, a spatial trailing axis over ``x``."""
+        ndim = len(shape)
         x = Replicate()
-        if (self._grid2d is not None and leaf.ndim >= 3
-                and tuple(leaf.shape[-2:]) == self._grid2d):
-            x = Shard(leaf.ndim - 2)
-        elif self._sdim is not None and leaf.ndim >= 2 and leaf.shape[-1] == self._sdim:
-            x = Shard(leaf.ndim - 1)
+        if (self._grid2d is not None and ndim >= 3
+                and tuple(shape[-2:]) == self._grid2d):
+            x = Shard(ndim - 2)
+        elif self._sdim is not None and ndim >= 2 and shape[-1] == self._sdim:
+            x = Shard(ndim - 1)
         placements = [Replicate(), Replicate()]
-        placements[self._env_dim] = Shard(0) if leaf.ndim else Replicate()
+        placements[self._env_dim] = Shard(0) if ndim else Replicate()
         placements[self._x_dim] = x
         return placements
 
     def _place(self, leaf):
-        placements = self._placements(leaf)
+        placements = self._placements(leaf.shape)
         if isinstance(leaf, DTensor):
             return leaf.redistribute(self.mesh, placements)
-        return distribute_tensor(leaf, self.mesh, placements)
+        # every rank holds the same values: each takes its own part
+        return distribute_tensor(leaf, self.mesh, placements, src_data_rank=None)
 
     def constrain(self, tree):
         """Every tensor of ``tree`` (a state, a ``StepOut``, actions) placed on
@@ -188,17 +444,56 @@ class SpatialShardedEnv:
     def init_batch(self, num_envs: int, generator: torch.Generator):
         return self.constrain(self.env.init_batch(num_envs, generator))
 
+    def _lift(self, t, batch: int):
+        """A tensor the local step handed out, as a DTensor on the mesh by the
+        per-leaf rule: a plain tensor holds this rank's envs whole along
+        ``x``; a DTensor is a value of the whole row on the ``x`` mesh
+        (``Axis.row``, or a reduction of one)."""
+        shape = torch.Size((batch,) + tuple(t.shape[1:])) if t.ndim else t.shape
+        placements = self._placements(shape)
+        x = placements[self._x_dim]
+        if isinstance(t, DTensor):
+            local = t.redistribute(t.device_mesh, [x]).to_local()
+        elif isinstance(x, Shard):
+            if t.shape[x.dim] != self._axis.size(t, x.dim):
+                raise ValueError(
+                    f"the step handed out a slab of shape {tuple(t.shape)} as a plain "
+                    "tensor: a value of the row goes out through Axis.row")
+            local = self._axis.local(t, x.dim)
+        else:
+            local = t
+        return DTensor.from_local(local, self.mesh, placements, run_check=False,
+                                  shape=shape, stride=_contiguous_stride(shape))
+
     def _stepped(self, step, state, actions, generator):
         state, actions = self.constrain((state, actions))
-        with implicit_replication():
-            new_state, out = step(state, actions, generator)
-        return self.constrain((new_state, out))
+        batch = _batch(state)
+        local_state, local_actions = _tree_map(lambda t: t.to_local(), (state, actions))
+        with using(self._axis), implicit_replication():
+            new_state, out = step(local_state, local_actions, generator)
+
+        def back(new, old):
+            if isinstance(old, DTensor) and not isinstance(new, DTensor) \
+                    and new.shape == old.to_local().shape:
+                return DTensor.from_local(new, self.mesh, old.placements, run_check=False,
+                                          shape=old.shape, stride=_contiguous_stride(old.shape))
+            return self._lift(new, batch)
+
+        return _zip_map(back, new_state, state), _tree_map(lambda t: self._lift(t, batch), out)
 
     def step(self, state, actions, generator=None):
         return self._stepped(self.env.step, state, actions, generator)
 
     def step_batch(self, state, actions, generator=None):
         return self._stepped(self.env.step_batch, state, actions, generator)
+
+
+def _batch(state) -> int:
+    """The global batch size of a state: the leading size of its batched
+    leaves."""
+    sizes = []
+    _tree_map(lambda t: sizes.append(t.shape[0]) if t.ndim else None, state)
+    return sizes[0]
 
 
 def make_sharded_env(env, mesh: DeviceMesh) -> SpatialShardedEnv:
@@ -210,108 +505,60 @@ def make_sharded_env(env, mesh: DeviceMesh) -> SpatialShardedEnv:
 # -- explicit-collective references ----------------------------------------------------
 
 
-class _XAxis:
-    """The ``x`` axis of a mesh as the references use it: this rank's index
-    ``i`` of ``n``, the group, and the exchanges."""
+def _transport_env(dt, dx, nx, dtype, device):
+    """A transport env of ``nx`` points whose ``_advance`` is the references'
+    sub-step (Dirichlet control at x = X)."""
+    from pdecontrolgym_tpu_torch.envs.common import Boundary1DConfig
+    from pdecontrolgym_tpu_torch.envs.transport import TransportEnv
 
-    def __init__(self, mesh: DeviceMesh):
-        self.group = mesh.get_group(X_AXIS)
-        self.n = mesh.size(mesh.mesh_dim_names.index(X_AXIS))
-        self.i = mesh.get_local_rank(X_AXIS)
-        self.ranks = [dist.get_global_rank(self.group, j) for j in range(self.n)]
-        # gloo sends no CUDA tensor point to point: stage those through the host
-        self.staged = (self.n > 1 and mesh.device_type == "cuda"
-                       and dist.get_backend(self.group) == "gloo")
-
-    @property
-    def first(self):
-        return self.i == 0
-
-    @property
-    def last(self):
-        return self.i == self.n - 1
-
-    def neighbours(self, to_left=None, to_right=None):
-        """Send ``to_left`` to rank ``i - 1`` and ``to_right`` to rank
-        ``i + 1`` (where they exist); return ``(from_right, from_left)``, what
-        rank ``i + 1`` sent left and rank ``i - 1`` sent right (None at the
-        global edges), in one batch of point-to-point operations."""
-        ops, recv = [], {}
-
-        def wire(t):
-            return t.contiguous().cpu() if self.staged else t.contiguous()
-
-        for t, peer, there in ((to_left, self.i - 1, not self.first),
-                               (to_right, self.i + 1, not self.last)):
-            if t is not None and there:
-                ops.append(dist.P2POp(dist.isend, wire(t), self.ranks[peer], self.group))
-        for t, key, peer, there in ((to_left, "right", self.i + 1, not self.last),
-                                    (to_right, "left", self.i - 1, not self.first)):
-            if t is not None and there:
-                recv[key] = torch.empty(t.shape, dtype=t.dtype,
-                                        device="cpu" if self.staged else t.device)
-                ops.append(dist.P2POp(dist.irecv, recv[key], self.ranks[peer], self.group))
-        if ops:
-            for work in dist.batch_isend_irecv(ops):
-                work.wait()
-        device = (to_left if to_left is not None else to_right).device
-        back = {k: v.to(device) for k, v in recv.items()}
-        return back.get("right"), back.get("left")
-
-    def head(self, u):
-        """Rank 0's ``u[:1]`` on every rank (JAX: ``all_gather(head)[0]``)."""
-        h = u[:1].clone()
-        if self.n > 1:
-            dist.broadcast(h, src=self.ranks[0], group=self.group)
-        return h
-
-    def tail(self, u):
-        """The last rank's ``u[-1:]`` on every rank."""
-        t = u[-1:].clone()
-        if self.n > 1:
-            dist.broadcast(t, src=self.ranks[-1], group=self.group)
-        return t
-
-    def psum(self, x):
-        """The sum over the ranks of the scalar ``x``."""
-        s = x.reshape(1).clone()
-        if self.n > 1:
-            dist.all_reduce(s, group=self.group)
-        return s[0]
+    cfg = Boundary1DConfig(T=dt, dt=dt, X=nx * dx, dx=dx, dtype=dtype, backend="eager")
+    return TransportEnv(cfg, None, device=device)
 
 
-def _transport_substep(ax, u, beta, ctrl, dt, dx):
-    """One upwind sub-step of a slab (``TransportEnv``'s semantics in the
-    JAX reference's association): the right neighbour's first point as the
-    halo, the OLD global ``u(0, t)`` for the recirculation, and on the last
-    rank the boundary column written with ``ctrl``."""
-    halo, _ = ax.neighbours(to_left=u[:1])
-    # the last rank's halo is dead: its last column is the boundary write
-    up = torch.cat([u[1:], u[-1:] if halo is None else halo])
-    u0 = ax.head(u)[0]
-    un = u + dt * ((up - u) / dx + u0 * beta)
-    if ax.last:
-        un[-1] = ctrl
-    return un
+def _reference_axis(mesh: DeviceMesh):
+    """``(x, ax)``: the ``x`` axis of ``mesh``, and the axis the references
+    step on: ``x``, or the one-rank form where ``x`` has one rank."""
+    x = _XAxis(mesh)
+    return x, (x if x.n > 1 else ONE)
+
+
+def _row_advance(mesh: DeviceMesh, dt: float, dx: float):
+    """``(x, ax, advance)``: ``advance(u, beta, ctrl) -> u`` one transport
+    sub-step of this rank's ``(1, w)`` slab on the ``x`` axis of ``mesh``
+    (see :func:`_reference_axis`), the env made on first use for the row's
+    width, dtype and device."""
+    x, ax = _reference_axis(mesh)
+    envs = {}
+
+    def advance(u, beta, ctrl):
+        key = (u.shape[-1], u.dtype, u.device)
+        if key not in envs:
+            x.set_length(u.shape[-1] * x.n)
+            envs[key] = _transport_env(dt, dx, x.length, u.dtype, u.device)
+        with using(ax):
+            return envs[key]._advance(u, beta, ctrl)[0]
+
+    return x, ax, advance
 
 
 def make_spatial_transport_interval(mesh: DeviceMesh, dt: float, dx: float,
                                     sample_rate: int):
     """``fn(u_local, beta_local, control) -> u_local``: one control interval
     of ``sample_rate`` sub-steps on this rank's slab of the row (the ``x`` axis
-    of ``mesh``), the boundary column held at ``control`` (as
-    ``TransportEnv``'s interval). Each sub-step: one point from the right
-    neighbour, rank 0's head by broadcast. ``fn.stages_through_host`` says
-    whether the halos cross host memory (gloo ranks on a card)."""
-    ax = _XAxis(mesh)
+    of ``mesh``, the row split evenly), the boundary column held at
+    ``control`` (``TransportEnv``'s sub-step). Each sub-step: one point from
+    the right neighbour, rank 0's head by broadcast. ``fn.stages_through_host``
+    says whether the halos cross host memory (gloo ranks on a card)."""
+    x, _, advance = _row_advance(mesh, dt, dx)
 
     def interval(u_local, beta_local, control):
-        u = u_local
+        u, beta = u_local[None], beta_local[None]
+        ctrl = torch.as_tensor(control, dtype=u.dtype, device=u.device).reshape(1, 1)
         for _ in range(sample_rate):
-            u = _transport_substep(ax, u, beta_local, control, dt, dx)
-        return u
+            u = advance(u, beta, ctrl)
+        return u[0]
 
-    interval.stages_through_host = ax.staged
+    interval.stages_through_host = x.staged
     return interval
 
 
@@ -321,7 +568,7 @@ def make_spatial_transport_episode(mesh: DeviceMesh, *, dt: float, dx: float,
                                    lookback: int = 100):
     """A closed-loop backstepping episode on a SPATIALLY sharded transport
     row: ``fn(u_local, beta_local, kern_local) -> (rewards, u_local)``, the
-    three inputs this rank's slabs of ``(nx,)`` rows.
+    three inputs this rank's slabs of ``(nx,)`` rows (split evenly).
 
     - the control each interval is ``ctrl = all_reduce(kern_local · u_local)
       · dx``;
@@ -339,33 +586,30 @@ def make_spatial_transport_episode(mesh: DeviceMesh, *, dt: float, dx: float,
     if not 0 < lookback < S:
         raise ValueError("lookback must be inside one control interval")
     n_steps = (nt - 1) // S
-    ax = _XAxis(mesh)
+    x, ax, advance = _row_advance(mesh, dt, dx)
 
     def episode(u_local, beta_local, kern_local):
-        def norm(u):
-            return torch.sqrt(ax.psum(torch.sum(u * u)))
-
-        u = u_local
-        bsum = ax.tail(u)[0].abs()
+        u, beta = u_local[None], beta_local[None]
+        bsum = ax.tail(u)[0, 0].abs()
         t, rewards = 0, []
         for _ in range(n_steps):
-            ctrl = ax.psum(torch.dot(kern_local, u)) * dx
+            ctrl = (ax.psum(torch.dot(kern_local, u[0])) * dx).reshape(1, 1)
             # the two norms the reward reads, at lags `lookback` and 0
             for _ in range(S - lookback):
-                u = _transport_substep(ax, u, beta_local, ctrl, dt, dx)
-            prev = norm(u)
+                u = advance(u, beta, ctrl)
+            prev = ax.norm(u)[0]
             for _ in range(lookback):
-                u = _transport_substep(ax, u, beta_local, ctrl, dt, dx)
-            cur = norm(u)
-            bsum = bsum + S * ctrl.abs()  # the boundary is ctrl all interval
+                u = advance(u, beta, ctrl)
+            cur = ax.norm(u)[0]
+            bsum = bsum + S * ctrl[0, 0].abs()  # the boundary is ctrl all interval
             t += S
             r = prev - cur
             if t >= nt - 1:
                 r = torch.where(cur < 20.0, terminate_reward - bsum / 1000.0 - cur, r)
             rewards.append(r)
-        return torch.stack(rewards), u
+        return torch.stack(rewards), u[0]
 
-    episode.stages_through_host = ax.staged
+    episode.stages_through_host = x.staged
     return episode
 
 
@@ -374,115 +618,46 @@ def make_spatial_ns_step(mesh: DeviceMesh, *, dx: float, dy: float, dt: float,
                          boundary_condition, ny: int):
     """A row-slab decomposition of the Navier-Stokes projection step: each
     rank owns ``ny / n`` contiguous ROWS and exchanges one-row halos with its
-    neighbours before the predictor, before the pressure right-hand side, once
-    a Jacobi sweep, and before the corrector's ∂p/∂y.
+    neighbours for every ∂/∂y and Laplacian and once a Jacobi sweep.
 
     ``fn(u, v, p, action) -> (u', v', p')`` on this rank's ``(ny / n, nx)``
-    slabs: ``NavierStokesEnv``'s step with ``pressure_solver="jacobi"`` and
-    ``iters`` sweeps (the same interior-only derivatives, boundary write order
-    and sequential Neumann pressure-edge copies, as the JAX reference). Each
-    slab needs at least 2 rows (the edge slabs read their second row for the
-    Neumann copies)."""
-    ax = _XAxis(mesh)
-    n = ax.n
+    slabs: ``NavierStokesEnv``'s eager projection with
+    ``pressure_solver="jacobi"`` and ``iters`` sweeps. Each slab needs at
+    least 2 rows (the edge slabs read their second row for the Neumann
+    copies)."""
+    x, ax = _reference_axis(mesh)
+    n = x.n
     if ny % n:
         raise ValueError(f"ny={ny} must divide over {n} shards")
     if ny // n < 2:
         raise ValueError("each slab needs at least 2 rows")
-    k = ny // n
-    nu = viscosity
+    x.set_length(ny)
+    envs = {}
 
-    def ext(*fields):
-        """``(k, nx)`` slabs -> ``(k + 2, nx)`` with the neighbours' edge rows
-        (one exchange for all the fields). At the global edges the slab's own
-        row stands in: every reader masks those rows out."""
-        below, above = ax.neighbours(to_left=torch.cat([f[:1] for f in fields]),
-                                     to_right=torch.cat([f[-1:] for f in fields]))
-        out = []
-        for j, f in enumerate(fields):
-            a = f[:1] if above is None else above[j:j + 1]
-            b = f[-1:] if below is None else below[j:j + 1]
-            out.append(torch.cat([a, f, b]))
-        return out
+    def env_for(nx, dtype, device):
+        from pdecontrolgym_tpu_torch.envs.navier_stokes import (
+            NavierStokesConfig,
+            NavierStokesEnv,
+        )
+        from pdecontrolgym_tpu_torch.rewards.ns import NSReward
+
+        key = (nx, dtype, device)
+        if key not in envs:
+            cfg = NavierStokesConfig(
+                T=dt, dt=dt, X=dx * (nx - 1), dx=dx, Y=dy * (ny - 1), dy=dy,
+                viscosity=viscosity, density=density, maximum_pressure_iteration=iters,
+                stable_factor=math.inf, dtype=dtype, pressure_solver="jacobi",
+                step_backend="eager", boundary_condition=boundary_condition)
+            envs[key] = NavierStokesEnv(cfg, NSReward(), torch.zeros((1, ny, nx, 2)),
+                                        torch.zeros(1), device=device)
+        return envs[key]
 
     def step(u, v, p, action):
-        grow = (ax.i * k + torch.arange(k, device=u.device))[:, None]  # global rows
-        nx = u.shape[-1]
-        col = torch.arange(nx, device=u.device)[None, :]
-        interior = (grow >= 1) & (grow <= ny - 2) & (col >= 1) & (col <= nx - 2)
+        env = env_for(u.shape[-1], u.dtype, u.device)
+        act = torch.as_tensor(action, dtype=u.dtype, device=u.device).reshape(1, -1)
+        with using(ax):
+            u, v, p = env._projection(u[None], v[None], p[None], act)
+        return u[0], v[0], p[0]
 
-        def ddx(f):
-            out = (torch.roll(f, -1, -1) - torch.roll(f, 1, -1)) / (2.0 * dx)
-            return torch.where(interior, out, 0.0)
-
-        def ddy(fe):
-            return torch.where(interior, (fe[2:] - fe[:-2]) / (2.0 * dy), 0.0)
-
-        def lap(fe):
-            f = fe[1:-1]
-            out = (torch.roll(f, 1, -1) + torch.roll(f, -1, -1)
-                   + fe[:-2] + fe[2:] - 4.0 * f) / (dx * dy)
-            return torch.where(interior, out, 0.0)
-
-        act = torch.as_tensor(action, dtype=u.dtype, device=u.device).reshape(-1)
-        a = act[0] if act.shape[0] == 1 else act
-
-        def apply_boundary(u, v):
-            """The reference's edge writes, lower / upper / left / right x
-            (u, v); the row edges live on the edge slabs."""
-            fields = [u, v]
-            edges = ("lower", "upper", "left", "right")
-            for pos, conds in zip(edges, boundary_condition):
-                for i, cond in enumerate(conds):
-                    f = fields[i]
-                    if cond == "Neumann":
-                        val = {"lower": f[1:2], "upper": f[k - 2:k - 1],
-                               "left": f[:, 1:2], "right": f[:, -2:-1]}[pos]
-                    else:  # both spellings of Dirichlet are zero
-                        val = a if cond == "Controllable" else 0.0
-                    at = {"lower": grow == 0, "upper": grow == ny - 1,
-                          "left": col == 0, "right": col == nx - 1}[pos]
-                    fields[i] = torch.where(at, val, f)
-            return fields[0], fields[1]
-
-        # predictor
-        ue, ve = ext(u, v)
-        u_pred = u + dt * (-u * ddx(u) - v * ddy(ue) + nu * lap(ue))
-        v_pred = v + dt * (-u * ddx(v) - v * ddy(ve) + nu * lap(ve))
-        u_pred, v_pred = apply_boundary(u_pred, v_pred)
-
-        # pressure: fixed-iteration Jacobi, one halo exchange a sweep
-        (vpe,) = ext(v_pred)
-        rhs = torch.where(
-            interior,
-            density / dt * (
-                (torch.roll(u_pred, -1, -1) - torch.roll(u_pred, 1, -1)) / (2.0 * dx)
-                + (vpe[2:] - vpe[:-2]) / (2.0 * dy)
-            ),
-            0.0,
-        )
-
-        def neumann_edges(pp):
-            # the reference order: right column, global row 0, left column,
-            # global last row, each reading the previous write's result
-            pp = torch.where(col == nx - 1, torch.roll(pp, 1, -1), pp)
-            pp = torch.where(grow == 0, pp[1:2], pp)
-            pp = torch.where(col == 0, torch.roll(pp, -1, -1), pp)
-            return torch.where(grow == ny - 1, pp[k - 2:k - 1], pp)
-
-        pp = p
-        for _ in range(iters):
-            (pe,) = ext(pp)
-            inner = 0.25 * (torch.roll(pp, 1, -1) + torch.roll(pp, -1, -1)
-                            + pe[:-2] + pe[2:] - dx * dy * rhs)
-            pp = neumann_edges(torch.where(interior, inner, pp))
-
-        # corrector
-        (pe,) = ext(pp)
-        u_next = u_pred - dt / density * ddx(pp)
-        v_next = v_pred - dt / density * ddy(pe)
-        u_next, v_next = apply_boundary(u_next, v_next)
-        return u_next, v_next, pp
-
-    step.stages_through_host = ax.staged
+    step.stages_through_host = x.staged
     return step

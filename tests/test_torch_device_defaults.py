@@ -2,7 +2,10 @@
 CPU: without a card, the network converters of ``utils/convert.py`` called
 with no device raise instead of quietly building on the CPU (they defaulted
 to ``device=None``, the CPU, before), and with ``device="cpu"`` they build
-there. The Gym adapters' and the vector env's default is tested in
+there. The same holds for the exported builders of env constants (the
+transport recirculation, the Poisson solvers' bases and matrices, the fused
+Navier-Stokes step's basis), which defaulted to ``device="cpu"`` before. The
+Gym adapters' and the vector env's default is tested in
 ``tests/test_torch_gym_compat.py``."""
 
 import numpy as np
@@ -12,6 +15,8 @@ import torch
 from pdecontrolgym_tpu_torch.agents.networks import ActorCritic
 from pdecontrolgym_tpu_torch.agents.sac import Actor, TwinCritic
 from pdecontrolgym_tpu_torch.core.base import resolve_device
+from pdecontrolgym_tpu_torch.envs.transport import chebyshev_beta
+from pdecontrolgym_tpu_torch.ops import ns_fused, poisson2d
 from pdecontrolgym_tpu_torch.utils import convert
 
 
@@ -51,3 +56,27 @@ def test_resolve_device():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             resolve_device("cuda")
+
+
+CONSTANTS = {
+    "chebyshev_beta": lambda **kw: chebyshev_beta(16, **kw),
+    "dct2_basis": lambda **kw: poisson2d.dct2_basis(6, **kw),
+    "direct_pressure_setup": lambda **kw: poisson2d.direct_pressure_setup(6, 7, **kw),
+    "matpow_pressure_setup": lambda **kw: poisson2d.matpow_pressure_setup(5, 6, 0.1, 0.1, 3,
+                                                                          **kw),
+    "fused_basis": lambda **kw: ns_fused.fused_basis(6, 7, **kw),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CONSTANTS))
+def test_env_constants_default_to_the_card(name):
+    """Without a card, each builder called with no device raises; with
+    ``device="cpu"`` every tensor it returns is on the CPU."""
+    _no_card()
+    build = CONSTANTS[name]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build()
+    out = build(device="cpu")
+    tensors = (out if isinstance(out, tuple) else
+               tuple(out.values()) if isinstance(out, dict) else (out,))
+    assert {t.device.type for t in tensors} == {"cpu"}

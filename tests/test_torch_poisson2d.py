@@ -90,14 +90,14 @@ def test_flat_jacobi_equals_grid_jacobi():
 @pytest.mark.parametrize("dtype,rtol", DTYPES)
 def test_dct2_basis_and_direct_setup_match_jax(dtype, rtol):
     tdtype = getattr(torch, np.dtype(dtype).name)
-    q, lam = tp.dct2_basis(7, tdtype)
+    q, lam = tp.dct2_basis(7, tdtype, device="cpu")
     jq, jlam = jp.dct2_basis(7, dtype)
     _close(q, jq, rtol)
     _close(lam, jlam, rtol)
     # orthonormal
     eye = (q.double().T @ q.double()).numpy()
     np.testing.assert_allclose(eye, np.eye(7), atol=1e-6 if dtype == np.float32 else 1e-12)
-    got = tp.direct_pressure_setup(NY, NX, tdtype)
+    got = tp.direct_pressure_setup(NY, NX, tdtype, device="cpu")
     want = jp.direct_pressure_setup(NY, NX, dtype)
     for key in ("qy", "qx", "inv"):
         _close(got[key], want[key], rtol)
@@ -109,7 +109,7 @@ def test_direct_pressure_matches_jax(dtype, rtol):
     tdtype = getattr(torch, np.dtype(dtype).name)
     u, v, p0 = _fields(dtype)
     got = tp.direct_pressure(*(torch.from_numpy(a) for a in (u, v, p0)), DX, DY, DT, RHO,
-                             tp.direct_pressure_setup(NY, NX, tdtype))
+                             tp.direct_pressure_setup(NY, NX, tdtype, device="cpu"))
     want = jp.direct_pressure(*(jnp.asarray(a) for a in (u, v, p0)), DX, DY, DT, RHO,
                               jp.direct_pressure_setup(NY, NX, dtype))
     _close(got, want, rtol * 10)  # the low modes divide by small eigenvalues
@@ -119,7 +119,7 @@ def test_direct_pressure_matches_jax(dtype, rtol):
 def test_matpow_matches_jax(dtype, rtol):
     tdtype = getattr(torch, np.dtype(dtype).name)
     u, v, p0 = _fields(dtype)
-    tm = tp.matpow_pressure_setup(NY, NX, DX, DY, 40, tdtype)
+    tm = tp.matpow_pressure_setup(NY, NX, DX, DY, 40, tdtype, device="cpu")
     jm = jp.matpow_pressure_setup(NY, NX, DX, DY, 40, dtype)
     for key in ("A", "B"):
         _close(tm[key], jm[key], rtol)
@@ -131,7 +131,8 @@ def test_matpow_matches_jax(dtype, rtol):
 @pytest.mark.parametrize("iters", [7, 60])
 def test_matpow_equals_jacobi(iters):
     u, v, p0 = (torch.from_numpy(a) for a in _fields(np.float64))
-    mats = tp.matpow_pressure_setup(NY, NX, DX, DY, iters, torch.float64)
+    mats = tp.matpow_pressure_setup(NY, NX, DX, DY, iters, torch.float64,
+                                   device="cpu")
     a = tp.matpow_pressure(u, v, p0, DX, DY, DT, RHO, mats)
     b = tp.jacobi_pressure(u, v, p0, DX, DY, DT, RHO, iters)
     np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-10,

@@ -224,7 +224,7 @@ def test_convert_round_trip_continues_a_jax_episode():
 
 
 def test_chebyshev_beta_and_default_ic():
-    np.testing.assert_allclose(chebyshev_beta(128).numpy(), chebyshev_beta_np(128),
+    np.testing.assert_allclose(chebyshev_beta(128, device="cpu").numpy(), chebyshev_beta_np(128),
                                rtol=1e-6, atol=1e-6)
     _, penv = _pair()
     state, obs = penv.init_batch(5, torch.Generator().manual_seed(0))

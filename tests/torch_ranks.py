@@ -562,3 +562,171 @@ def sharded_vector_env(rank, world, steps):
             seen += [obs, rew, term, trunc]
         out[name] = seen
     return out
+
+
+# -- halo exchanges: what crosses the ranks ---------------------------------------------
+
+
+class CommSpy:
+    """Counts what this rank hands to ``torch.distributed`` while it is
+    entered: the elements it sends point to point, broadcasts from itself,
+    all-reduces and all-gathers, and the shape of every tensor it
+    all-gathers. Together with ``CommDebugMode``, which counts the
+    collectives that DTensor issues."""
+
+    NAMES = ("batch_isend_irecv", "broadcast", "all_reduce", "all_gather",
+             "all_gather_into_tensor")
+
+    def __init__(self):
+        self.sent = 0
+        self.gathered = []
+        self.calls = {}
+
+    def __enter__(self):
+        import torch.distributed as dist
+        from torch.distributed import distributed_c10d as c10d
+
+        self._saved = {name: getattr(dist, name) for name in self.NAMES}
+        spy = self
+
+        def wrap(name, count):
+            inner = spy._saved[name]
+
+            def call(*args, **kwargs):
+                spy.calls[name] = spy.calls.get(name, 0) + 1
+                count(*args, **kwargs)
+                return inner(*args, **kwargs)
+
+            return call
+
+        def p2p(ops):
+            self.sent += sum(p.tensor.numel() for p in ops if p.op is c10d.isend)
+
+        def broadcast(tensor, src=None, group=None, **_):
+            if dist.get_rank() == src:
+                self.sent += tensor.numel()
+
+        def reduce(tensor, *_, **__):
+            self.sent += tensor.numel()
+
+        def gather(out, tensor, *_, **__):
+            self.sent += tensor.numel()
+            self.gathered.append(tuple(tensor.shape))
+
+        def gather_into(out, tensor, *_, **__):
+            gather(out, tensor)
+
+        for name, count in (("batch_isend_irecv", p2p), ("broadcast", broadcast),
+                            ("all_reduce", reduce), ("all_gather", gather),
+                            ("all_gather_into_tensor", gather_into)):
+            setattr(dist, name, wrap(name, count))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for name, fn in self._saved.items():
+            setattr(dist, name, fn)
+        return False
+
+
+def _counted_step(senv, state, actions):
+    """One ``step_batch`` of ``senv`` with every collective counted: the
+    all-gathers (DTensor's and the port's own), the shapes the port
+    gathered, the elements sent, and the result."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    with CommSpy() as spy, CommDebugMode() as mode:
+        out = senv.step_batch(state, actions)
+    counts = {str(k): v for k, v in mode.get_comm_counts().items()}
+    gathers = sum(v for k, v in counts.items() if "gather" in k)
+    return {"gathers": gathers, "counts": counts, "sent": spy.sent,
+            "gathered": spy.gathered, "calls": spy.calls}, out
+
+
+def _rate_scaled(family, factor):
+    """:data:`FAMILIES`' env of ``family`` with ``control_sample_rate`` times
+    ``factor`` (``factor`` times the sub-steps an action)."""
+    import dataclasses
+
+    env = FAMILIES[family]()
+    cfg = dataclasses.replace(env.config,
+                              control_sample_rate=env.config.control_sample_rate * factor)
+    return type(env)(cfg, env.reward, device="cpu")
+
+
+def halo_counts(rank, world, families, spatial_shards, num_envs, seed):
+    """For each 1D family of ``families``, at its sample rate S and at 2S:
+    one counted ``step_batch`` of ``make_sharded_env`` on an ``("env", "x")``
+    mesh of ``spatial_shards`` ranks along ``x`` (after one step uncounted),
+    with the env's sub-steps an action, its local envs and its slab widths."""
+    from pdecontrolgym_tpu_torch.parallel.spatial import env_spatial_mesh, make_sharded_env
+
+    mesh = env_spatial_mesh(spatial_shards, cpu(world))
+    out = {}
+    for family in families:
+        runs = {}
+        for factor in (1, 2):
+            env = _rate_scaled(family, factor)
+            senv = make_sharded_env(env, mesh)
+            state, obs = senv.init_batch(num_envs, torch.Generator().manual_seed(seed))
+            actions = torch.full((num_envs, 1), 0.5)
+            state, _ = senv.step_batch(state, actions)
+            counted, _ = _counted_step(senv, state, actions)
+            counted["S"] = env.config.sample_rate
+            runs[factor] = counted
+        ax = senv._axis
+        out[family] = {"runs": runs, "local_envs": state.u.to_local().shape[0],
+                       "sizes": ax.sizes, "length": ax.length}
+    return out
+
+
+def halo_ns_counts(rank, world, spatial_shards, num_envs, seed):
+    """The Navier-Stokes 8 x 8 cavity: one counted ``step_batch`` of
+    ``make_sharded_env`` after one uncounted."""
+    from pdecontrolgym_tpu_torch.parallel.spatial import env_spatial_mesh, make_sharded_env
+
+    senv = make_sharded_env(_small_ns(), env_spatial_mesh(spatial_shards, cpu(world)))
+    state, _ = senv.init_batch(num_envs, torch.Generator().manual_seed(seed))
+    actions = torch.full((num_envs, 1), 1.5)
+    state, _ = senv.step_batch(state, actions)
+    counted, _ = _counted_step(senv, state, actions)
+    return counted
+
+
+def axis_exchanges(rank, world, length, shifts, seed):
+    """Every exchange of ``_XAxis`` on this rank's slab of seeded ``(3,
+    length)`` rows, against the one-rank form on the whole rows cut to the
+    slab: the largest difference of each."""
+    from pdecontrolgym_tpu_torch.core.axis import ONE
+    from pdecontrolgym_tpu_torch.parallel.spatial import _XAxis, spatial_mesh
+
+    ax = _XAxis(spatial_mesh(cpu(world)), length)
+    rows = torch.Generator().manual_seed(seed)
+    whole = torch.randn((3, length), generator=rows, dtype=torch.float64)
+    mine = whole[:, ax.start:ax.stop]
+
+    def cut(x):
+        return x[..., ax.start:ax.stop]
+
+    def diff(a, b):
+        return float((a - b).abs().max()) if a.shape == b.shape else float("inf")
+
+    errs = {}
+    for k in shifts:
+        got = ax.shifts((mine, 2.0 * mine), k, fill=-1.0)
+        want = ONE.shifts((whole, 2.0 * whole), k, fill=-1.0)
+        errs[f"shift{k}"] = max(diff(g, cut(w)) for g, w in zip(got, want))
+        errs[f"roll{k}"] = diff(ax.roll(mine, k), cut(ONE.roll(whole, k)))
+    ext = ax.extend(mine, 2, 1)
+    lo, hi = max(ax.start - 2, 0), min(ax.stop + 1, length)
+    errs["extend"] = diff(ext, whole[:, lo:hi])
+    errs["head"] = diff(ax.head(mine, 2), whole[:, :2])
+    errs["tail"] = diff(ax.tail(mine, 2), whole[:, -2:])
+    errs["norm"] = diff(ax.norm(mine), ONE.norm(whole))
+    errs["pmax"] = diff(ax.pmax(mine.amax(-1)), whole.amax(-1))
+    (g,) = ax.gathers((ax.trim(mine, 1, 2),), left=1, right=2)
+    errs["gathers"] = diff(g, whole[:, 1:-2])
+    errs["index"] = diff(ax.index(mine).double(), torch.arange(ax.start, ax.stop).double())
+    errs["close"] = diff(ax.close(ax.trim(mine, 1, 1), mine[:, :1], mine[:, -1:]), mine)
+    return errs
