@@ -2727,6 +2727,15 @@ def phase_train(torch, device, card):
                                 ns_fused, 1, card)
     launches = {k: v[0] for k, v in runs.items()}
     train_ms = {k: v[1] for k, v in runs.items()}
+    # the exported networks build on the card unless asked for the CPU
+    from pdecontrolgym_tpu_torch.agents import ActorCritic
+    from pdecontrolgym_tpu_torch.agents.sac import Actor, TwinCritic
+
+    places = {type(net).__name__: sorted({str(p.device) for p in net.parameters()})
+              for net in (ActorCritic(5, 2), Actor(5, 2), TwinCritic(5, 2))}
+    if any(where != ["cuda:0"] for where in places.values()):
+        raise AssertionError(f"[train] networks built with no device: {places}")
+    log(f"[train] ActorCritic, Actor, TwinCritic built with no device: parameters on {places}")
 
     env_rl = transport_setup(torch, device, dx=1e-2, max_control_value=20.0, normalize=True)[0]
     env_bs, backstepping, steps, _ = transport_setup(torch, device, dx=1e-2,
@@ -3731,6 +3740,13 @@ SHARDED_STEPS = 2  # make_sharded_env on the transport bench row: 2 of its 50 ac
 # rewards, rtol 2e-3 / atol 2e-2; their share of the sharded env's 1e-4 band
 # at nx=256 is logged beside it
 SHARDED_ROW_ENVS = 256
+# make_sharded_env over ns_wide's 256 x 256 cavity, float32, the eager direct
+# solve: SHARDED_NS_ENVS envs, SHARDED_NS_STEPS steps, on the two gloo ranks
+# at (env=1, x=2), against the unsharded rollout; u and v in
+# tests/test_torch_dist_halo.py's bands for Navier-Stokes (rtol 1e-5, atol
+# 1e-6), p in 1e-4 / 1e-4, the rewards in 1e-5 / 1e-6
+SHARDED_NS_ENVS = 64
+SHARDED_NS_STEPS = 2
 
 
 def _flat_parameters(torch, runner):
@@ -4021,22 +4037,17 @@ def sharded_wide_row(torch, device, world, devices=None):
         gen = torch.Generator(device=device).manual_seed(2)
         (state, _), outs = rollout(e, policy, SHARDED_ROW_ENVS, SHARDED_STEPS, gen,
                                    keep_obs=False)
-        return state.u, state.norm_ring, outs.reward
+        # beta's bytes, not beta: the first run's result is held during the
+        # timed run, and beta held too would raise both peaks
+        return state.u, state.norm_ring, outs.reward, _local_bytes(state.beta)
 
-    peaks = {}
-    for name, e in (("sharded", senv), ("unsharded", env)):
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(device)
-        base = torch.cuda.memory_allocated(device)
-        peaks[name] = run(e), _timed(torch, lambda: run(e))[1]
-        peaks[name] += (torch.cuda.max_memory_allocated(device) - base,)
-    (su, sring, sr), ms, mem = peaks["sharded"]
-    (uu, uring, ur), eager_ms, eager_mem = peaks["unsharded"]
+    (su, sring, sr, sbeta), ms, mem = _peak_run(torch, device, lambda: run(senv))
+    (uu, uring, ur, _), eager_ms, eager_mem = _peak_run(torch, device, lambda: run(env))
     ax = senv._axis
     mine, want = su.to_local(), uu[:, ax.start:ax.stop]
     ring, rewards = sring.to_local(), sr.to_local()
     return {"ms": ms, "eager_ms": eager_ms, "peak_bytes": mem, "eager_peak_bytes": eager_mem,
+            "slab_bytes": [_local_bytes(su), sbeta],
             "slab": [ax.start, ax.stop], "placements": str(su.placements),
             "u_err": _max_abs(torch, mine, want), "ring_err": _max_abs(torch, ring, uring),
             "reward_err": _max_abs(torch, rewards, ur),
@@ -4049,6 +4060,61 @@ def sharded_wide_row(torch, device, world, devices=None):
             "substeps": SHARDED_STEPS * S, "envs": SHARDED_ROW_ENVS, "nx": nx}
 
 
+def _local_bytes(t):
+    """The bytes of this rank's part of ``t`` (of a DTensor, its local tensor)."""
+    local = t.to_local() if hasattr(t, "to_local") else t
+    return local.element_size() * local.numel()
+
+
+def _peak_run(torch, device, fn):
+    """``fn()`` once, then once more timed while the first result is held:
+    the first result, the second run's wall in ms and the peak device memory
+    the two runs took above what was allocated before them."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    out = fn()
+    ms = _timed(torch, fn)[1]
+    return out, ms, torch.cuda.max_memory_allocated(device) - base
+
+
+def sharded_ns(torch, device, world, devices=None):
+    """``make_sharded_env`` over ns_wide's 256 x 256 cavity (float32, the eager
+    direct solve), SHARDED_NS_ENVS envs, SHARDED_NS_STEPS steps, on an
+    ``(env=1, x=world)`` mesh of this process group, against the unsharded
+    eager rollout on this rank: each rank's rows of u, v and p, the rewards,
+    the walls and the peak device memory of each run."""
+    from pdecontrolgym_tpu_torch.parallel.rollout import rollout
+    from pdecontrolgym_tpu_torch.parallel.spatial import env_spatial_mesh, make_sharded_env
+
+    env, policy, _ = ns_wide_setup(torch, device, step_backend="eager")
+    senv = make_sharded_env(env, env_spatial_mesh(world, devices))
+
+    def run(e):
+        gen = torch.Generator(device=device).manual_seed(3)
+        (state, _), outs = rollout(e, policy, SHARDED_NS_ENVS, SHARDED_NS_STEPS, gen,
+                                   keep_obs=False)
+        return (state.u, state.v, state.p), outs.reward
+
+    (sfields, sr), ms, mem = _peak_run(torch, device, lambda: run(senv))
+    (ufields, ur), eager_ms, eager_mem = _peak_run(torch, device, lambda: run(env))
+    ax = senv._axis
+    got = [f.to_local() for f in sfields]
+    want = [f[:, ax.start:ax.stop] for f in ufields]
+    rewards = sr.to_local()
+    bands = [(1e-5, 1e-6), (1e-5, 1e-6), (1e-4, 1e-4)]
+    return {"ms": ms, "eager_ms": eager_ms, "peak_bytes": mem, "eager_peak_bytes": eager_mem,
+            "slab_bytes": sum(_local_bytes(g) for g in got),
+            "rows": [ax.start, ax.stop], "placements": str(sfields[0].placements),
+            "errs": [_max_abs(torch, g, w) for g, w in zip(got, want)],
+            "reward_err": _max_abs(torch, rewards, ur),
+            "band": max([_band_share(torch, g, w, *b) for g, w, b in zip(got, want, bands)]
+                        + [_band_share(torch, rewards, ur, 1e-5, 1e-6)]),
+            "finite": all(bool(torch.isfinite(t).all()) for t in (*got, rewards)),
+            "envs": SHARDED_NS_ENVS, "steps": SHARDED_NS_STEPS, "n": env.config.nx}
+
+
 def rank_spatial(torch, device, world, rank):
     out = {"transport": spatial_transport(torch, device, world, rank),
            "ns": spatial_ns(torch, device, world, rank)}
@@ -4056,6 +4122,7 @@ def rank_spatial(torch, device, world, rank):
         out["sharded_env"] = sharded_bench_row(torch, device)
     else:
         out["sharded_row"] = sharded_wide_row(torch, device, world)
+        out["sharded_ns"] = sharded_ns(torch, device, world)
     return out
 
 
@@ -4229,12 +4296,37 @@ def phase_dist_spatial(torch, card, train_ms):
                 f"ms on each rank; peak device memory by rank "
                 f"{', '.join(f'{s['peak_bytes'] / mib:.1f}' for s in rows)} MiB against the "
                 f"unsharded env's {', '.join(f'{s['eager_peak_bytes'] / mib:.1f}' for s in rows)}"
+                f" MiB ({', '.join(f'{s['peak_bytes'] / s['eager_peak_bytes']:.3f}' for s in rows)}"
+                f"x), the rank's slab of u and beta "
+                f"{', '.join('/'.join(f'{b / mib:.1f}' for b in s['slab_bytes']) for s in rows)}"
                 f" MiB; largest |u error| {max(s['u_err'] for s in rows):.3g}, |norm ring "
                 f"error| {max(s['ring_err'] for s in rows):.3g} (norms up to "
                 f"{sr['norm_scale']:.5g}), |reward error| {max(s['reward_err'] for s in rows):.3g}"
                 f", {max(s['band'] for s in rows):.3g} of the bands (state 1e-5, rewards "
                 f"2e-3 / 2e-2); the rewards' share of the 1e-4 band "
                 f"{max(s['reward_share_1e4'] for s in rows):.3g}; {staging} ({card})")
+        if "sharded_ns" in outs[0]["spatial"]:
+            nss = [o["spatial"]["sharded_ns"] for o in outs]
+            for r, sn in enumerate(nss):
+                if sn["band"] > 1.0 or not sn["finite"]:
+                    raise AssertionError(f"[spatial] make_sharded_env Navier-Stokes, {where}, "
+                                         f"rank {r}: {sn}")
+            sn = nss[0]
+            mib = 2.0 ** 20
+            log(f"[spatial] make_sharded_env on the Navier-Stokes cavity {sn['n']}x{sn['n']}, "
+                f"float32, eager direct solve, {where} at (env=1, x={world}): {sn['envs']} envs, "
+                f"{sn['steps']} steps, state placed {sn['placements']}, rows "
+                f"{[s['rows'] for s in nss]}: {', '.join(f'{s['ms']:.1f}' for s in nss)} ms by "
+                f"rank against the unsharded eager rollout's "
+                f"{', '.join(f'{s['eager_ms']:.1f}' for s in nss)} ms; peak device memory by "
+                f"rank {', '.join(f'{s['peak_bytes'] / mib:.1f}' for s in nss)} MiB against "
+                f"{', '.join(f'{s['eager_peak_bytes'] / mib:.1f}' for s in nss)} MiB "
+                f"({', '.join(f'{s['peak_bytes'] / s['eager_peak_bytes']:.3f}' for s in nss)}x),"
+                f" the rank's rows of u, v and p {sn['slab_bytes'] / mib:.1f} MiB; largest "
+                f"|error| of u, v, p {[max(s['errs'][k] for s in nss) for k in range(3)]}, "
+                f"|reward error| {max(s['reward_err'] for s in nss):.3g}, "
+                f"{max(s['band'] for s in nss):.3g} of the bands (u, v 1e-5 / 1e-6, p 1e-4, "
+                f"rewards 1e-5 / 1e-6); {staging} ({card})")
         log(f"[dist] {where}: the ranks took {seconds:.1f} s from start to join")
     return launches
 

@@ -6,7 +6,8 @@ mean head, a value head and a state-independent ``log_std``. The layers are
 plain ``nn.Linear`` products in float32; the JAX package computes them outside
 any Pallas kernel too. Initialised as flax initialises ``nn.Dense``: a
 ``lecun_normal`` kernel (a normal truncated at two standard deviations,
-variance 1/fan_in) and zero biases.
+variance 1/fan_in) and zero biases. Every network here and in ``agents/sac.py``
+puts its parameters on the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -17,16 +18,18 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from pdecontrolgym_tpu_torch.core.base import resolve_device
+
 # the standard deviation of a unit normal truncated to [-2, 2]: flax's
 # variance_scaling divides by it so that the truncated draw has the variance asked
 _TRUNCATED_STD = 0.87962566103423978
 
 
-def dense(fan_in: int, fan_out: int, device=None,
+def dense(fan_in: int, fan_out: int, device="cuda",
           generator: Optional[torch.Generator] = None) -> nn.Linear:
-    """An ``nn.Linear`` initialised as flax's ``nn.Dense``: weight from
-    ``lecun_normal`` drawn with ``generator``, bias zero."""
-    layer = nn.Linear(fan_in, fan_out, device=device)
+    """An ``nn.Linear`` on ``device`` initialised as flax's ``nn.Dense``:
+    weight from ``lecun_normal`` drawn with ``generator``, bias zero."""
+    layer = nn.Linear(fan_in, fan_out, device=resolve_device(device))
     std = math.sqrt(1.0 / fan_in) / _TRUNCATED_STD
     with torch.no_grad():
         nn.init.trunc_normal_(layer.weight, std=std, a=-2.0 * std, b=2.0 * std,
@@ -35,7 +38,7 @@ def dense(fan_in: int, fan_out: int, device=None,
     return layer
 
 
-def tower(obs_dim: int, hidden: Sequence[int], out_dim: int, device=None,
+def tower(obs_dim: int, hidden: Sequence[int], out_dim: int, device="cuda",
           generator=None) -> nn.ModuleList:
     """The layers of an MLP: one per hidden width, then the head."""
     widths = [obs_dim, *hidden, out_dim]
@@ -59,9 +62,10 @@ class ActorCritic(nn.Module):
     (``utils/convert.py``)."""
 
     def __init__(self, obs_dim: int, action_dim: int, hidden: Sequence[int] = (128, 128),
-                 log_std_init: float = 0.0, device=None,
+                 log_std_init: float = 0.0, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        device = resolve_device(device)
         self.pi = tower(obs_dim, hidden, action_dim, device, generator)
         self.vf = tower(obs_dim, hidden, 1, device, generator)
         self.log_std = nn.Parameter(

@@ -60,7 +60,7 @@ class Actor(nn.Module):
     log-σ head clipped to ``[-5, 2]``. Flax's ``Dense_0 ... Dense_{n-1}`` are
     ``tower``, ``Dense_n`` is ``mean`` and ``Dense_{n+1}`` is ``log_std``."""
 
-    def __init__(self, obs_dim: int, action_dim: int, hidden=(128, 128), device=None,
+    def __init__(self, obs_dim: int, action_dim: int, hidden=(128, 128), device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         layers = tower(obs_dim, hidden, action_dim, device, generator)
@@ -78,7 +78,7 @@ class Critic(nn.Module):
     """``forward(obs, action) -> q``: a relu tower over ``[obs, action]``
     and a scalar head (flax's ``Dense_0 ... Dense_n``)."""
 
-    def __init__(self, in_dim: int, hidden=(128, 128), device=None, generator=None):
+    def __init__(self, in_dim: int, hidden=(128, 128), device="cuda", generator=None):
         super().__init__()
         self.layers = tower(in_dim, hidden, 1, device, generator)
 
@@ -92,7 +92,7 @@ class TwinCritic(nn.Module):
     """``forward(obs, action) -> (q1, q2)``: flax's ``Critic_0`` and
     ``Critic_1``."""
 
-    def __init__(self, obs_dim: int, action_dim: int, hidden=(128, 128), device=None,
+    def __init__(self, obs_dim: int, action_dim: int, hidden=(128, 128), device="cuda",
                  generator=None):
         super().__init__()
         self.critics = nn.ModuleList(

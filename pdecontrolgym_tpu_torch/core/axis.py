@@ -56,6 +56,12 @@ class Axis:
         """The global indices of this rank's points of ``x`` along ``dim``."""
         return torch.arange(x.shape[dim], device=x.device)
 
+    def span(self, length: int) -> tuple:
+        """``(start, stop)``: the global indices ``[start, stop)`` of this
+        rank's points of a row of ``length`` points, before any tensor of the
+        row exists (a sampler builds only those points)."""
+        return 0, length
+
     def at_edges(self, left: int, right: int) -> tuple:
         """``(left, right)`` where this rank holds the row's start and end
         (else 0 for that side): the padding a stencil adds at the edges."""
@@ -74,6 +80,11 @@ class Axis:
 
     def local(self, x, dim=-1):
         """This rank's slab of ``x``, a tensor that holds the whole row."""
+        return x
+
+    def slab(self, x, dim=-1):
+        """This rank's slab of ``x``, which holds either the whole row (cut
+        to the slab, a copy) or this rank's slab of it already (as it is)."""
         return x
 
     def row(self, x, dim=-1):

@@ -21,7 +21,13 @@ import torch
 
 from pdecontrolgym_tpu_torch.core.axis import axis
 from pdecontrolgym_tpu_torch.core.sensing import is_neumann
-from pdecontrolgym_tpu_torch.envs.common import Boundary1DConfig, Boundary1DEnv, _scalar
+from pdecontrolgym_tpu_torch.envs.common import (
+    Boundary1DConfig,
+    Boundary1DEnv,
+    _scalar,
+    cast_product,
+    unit_grid,
+)
 from pdecontrolgym_tpu_torch.ops.interval1d import BurgersBody
 
 
@@ -76,16 +82,16 @@ class BurgersEnv(Boundary1DEnv):
         return body, lambda control: self._control_fn(control, 0.0)
 
     def default_ic(self, num_envs, generator):
-        """Smooth random IC: height·sin(πx) with height ~ U(0.5, 2); β = 0.
-        ``generator`` must live on the env's device."""
+        """Smooth random IC: height·sin(πx) with height ~ U(0.5, 2); β = 0;
+        at this rank's points of the row (``core/axis.py``; the whole row on
+        one rank): every rank draws the same heights. ``generator`` must live
+        on the env's device."""
         c = self.config
         height = 0.5 + 1.5 * torch.rand(
             (num_envs, 1), generator=generator, dtype=torch.float64,
             device=self.device,
         )
-        x = torch.linspace(0.0, 1.0, self.state_dim, dtype=torch.float64,
-                           device=self.device)
-        u0 = (height * torch.sin(math.pi * x)).to(c.dtype)
-        beta = torch.zeros((num_envs, self.state_dim), dtype=c.dtype,
-                           device=self.device)
+        x = unit_grid(self.state_dim, self.device)
+        u0 = cast_product(height, torch.sin(math.pi * x), c.dtype)
+        beta = torch.zeros(u0.shape, dtype=c.dtype, device=self.device)
         return u0, beta

@@ -107,6 +107,23 @@ def _scalar(x: float, dtype: torch.dtype) -> float:
     return torch.tensor(x, dtype=dtype).item()
 
 
+def unit_grid(n: int, device) -> torch.Tensor:
+    """This rank's points of the uniform grid of ``n`` points on [0, 1], in
+    float64: ``i / (n - 1)`` at the global indices ``i`` of ``axis().span(n)``
+    (the whole grid on one rank), the values of ``jnp.linspace(0, 1, n)``.
+    Each point is computed alone, so a slab's points are the row's to the
+    bit."""
+    start, stop = axis().span(n)
+    return torch.arange(start, stop, dtype=torch.float64, device=device) / max(n - 1, 1)
+
+
+def cast_product(a, b, dtype: torch.dtype) -> torch.Tensor:
+    """``(a * b).to(dtype)`` in one operation (on the card, one kernel): the
+    product is taken in the inputs' type and rounded once to ``dtype``."""
+    shape = torch.broadcast_shapes(a.shape, b.shape if isinstance(b, torch.Tensor) else ())
+    return torch.mul(a, b, out=torch.empty(shape, dtype=dtype, device=a.device))
+
+
 class Boundary1DEnv(FunctionalEnv):
     """Batch-first base for the 1D boundary-control family.
 
@@ -193,28 +210,39 @@ class Boundary1DEnv(FunctionalEnv):
 
     def init_from(self, u0, beta):
         """Build a state from explicit ``(B, state_dim)`` initial rows and plant
-        parameters."""
+        parameters.
+
+        Written against the spatial axis, as the step is: under
+        ``parallel/spatial.py`` each of ``u0`` and ``beta`` may be this rank's
+        slab or the whole row, which is cut to the slab (``Axis.slab``); the
+        norm is summed over the ranks, ``bsum`` starts from the last rank's
+        point, and the rows go out as values of the whole row (``Axis.row``).
+        On one rank every call is the tensor or op itself."""
         c = self.config
-        u0 = torch.as_tensor(u0, dtype=c.dtype, device=self.device)
-        beta = torch.as_tensor(beta, dtype=c.dtype, device=self.device)
+        ax = axis()
+        u0 = ax.slab(torch.as_tensor(u0, dtype=c.dtype, device=self.device))
+        beta = ax.slab(torch.as_tensor(beta, dtype=c.dtype, device=self.device))
         B = u0.shape[0]
         # ring at reset: entries before row 0 are ZERO (the reference's
         # negative-index wrap reads unwritten all-zero history rows); only the
         # last slot holds ||u0||
         ring = torch.zeros((B, self.window), dtype=c.dtype, device=self.device)
-        ring[:, -1] = torch.linalg.vector_norm(u0, dim=-1)
+        ring[:, -1] = ax.norm(u0)
         state = Boundary1DState(
             u=u0,
             beta=beta,
             time_index=torch.zeros((B,), dtype=torch.int32, device=self.device),
             norm_ring=ring,
-            bsum=u0[:, -1].abs(),
+            bsum=ax.tail(u0)[:, 0].abs(),
             prev_u=u0 if self._needs_prev else None,
         )
         if self._needs_aux:
             state.aux_ring = torch.zeros_like(ring)
             state.aux_ring[:, -1] = self._aux_norm(u0)
-        return state, self._observe(state, None)
+        obs = self._observe(state, None)
+        u = ax.row(u0)
+        return dataclasses.replace(state, u=u, beta=ax.row(beta),
+                                   prev_u=u if self._needs_prev else None), obs
 
     def _neighbour(self, u):
         """``u[:, -2:-1]``, the Neumann boundary's neighbour of the row (from

@@ -314,12 +314,15 @@ class NavierStokesEnv(FunctionalEnv):
 
     def default_ic(self, num_envs: int, generator: torch.Generator):
         """u, v, p = three independent U(−5, 5) constants an env (the
-        examples' sampler). ``generator`` must live on the env's device."""
+        examples' sampler), over this rank's rows of the field
+        (``core/axis.py``; every row on one rank): every rank draws the same
+        constants. ``generator`` must live on the env's device."""
         c = self.config
         vals = 10.0 * torch.rand(
             (num_envs, 3, 1, 1), generator=generator, dtype=c.dtype, device=self.device
         ) - 5.0
-        u0, v0, p0 = (vals[:, k].expand(num_envs, c.ny, c.nx).contiguous()
+        start, stop = axis().span(c.ny)
+        u0, v0, p0 = (vals[:, k].expand(num_envs, stop - start, c.nx).contiguous()
                       for k in range(3))
         return u0, v0, p0
 
@@ -328,15 +331,22 @@ class NavierStokesEnv(FunctionalEnv):
         return self.init_from(*sampler(num_envs, generator))
 
     def init_from(self, u0, v0, p0):
-        """Build a fresh state from explicit ``(B, ny, nx)`` fields."""
+        """Build a fresh state from explicit ``(B, ny, nx)`` fields.
+
+        Written against the spatial axis, as the step is: under
+        ``parallel/spatial.py`` each field may be this rank's rows or the
+        whole field, which is cut to them (``Axis.slab``); the fields and the
+        frames go out as values of the whole field (``Axis.row``), as the
+        step's do. On one rank every call is the tensor itself."""
         c = self.config
-        u0, v0, p0 = (torch.as_tensor(x, dtype=c.dtype, device=self.device).contiguous()
+        ax = axis()
+        u0, v0, p0 = (ax.slab(torch.as_tensor(x, dtype=c.dtype, device=self.device),
+                              dim=-2).contiguous()
                       for x in (u0, v0, p0))
-        state = NavierStokesState(
-            u=u0, v=v0, p=p0,
-            time_index=torch.zeros((u0.shape[0],), dtype=torch.int32, device=self.device),
-        )
-        return state, torch.stack([u0, v0], dim=-1)
+        time_index = torch.zeros((u0.shape[0],), dtype=torch.int32, device=self.device)
+        frames = ax.row(torch.stack([u0, v0], dim=-1), dim=1)
+        u0, v0, p0 = (ax.row(x, dim=1) for x in (u0, v0, p0))
+        return NavierStokesState(u=u0, v=v0, p=p0, time_index=time_index), frames
 
     def solve_pressure(self, u, v, p_prev, iters: Optional[int] = None):
         c = self.config

@@ -204,11 +204,13 @@ class ReactionDiffusionEnv(Boundary1DEnv):
 
     def default_ic(self, num_envs, generator):
         """A flat IC of height U(1, 10) and β(x) = 50·cos(8·acos x) on the
-        ghost-point grid. ``generator`` must live on the env's device."""
+        ghost-point grid, at this rank's points of the row (``core/axis.py``;
+        the whole row on one rank): every rank draws the same heights.
+        ``generator`` must live on the env's device."""
         c = self.config
         height = 1.0 + 9.0 * torch.rand(
             (num_envs, 1), generator=generator, dtype=c.dtype, device=self.device
         )
-        u0 = height.expand(num_envs, self.state_dim).contiguous()
         beta = chebyshev_beta(self.state_dim, 8.0, 50.0, c.dtype, self.device)
+        u0 = height.expand(num_envs, beta.shape[-1]).contiguous()
         return u0, beta.expand(num_envs, -1).contiguous()

@@ -20,7 +20,13 @@ import torch
 
 from pdecontrolgym_tpu_torch.core.axis import axis
 from pdecontrolgym_tpu_torch.core.base import resolve_device
-from pdecontrolgym_tpu_torch.envs.common import Boundary1DConfig, Boundary1DEnv, _scalar
+from pdecontrolgym_tpu_torch.envs.common import (
+    Boundary1DConfig,
+    Boundary1DEnv,
+    _scalar,
+    cast_product,
+    unit_grid,
+)
 from pdecontrolgym_tpu_torch.ops.interval1d import TransportBody
 
 TransportConfig = Boundary1DConfig
@@ -57,22 +63,25 @@ class TransportEnv(Boundary1DEnv):
 
     def default_ic(self, num_envs, generator):
         """A flat IC of height U(1, 10) and the Chebyshev recirculation
-        β(x) = 5·cos(7.35·acos x), as the JAX package's sampler. ``generator``
-        must live on the env's device."""
+        β(x) = 5·cos(7.35·acos x), as the JAX package's sampler, at this
+        rank's points of the row (``core/axis.py``; the whole row on one
+        rank): every rank draws the same heights. ``generator`` must live on
+        the env's device."""
         c = self.config
         height = 1.0 + 9.0 * torch.rand(
             (num_envs, 1), generator=generator, dtype=c.dtype, device=self.device
         )
-        u0 = height.expand(num_envs, self.state_dim).contiguous()
         beta = chebyshev_beta(self.state_dim, 7.35, 5.0, c.dtype, self.device)
+        u0 = height.expand(num_envs, beta.shape[-1]).contiguous()
         return u0, beta.expand(num_envs, -1).contiguous()
 
 
 def chebyshev_beta(nx: int, gamma: float = 7.35, scale: float = 5.0,
                    dtype=torch.float32, device="cuda") -> torch.Tensor:
     """β(x) = scale·cos(γ·acos x) on a uniform [0, 1] grid of nx points
-    (computed in float64 on ``device``, the card unless the caller asks for
-    the CPU, then cast)."""
+    (``envs.common.unit_grid``: this rank's points of it under a sharded
+    axis), computed in float64 on ``device``, the card unless the caller asks
+    for the CPU, then cast."""
     device = resolve_device(device)
-    x = torch.linspace(0.0, 1.0, nx, dtype=torch.float64, device=device)
-    return (scale * torch.cos(gamma * torch.arccos(x))).to(dtype)
+    x = unit_grid(nx, device)
+    return cast_product(torch.cos(gamma * torch.arccos(x)), scale, dtype)

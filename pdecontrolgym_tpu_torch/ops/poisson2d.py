@@ -100,13 +100,16 @@ def mirror_ring(p_int):
     the interior corner next to it (tests/test_torch_poisson2d.py holds the
     two forms equal). On a slab of interior rows, the edge slabs add the
     first and last rows."""
-    return _mirror(p_int, *axis().at_edges(1, 1))
+    top, bottom = axis().at_edges(1, 1)
+    return _mirror(p_int, -top, p_int.shape[-2] + bottom)
 
 
-def _mirror(p_int, top, bottom):
-    """:func:`mirror_ring` with ``top`` and ``bottom`` rows (0 or 1) added."""
+def _mirror(p_int, lo, hi):
+    """The rows ``lo .. hi - 1`` (counted from the first row of ``p_int``) of
+    :func:`mirror_ring`'s field of the interior rows ``p_int``: row ``r``
+    reads row ``clamp(r, 0, m - 1)``."""
     m, n = p_int.shape[-2], p_int.shape[-1]
-    iy = torch.arange(-top, m + bottom, device=p_int.device).clamp(0, m - 1)
+    iy = torch.arange(lo, hi, device=p_int.device).clamp(0, m - 1)
     ix = torch.arange(-1, n + 1, device=p_int.device).clamp(0, n - 1)
     return p_int[..., iy[:, None], ix[None, :]]
 
@@ -221,7 +224,8 @@ def direct_pressure(u, v, p0, dx, dy, dt, density, basis):
     ``P = Q_y · [(Q_yᵀ G Q_x) ⊘ (λ_y ⊕ λ_x)] · Q_xᵀ`` with the (0, 0) mode
     zeroed, embedded with the reference's mirror ring. ``p0`` is accepted for
     signature parity and ignored. On a slab of rows the products take the
-    whole divergence, gathered once."""
+    whole divergence, gathered once, and the ring is mirrored on this rank's
+    rows only."""
     ax = axis()
     qy, qx, inv = basis["qy"], basis["qx"], basis["inv"]
     g = (-dx * dy * density / dt) * _divergence_interior(u, v, dx, dy)
@@ -229,7 +233,9 @@ def direct_pressure(u, v, p0, dx, dy, dt, density, basis):
     t = torch.einsum("im,...ij,jn->...mn", qy, g, qx)
     t = t * inv  # per-mode inverse eigenvalue; the (0, 0) null mode -> 0
     p_int = torch.einsum("im,...mn,jn->...ij", qy, t, qx)
-    return ax.local(_mirror(p_int.to(u.dtype), 1, 1), dim=ROWS)
+    # field row y reads interior row y - 1
+    start, stop = ax.span(p_int.shape[ROWS] + 2)
+    return _mirror(p_int.to(u.dtype), start - 1, stop - 1)
 
 
 def matpow_pressure_setup(ny: int, nx: int, dx, dy, iters: int,

@@ -14,7 +14,8 @@ Two tiers, as in the JAX package:
   drives it unchanged. Each step, every rank takes its local shards, runs the
   env's own eager step on those plain tensors with an :class:`_XAxis` that
   knows the rank's place (``core/axis.py``), and hands the results back as
-  DTensors. The steps exchange what GSPMD exchanges for the JAX package:
+  DTensors; a fresh state is drawn the same way, each rank building only
+  its own points. The steps exchange what GSPMD exchanges for the JAX package:
   one-point halos (PCR: its strides, from the rank as far away as the stride
   reaches), rank 0's head and the last rank's tail by broadcast, the norms'
   sums by ``all_reduce``. Thomas and the dense propagator gather the row once
@@ -127,6 +128,12 @@ class _XAxis(Axis):
     def index(self, x, dim=-1):
         return torch.arange(self.start, self.stop, device=x.device)
 
+    def span(self, length):
+        if length != self.length:
+            raise ValueError(f"the x axis lays out a row of {self.length} points, "
+                             f"not {length}")
+        return self.start, self.stop
+
     def at_edges(self, left, right):
         return (left if self.first else 0, right if self.last else 0)
 
@@ -140,6 +147,15 @@ class _XAxis(Axis):
 
     def local(self, x, dim=-1):
         return x.narrow(dim, self.start, self.stop - self.start)
+
+    def slab(self, x, dim=-1):
+        width = x.shape[dim]
+        if width == self.length:
+            return self.local(x, dim).contiguous()
+        if width != self.stop - self.start:
+            raise ValueError(f"a tensor of {width} points along the row is neither the row "
+                             f"({self.length}) nor this rank's slab ({self.stop - self.start})")
+        return x
 
     def row(self, x, dim=-1):
         dim = dim % x.ndim
@@ -347,7 +363,9 @@ class SpatialShardedEnv:
     before each step. The step runs on each rank's local shards as plain
     tensors: the env's own eager step, its stencils reaching the neighbouring
     slabs through an :class:`_XAxis` (halos, heads, tails, sums), its
-    constants (targets, bases) whole on every rank. The new state comes back
+    constants (targets, bases) whole on every rank. A fresh state, the first
+    and each autoreset's, is built the same way (:meth:`init_batch`): no rank
+    holds a whole row of it. The new state comes back
     as DTensors with the placements it came in with; the ``StepOut`` by the
     same rule (rewards and flags over ``env``; a full-state 1D observation
     over ``x`` too; the Navier-Stokes frames gathered over ``x``, where the
@@ -442,18 +460,39 @@ class SpatialShardedEnv:
         return _tree_map(self._place, tree)
 
     def init_batch(self, num_envs: int, generator: torch.Generator):
-        return self.constrain(self.env.init_batch(num_envs, generator))
+        """A fresh batch whose row leaves each rank builds as its own slab:
+        the wrapped env's ``init_batch`` runs on the rank's axis, as the step
+        does. Every rank draws every env's scalars from the same generator,
+        so the draws are the unsharded env's, and evaluates the sampler's
+        grid functions at its own points only (``Axis.span``); then keeps its
+        envs along ``env``. A user ``ic_sampler`` runs on the same axis: one
+        that returns this rank's slab is taken as it is, one that returns the
+        whole row is cut to the slab (``Axis.slab``), at the whole row's
+        cost on every rank."""
+        with using(self._axis), implicit_replication():
+            fresh = self.env.init_batch(num_envs, generator)
+        return _tree_map(lambda t: self._lift(t, num_envs, every_env=True), fresh)
 
-    def _lift(self, t, batch: int):
+    def _env_rows(self, t):
+        """This rank's envs of ``t``, which holds every env, as ``Shard(0)``
+        lays them out over ``env``."""
+        n = self.mesh.size(self._env_dim)
+        if n == 1:
+            return t
+        chunk = -(-t.shape[0] // n)
+        start = min(self.mesh.get_local_rank(ENV_AXIS) * chunk, t.shape[0])
+        return t.narrow(0, start, max(0, min(chunk, t.shape[0] - start))).clone()
+
+    def _lift(self, t, batch: int, every_env: bool = False):
         """A tensor the local step handed out, as a DTensor on the mesh by the
-        per-leaf rule: a plain tensor holds this rank's envs whole along
-        ``x``; a DTensor is a value of the whole row on the ``x`` mesh
-        (``Axis.row``, or a reduction of one)."""
+        per-leaf rule: a plain tensor holds this rank's envs (``every_env``:
+        every env) whole along ``x``; a DTensor is a value of the whole row
+        on the ``x`` mesh (``Axis.row``, or a reduction of one)."""
         shape = torch.Size((batch,) + tuple(t.shape[1:])) if t.ndim else t.shape
         placements = self._placements(shape)
         x = placements[self._x_dim]
         if isinstance(t, DTensor):
-            local = t.redistribute(t.device_mesh, [x]).to_local()
+            local = self._placed(t, x)
         elif isinstance(x, Shard):
             if t.shape[x.dim] != self._axis.size(t, x.dim):
                 raise ValueError(
@@ -462,8 +501,21 @@ class SpatialShardedEnv:
             local = self._axis.local(t, x.dim)
         else:
             local = t
+        if every_env and t.ndim:
+            local = self._env_rows(local)
         return DTensor.from_local(local, self.mesh, placements, run_check=False,
                                   shape=shape, stride=_contiguous_stride(shape))
+
+    def _placed(self, t, x):
+        """The local part of ``t``, a DTensor on the ``x`` mesh, placed as
+        ``x``. Ranks that stage through the host (gloo ranks on a card)
+        gather a shard with the axis's own all-gather: DTensor's, a
+        functional collective, kills gloo ranks on CUDA tensors with a
+        segmentation fault."""
+        (src,) = t.placements
+        if self._axis.staged and isinstance(src, Shard) and not isinstance(x, Shard):
+            return self._axis.gathers((t.to_local(),), dim=src.dim)[0]
+        return t.redistribute(t.device_mesh, [x]).to_local()
 
     def _stepped(self, step, state, actions, generator):
         state, actions = self.constrain((state, actions))

@@ -93,15 +93,16 @@ def test_gaussian_logp_entropy_and_squash_match():
 
 def test_converters_round_trip():
     gen = torch.Generator().manual_seed(0)
-    net = networks.ActorCritic(OBS_DIM, 2, HIDDEN, log_std_init=-0.5, generator=gen)
+    net = networks.ActorCritic(OBS_DIM, 2, HIDDEN, log_std_init=-0.5, device="cpu",
+                                generator=gen)
     back = convert.actor_critic_from_flax(convert.actor_critic_to_flax(net), device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(net.state_dict().values(),
                                                   back.state_dict().values()))
-    actor = sac.Actor(OBS_DIM, 2, HIDDEN, generator=gen)
+    actor = sac.Actor(OBS_DIM, 2, HIDDEN, device="cpu", generator=gen)
     back = convert.sac_actor_from_flax(convert.sac_actor_to_flax(actor), device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(actor.state_dict().values(),
                                                   back.state_dict().values()))
-    twin = sac.TwinCritic(OBS_DIM, 2, HIDDEN, generator=gen)
+    twin = sac.TwinCritic(OBS_DIM, 2, HIDDEN, device="cpu", generator=gen)
     back = convert.twin_critic_from_flax(convert.twin_critic_to_flax(twin), 2, device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(twin.state_dict().values(),
                                                   back.state_dict().values()))
@@ -118,7 +119,7 @@ def test_init_is_flax_lecun_normal_with_zero_bias():
     """Each kernel: mean 0, standard deviation sqrt(1/fan_in), every draw
     within two of flax's pre-truncation standard deviations; biases zero."""
     gen = torch.Generator().manual_seed(0)
-    net = networks.ActorCritic(256, 1, (512, 512), generator=gen)
+    net = networks.ActorCritic(256, 1, (512, 512), device="cpu", generator=gen)
     for layer in [*net.pi, *net.vf]:
         w = layer.weight.detach().double()
         fan_in = w.shape[1]
@@ -130,5 +131,6 @@ def test_init_is_flax_lecun_normal_with_zero_bias():
         assert not layer.bias.any()
     assert not net.log_std.any()
     # the same seed gives the same network
-    again = networks.ActorCritic(256, 1, (512, 512), generator=torch.Generator().manual_seed(0))
+    again = networks.ActorCritic(256, 1, (512, 512), device="cpu",
+                                  generator=torch.Generator().manual_seed(0))
     assert torch.equal(again.pi[0].weight, net.pi[0].weight)

@@ -203,6 +203,22 @@ def _computes(fn, *args):
     return out, mode.count
 
 
+class _Launches(_Computes):
+    """Counts the operations dispatched that launch work on the card: not
+    views, and not ``empty``, which only allocates."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not func.is_view and func.overloadpacket is not torch.ops.aten.empty:
+            self.count += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _launches(fn, *args):
+    with _Launches() as mode:
+        out = fn(*args)
+    return out, mode.count
+
+
 # -- the cases ---------------------------------------------------------------------------
 
 
@@ -284,3 +300,110 @@ def test_poisson_stencils_keep_their_bits():
     assert torch.equal(poisson2d.ddy(f, 0.2), _ddy(f, 0.2))
     assert torch.equal(poisson2d.laplacian(f, 0.1, 0.2), _lap(f, 0.1, 0.2))
     assert torch.equal(poisson2d.mirror_ring(f[..., 1:-1, 1:-1]), _mirror(f[..., 1:-1, 1:-1]))
+
+
+# -- the initial state on one rank ---------------------------------------------------------
+
+
+def test_one_rank_span_and_slab():
+    from pdecontrolgym_tpu_torch.core.axis import ONE
+
+    x = torch.arange(12.0).reshape(3, 4)
+    assert ONE.span(7) == (0, 7)
+    assert ONE.slab(x) is x and ONE.slab(x, dim=0) is x
+
+
+def _init_formula(env, u0, beta):
+    """The whole-row ``init_from`` as it was written before the axis."""
+    c = env.config
+    u0 = torch.as_tensor(u0, dtype=c.dtype)
+    beta = torch.as_tensor(beta, dtype=c.dtype)
+    ring = torch.zeros((u0.shape[0], env.window), dtype=c.dtype)
+    ring[:, -1] = torch.linalg.vector_norm(u0, dim=-1)
+    return u0, beta, ring, u0[:, -1].abs(), torch.zeros((u0.shape[0],), dtype=torch.int32)
+
+
+@pytest.mark.parametrize("name", ["transport", "burgers", "rd_explicit", "rd_pcr"])
+def test_1d_init_from_keeps_its_bits(name):
+    env, _ = _env(name, "Dirchilet")
+    rng = np.random.default_rng(6)
+    n = env.state_dim
+    u0 = torch.from_numpy(rng.uniform(0.5, 2.0, (3, n)).astype(np.float32))
+    beta = torch.from_numpy(rng.uniform(-1.0, 1.0, (3, n)).astype(np.float32))
+    (state, obs), ops = _computes(env.init_from, u0, beta)
+    want, want_ops = _computes(_init_formula, env, u0, beta)
+    got = (state.u, state.beta, state.norm_ring, state.bsum, state.time_index)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert torch.equal(obs, want[0])
+    assert ops == want_ops
+
+
+def _linspace_ic(env, num_envs, generator):
+    """The default samplers' whole-row formulas as they were written before
+    the axis, on ``torch.linspace``'s grid."""
+    c = env.config
+    n = env.state_dim
+    x = torch.linspace(0.0, 1.0, n, dtype=torch.float64)
+    if isinstance(env, BurgersEnv):
+        height = 0.5 + 1.5 * torch.rand((num_envs, 1), generator=generator, dtype=torch.float64)
+        return ((height * torch.sin(np.pi * x)).to(c.dtype),
+                torch.zeros((num_envs, n), dtype=c.dtype))
+    gamma, scale = (8.0, 50.0) if isinstance(env, ReactionDiffusionEnv) else (7.35, 5.0)
+    height = 1.0 + 9.0 * torch.rand((num_envs, 1), generator=generator, dtype=c.dtype)
+    u0 = height.expand(num_envs, n).contiguous()
+    beta = (scale * torch.cos(gamma * torch.arccos(x))).to(c.dtype)
+    return u0, beta.expand(num_envs, -1).contiguous()
+
+
+@pytest.mark.parametrize("name", ["transport", "burgers", "rd_explicit"])
+def test_default_ic_on_one_rank(name):
+    """The heights are drawn as before; the grid is ``i / (n - 1)``, each
+    point alone (``jnp.linspace``'s values), within a float64 ulp of
+    ``torch.linspace``'s: the rows within one float32 ulp of the formulas on
+    ``torch.linspace``, in as many operations that launch work (on the card,
+    as many kernels: the product writes float32 itself, where the formula
+    casts its float64 product in a kernel of its own)."""
+    from pdecontrolgym_tpu_torch.envs.common import unit_grid
+
+    env, _ = _env(name, "Dirchilet")
+    n = env.state_dim
+    x = unit_grid(n, "cpu")
+    assert torch.equal(x, torch.arange(n, dtype=torch.float64) / (n - 1))
+    np.testing.assert_array_max_ulp(x.numpy(), np.linspace(0.0, 1.0, n), maxulp=1)
+    got, ops = _launches(env.default_ic, 5, torch.Generator().manual_seed(7))
+    want, want_ops = _launches(_linspace_ic, env, 5, torch.Generator().manual_seed(7))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_max_ulp(g.numpy(), w.numpy(), maxulp=1)
+    if name != "burgers":
+        assert torch.equal(got[0], want[0])  # the flat rows are the heights
+    assert ops == want_ops
+
+
+def test_ns_init_keeps_its_bits():
+    bc = freeze_boundary_condition({
+        "upper": ["Controllable", "Dirchilet"], "lower": ["Dirchilet", "Dirchilet"],
+        "left": ["Dirchilet", "Dirchilet"], "right": ["Dirchilet", "Dirchilet"]})
+    n = 6
+    cfg = NavierStokesConfig(T=5e-3, dt=1e-3, dx=1.0 / (n - 1), dy=1.0 / (n - 1),
+                             viscosity=0.05, dtype=torch.float32, step_backend="eager",
+                             boundary_condition=bc)
+    env = NavierStokesEnv(cfg, NSReward(0.1), torch.zeros((cfg.nt, n, n, 2)),
+                          torch.zeros(cfg.nt), device="cpu")
+
+    def formula(num_envs, generator):
+        vals = 10.0 * torch.rand((num_envs, 3, 1, 1), generator=generator) - 5.0
+        u0, v0, p0 = (vals[:, k].expand(num_envs, n, n).contiguous() for k in range(3))
+        return u0, v0, p0, torch.zeros((num_envs,), dtype=torch.int32), \
+            torch.stack([u0, v0], dim=-1)
+
+    def init(num_envs, generator):
+        state, obs = env.init_batch(num_envs, generator)
+        return state.u, state.v, state.p, state.time_index, obs
+
+    got, ops = _computes(init, 3, torch.Generator().manual_seed(8))
+    want, want_ops = _computes(formula, 3, torch.Generator().manual_seed(8))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert ops == want_ops

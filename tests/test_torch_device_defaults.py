@@ -4,16 +4,18 @@ with no device raise instead of quietly building on the CPU (they defaulted
 to ``device=None``, the CPU, before), and with ``device="cpu"`` they build
 there. The same holds for the exported builders of env constants (the
 transport recirculation, the Poisson solvers' bases and matrices, the fused
-Navier-Stokes step's basis), which defaulted to ``device="cpu"`` before. The
-Gym adapters' and the vector env's default is tested in
-``tests/test_torch_gym_compat.py``."""
+Navier-Stokes step's basis), which defaulted to ``device="cpu"`` before, and
+for the exported networks of ``agents/`` (``dense``, ``tower``,
+``ActorCritic``, SAC's ``Actor``, ``Critic`` and ``TwinCritic``), which
+defaulted to ``device=None``, the CPU. The Gym adapters' and the vector env's
+default is tested in ``tests/test_torch_gym_compat.py``."""
 
 import numpy as np
 import pytest
 import torch
 
-from pdecontrolgym_tpu_torch.agents.networks import ActorCritic
-from pdecontrolgym_tpu_torch.agents.sac import Actor, TwinCritic
+from pdecontrolgym_tpu_torch.agents.networks import ActorCritic, dense, tower
+from pdecontrolgym_tpu_torch.agents.sac import Actor, Critic, TwinCritic
 from pdecontrolgym_tpu_torch.core.base import resolve_device
 from pdecontrolgym_tpu_torch.envs.transport import chebyshev_beta
 from pdecontrolgym_tpu_torch.ops import ns_fused, poisson2d
@@ -80,3 +82,34 @@ def test_env_constants_default_to_the_card(name):
     tensors = (out if isinstance(out, tuple) else
                tuple(out.values()) if isinstance(out, dict) else (out,))
     assert {t.device.type for t in tensors} == {"cpu"}
+
+
+NETWORKS = {
+    "dense": lambda **kw: dense(5, 3, **kw),
+    "tower": lambda **kw: tower(5, (8, 8), 2, **kw),
+    "ActorCritic": lambda **kw: ActorCritic(5, 2, **kw),
+    "Actor": lambda **kw: Actor(5, 2, (8, 8), **kw),
+    "Critic": lambda **kw: Critic(7, (8, 8), **kw),
+    "TwinCritic": lambda **kw: TwinCritic(5, 2, (8, 8), **kw),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NETWORKS))
+def test_networks_default_to_the_card(name):
+    """Without a card, each network constructor called with no device raises;
+    with ``device="cpu"`` every parameter is on the CPU."""
+    _no_card()
+    build = NETWORKS[name]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build()
+    net = build(device="cpu")
+    assert {p.device.type for p in net.parameters()} == {"cpu"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(NETWORKS))
+def test_networks_build_on_the_card(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    net = NETWORKS[name]()
+    assert {p.device.type for p in net.parameters()} == {"cuda"}

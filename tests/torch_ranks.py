@@ -11,6 +11,7 @@ tracebacks. The functions the ranks run are defined below.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pathlib
 import subprocess
@@ -20,6 +21,7 @@ import uuid
 
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 TESTS = REPO / "tests"
@@ -730,3 +732,153 @@ def axis_exchanges(rank, world, length, shifts, seed):
     errs["index"] = diff(ax.index(mine).double(), torch.arange(ax.start, ax.stop).double())
     errs["close"] = diff(ax.close(ax.trim(mine, 1, 1), mine[:, :1], mine[:, -1:]), mine)
     return errs
+
+
+# -- initial states: what a rank builds ---------------------------------------------------
+
+
+class OpShapes(TorchDispatchMode):
+    """The shape of every tensor an operation hands out while entered (of a
+    DTensor, its local tensor's), on this rank."""
+
+    def __init__(self):
+        super().__init__()
+        self.shapes = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        out = func(*args, **(kwargs or {}))
+        for t in torch.utils._pytree.tree_leaves(out):
+            if isinstance(t, DTensor):
+                t = t.to_local()
+            if isinstance(t, torch.Tensor):
+                self.shapes.append(tuple(t.shape))
+        return out
+
+
+def _one_action_env(family):
+    """A small env of ``family`` whose episodes end after one action (so the
+    first step's autoreset replaces every env)."""
+    from pdecontrolgym_tpu_torch.envs.burgers import BurgersConfig, BurgersEnv
+    from pdecontrolgym_tpu_torch.envs.common import Boundary1DConfig
+    from pdecontrolgym_tpu_torch.envs.navier_stokes import (
+        NavierStokesConfig,
+        NavierStokesEnv,
+        freeze_boundary_condition,
+    )
+    from pdecontrolgym_tpu_torch.envs.reaction_diffusion import (
+        ReactionDiffusionConfig,
+        ReactionDiffusionEnv,
+    )
+    from pdecontrolgym_tpu_torch.envs.transport import TransportEnv
+    from pdecontrolgym_tpu_torch.rewards.ns import NSReward
+    from pdecontrolgym_tpu_torch.rewards.tuned import TunedReward1D
+
+    if family == "ns":
+        bc = freeze_boundary_condition({
+            "upper": ["Controllable", "Dirchilet"], "lower": ["Dirchilet", "Dirchilet"],
+            "left": ["Dirchilet", "Dirchilet"], "right": ["Dirchilet", "Dirchilet"]})
+        cfg = NavierStokesConfig(T=2e-3, dt=1e-3, X=1.0, dx=1.0 / 7, Y=1.0, dy=1.0 / 7,
+                                 viscosity=0.02, dtype=torch.float32, pressure_solver="direct",
+                                 step_backend="eager", boundary_condition=bc)
+        return NavierStokesEnv(cfg, NSReward(0.1), torch.zeros((cfg.nt, cfg.ny, cfg.nx, 2)),
+                               torch.zeros(cfg.nt), device="cpu")
+    dt = 1e-4 if family == "rd_explicit" else 1e-3
+    common = dict(T=2 * dt, dt=dt, X=1.0, dx=1.0 / 32, control_sample_rate=2 * dt,
+                  backend="eager")
+    reward = TunedReward1D(2, -1e3, 3e2, lookback=1)
+    if family == "transport":
+        return TransportEnv(Boundary1DConfig(**common), reward, device="cpu")
+    if family == "burgers":
+        return BurgersEnv(BurgersConfig(**common), reward, device="cpu")
+    scheme = dict(scheme="implicit", implicit_solver="pcr") if family == "rd_implicit" else {}
+    return ReactionDiffusionEnv(ReactionDiffusionConfig(**common, **scheme), reward,
+                                device="cpu")
+
+
+def _leaves(state, obs):
+    import dataclasses
+
+    out = {f.name: getattr(state, f.name) for f in dataclasses.fields(state)
+           if isinstance(getattr(state, f.name), torch.Tensor)}
+    out["obs"] = obs
+    return out
+
+
+def init_slabs(rank, world, families, spatial_shards, num_envs, seed):
+    """For each of ``families``: the shapes of what every operation hands out
+    on this rank during ``make_sharded_env(env).init_batch`` and during a
+    one-step ``rollout`` whose step ends every env (its autoreset draws a
+    fresh batch), on an ``(env=1, x=spatial_shards)`` mesh; the sharded
+    states' local tensors and placements; the unsharded env's, whole."""
+    from pdecontrolgym_tpu_torch.parallel.rollout import rollout
+    from pdecontrolgym_tpu_torch.parallel.spatial import env_spatial_mesh, make_sharded_env
+
+    mesh = env_spatial_mesh(spatial_shards, cpu(world))
+    out = {}
+    for family in families:
+        env = _one_action_env(family)
+        senv = make_sharded_env(env, mesh)
+        action = 1.5 if family == "ns" else 0.5
+
+        def policy(obs, generator):
+            return torch.full((num_envs, 1), action)
+
+        def runs(e, record):
+            init, reset = OpShapes(), OpShapes()
+            with init if record else contextlib.nullcontext():
+                first = e.init_batch(num_envs, torch.Generator().manual_seed(seed))
+            with reset if record else contextlib.nullcontext():
+                (state, obs), outs = rollout(e, policy, num_envs, 1,
+                                             torch.Generator().manual_seed(seed + 1))
+            return {"init": _leaves(*first), "reset": _leaves(state, obs),
+                    "done": outs.terminated | outs.truncated,
+                    "shapes": {"init": init.shapes, "reset": reset.shapes}}
+
+        sharded, whole = runs(senv, True), runs(env, False)
+        ax = senv._axis
+        out[family] = {
+            "span": (ax.start, ax.stop), "length": ax.length,
+            "shapes": sharded["shapes"],
+            "done": bool(whole["done"].all()) and bool(sharded["done"].full_tensor().all()),
+            "sharded": {k: {n: (t.to_local(), tuple(t.placements)) for n, t in v.items()}
+                        for k, v in sharded.items() if k in ("init", "reset")},
+            "whole": {k: whole[k] for k in ("init", "reset")},
+            "grid": (env.config.ny, env.config.nx) if family == "ns" else None,
+        }
+    return out
+
+
+def staged_frames(rank, world, spatial_shards, num_envs, seed):
+    """The Navier-Stokes 8 x 8 cavity under ``make_sharded_env`` with the
+    axis marked as staging through the host, as on gloo ranks that share a
+    card, and unsharded: two steps of ``rollout`` (each an episode, so both
+    the step's frames and the reset's are gathered), the final state and
+    observation whole, the rewards, and the all-gathers DTensor made."""
+    import dataclasses
+
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from pdecontrolgym_tpu_torch.parallel.rollout import rollout
+    from pdecontrolgym_tpu_torch.parallel.spatial import env_spatial_mesh, make_sharded_env
+
+    env = _one_action_env("ns")
+    senv = make_sharded_env(env, env_spatial_mesh(spatial_shards, cpu(world)))
+    senv._axis.staged = True
+
+    def policy(obs, generator):
+        return torch.full((num_envs, 1), 1.5)
+
+    runs = {}
+    for name, e in (("sharded", senv), ("unsharded", env)):
+        with CommDebugMode() as comm:
+            (state, obs), outs = rollout(e, policy, num_envs, 2,
+                                         torch.Generator().manual_seed(seed))
+        runs[name] = {
+            "state": {f.name: _plain(getattr(state, f.name)) for f in dataclasses.fields(state)},
+            "obs": _plain(obs), "reward": _plain(outs.reward),
+            "dtensor_gathers": sum(v for k, v in comm.get_comm_counts().items()
+                                   if "functional" in str(k) and "gather" in str(k)),
+        }
+    return runs
