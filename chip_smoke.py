@@ -3747,6 +3747,19 @@ SHARDED_ROW_ENVS = 256
 # 1e-6), p in 1e-4 / 1e-4, the rewards in 1e-5 / 1e-6
 SHARDED_NS_ENVS = 64
 SHARDED_NS_STEPS = 2
+# every family under make_sharded_env on the two gloo ranks, at full width and
+# NUM_ENVS envs, each against the unsharded eager rollout on the same rank, in
+# tests/test_torch_dist_sharded_env.py's bands (state rtol = atol = 1e-5,
+# rewards 1e-4): the bench rows over (env=1, x=2) for SHARDED_STEPS actions
+# each, then the families over (env=2, x=1): the transport row under the
+# backstepping law, which reads the observation gathered, for SHARDED_STEPS
+# actions, the stock neuron for SHARDED_STEPS calls, the brain tumor and
+# TherapyEnv (its autoreset gate on) for SHARDED_DAYS days, traffic for
+# SHARDED_TRAFFIC_STEPS steps; TherapyEnv's init_batch alone besides
+SHARDED_DAYS = 3
+SHARDED_TRAFFIC_STEPS = 5
+STATE_BAND = (1e-5, 1e-5)
+REWARD_BAND = (1e-4, 1e-4)
 
 
 def _flat_parameters(torch, runner):
@@ -4115,6 +4128,159 @@ def sharded_ns(torch, device, world, devices=None):
             "envs": SHARDED_NS_ENVS, "steps": SHARDED_NS_STEPS, "n": env.config.nx}
 
 
+def _band_leaf(torch, got, want, rtol, atol):
+    """``_band_share`` where equal entries (infinities too) count 0 and a NaN
+    on one side only counts NaN, which fails every ``<= 1`` test."""
+    got, want = got.double(), want.double()
+    share = (got - want).abs() / (atol + rtol * want.abs())
+    return float(torch.where(got == want, torch.zeros_like(share), share).max())
+
+
+def _rank_part(senv, t, want):
+    """``want``, the unsharded env's whole tensor, cut to this rank's part of
+    ``t``, a DTensor the sharded env handed out: its envs along the
+    placement's dimension of ``env`` and, where ``t`` is split over ``x``,
+    its slab."""
+    from torch.distributed.tensor import Shard
+
+    ax = senv._axis
+    along_env, along_x = t.placements
+    if isinstance(along_env, Shard):
+        start, stop = ax.env_span(t.shape[along_env.dim])
+        want = want.narrow(along_env.dim, start, stop - start)
+    if isinstance(along_x, Shard) and ax.n > 1:
+        want = want.narrow(along_x.dim, ax.start, ax.stop - ax.start)
+    return want
+
+
+def sharded_case(torch, device, senv, env, policy, steps, reads_obs=True):
+    """``senv = make_sharded_env(env)`` against the unsharded eager rollout on
+    this rank, ``steps`` actions of ``policy`` from one seed: the largest
+    errors of this rank's part of the final state and of the rewards, their
+    share of the bands, the walls and the peak device memory of each run. A
+    policy that ``reads_obs`` gets the observation gathered (``whole``)."""
+    import dataclasses
+
+    from pdecontrolgym_tpu_torch.parallel.rollout import rollout
+
+    def run(e):
+        whole = e.whole if e is senv and reads_obs else (lambda x: x)
+        gen = torch.Generator(device=device).manual_seed(4)
+        (state, _), outs = rollout(e, lambda obs, g: policy(whole(obs), g), NUM_ENVS, steps,
+                                   gen, keep_obs=False)
+        return {f.name: getattr(state, f.name) for f in dataclasses.fields(state)
+                if isinstance(getattr(state, f.name), torch.Tensor)}, outs.reward
+
+    (sstate, sr), ms, mem = _peak_run(torch, device, lambda: run(senv))
+    (ustate, ur), eager_ms, eager_mem = _peak_run(torch, device, lambda: run(env))
+    errs, band, finite = {}, 0.0, True
+    for name, t in sstate.items():
+        got, want = t.to_local(), _rank_part(senv, t, ustate[name])
+        errs[name] = _max_abs(torch, got, want) if got.numel() else 0.0
+        if got.numel():
+            band = max(band, _band_leaf(torch, got, want, *STATE_BAND))
+        finite = finite and bool(torch.isfinite(got.double()).all())
+    got, want = sr.to_local(), _rank_part(senv, sr, ur)
+    reward_err = _max_abs(torch, got, want)
+    band = max(band, _band_leaf(torch, got, want, *REWARD_BAND))
+    finite = finite and bool(torch.isfinite(got).all())
+    return {"ms": ms, "eager_ms": eager_ms, "peak_bytes": mem, "eager_peak_bytes": eager_mem,
+            "placements": str(next(iter(sstate.values())).placements),
+            "envs": list(senv._axis.env_span(NUM_ENVS)), "state_err": max(errs.values()),
+            "worst": max(errs, key=errs.get), "reward_err": reward_err, "band": band,
+            "finite": finite, "steps": steps}
+
+
+def sharded_therapy_init(torch, device, senv, env, rank, world):
+    """``TherapyEnv.init_batch`` (Growth fast-forwarded) of NUM_ENVS envs
+    under ``senv`` and unsharded, one rank at a time (the others wait at a
+    barrier, so each rank has the card to itself): each one's wall after a
+    warm-up, its device busy time (torch.profiler: the kernels of one call)
+    and its peak device memory; this rank's envs of the sharded init against
+    the unsharded one's in the state band."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    out = {}
+    for turn in range(world):
+        if turn == rank:
+            for name, e in (("sharded", senv), ("unsharded", env)):
+                (state, _), ms, mem = _peak_run(torch, device, lambda: e.init_batch(NUM_ENVS, None))
+                busy, kernels = device_ms(torch, lambda: e.init_batch(NUM_ENVS, None))
+                out[name] = {"ms": ms, "busy_ms": busy, "kernels": kernels, "peak_bytes": mem,
+                             "state": state}
+        dist.barrier()
+    sstate, ustate = out["sharded"].pop("state"), out["unsharded"].pop("state")
+    band, err = 0.0, 0.0
+    for f in dataclasses.fields(sstate):
+        t = getattr(sstate, f.name)
+        got, want = t.to_local(), _rank_part(senv, t, getattr(ustate, f.name))
+        if got.numel():
+            err = max(err, _max_abs(torch, got, want))
+            band = max(band, _band_leaf(torch, got, want, *STATE_BAND))
+    out.update(envs=list(senv._axis.env_span(NUM_ENVS)), state_err=err, band=band,
+               days=int(getattr(sstate, "time_index").to_local().max()))
+    return out
+
+
+def sharded_families(torch, device, world, rank, devices=None):
+    """Every family but transport and Navier-Stokes under ``make_sharded_env``
+    on this process group, at full width and NUM_ENVS envs: the bench rows of
+    Burgers, explicit and implicit (PCR, Thomas, dense) reaction-diffusion
+    over ``(env=1, x=world)``, then over ``(env=world, x=1)`` the transport
+    row under the backstepping law, the stock neuron, the brain tumor,
+    TherapyEnv (its init alone too) and traffic. See :func:`sharded_case`."""
+    from pdecontrolgym_tpu_torch.envs.brain_tumor import TherapyEnv
+    from pdecontrolgym_tpu_torch.parallel.spatial import env_spatial_mesh, make_sharded_env
+
+    along_x, along_env = env_spatial_mesh(world, devices), env_spatial_mesh(1, devices)
+    out, seconds, t = {}, {}, time.perf_counter()
+
+    def took(name):  # the case's seconds, its setup included
+        nonlocal t
+        seconds[name], t = time.perf_counter() - t, time.perf_counter()
+    rows = [("burgers", burgers_setup(torch, device, backend="eager")),
+            ("rd_explicit", rd_explicit_setup(torch, device, backend="eager"))]
+    rows += [(f"rd_implicit_{s}", rd_implicit_setup(torch, device, backend="eager",
+                                                    implicit_solver=s))
+             for s in ("pcr", "thomas", "dense")]
+    for name, (env, policy, _, _) in rows:
+        out[name] = sharded_case(torch, device, make_sharded_env(env, along_x), env, policy,
+                                 SHARDED_STEPS)
+        out[name]["nx"] = env.state_dim
+        took(name)
+    env, policy, _, _ = transport_setup(torch, device, backend="eager")
+    out["transport"] = sharded_case(torch, device, make_sharded_env(env, along_env), env,
+                                    policy, SHARDED_STEPS)
+    took("transport")
+    env, policy, _, _ = neuron_setup(torch, device, backend="eager")
+    out["neuron"] = sharded_case(torch, device, make_sharded_env(env, along_env), env, policy,
+                                 SHARDED_STEPS, reads_obs=False)
+    took("neuron")
+    env, policy, _ = brain_setup(torch, device, backend="eager")
+    out["brain_tumor"] = sharded_case(torch, device, make_sharded_env(env, along_env), env,
+                                      policy, SHARDED_DAYS, reads_obs=False)
+    took("brain_tumor")
+    tenv = TherapyEnv(env, t_benchmark=300)
+    tsenv = make_sharded_env(tenv, along_env)
+
+    def dose(obs, _generator):
+        return torch.full(obs.shape[:-1], 0.03, dtype=env.config.dtype, device=device)
+
+    out["therapy_init"] = sharded_therapy_init(torch, device, tsenv, tenv, rank, world)
+    took("therapy_init")
+    out["therapy"] = sharded_case(torch, device, tsenv, tenv, dose, SHARDED_DAYS,
+                                  reads_obs=False)
+    took("therapy")
+    env, policy, _ = traffic_setup(torch, device)
+    out["traffic"] = sharded_case(torch, device, make_sharded_env(env, along_env), env,
+                                  policy, SHARDED_TRAFFIC_STEPS)
+    took("traffic")
+    out["seconds"] = seconds
+    return out
+
+
 def rank_spatial(torch, device, world, rank):
     out = {"transport": spatial_transport(torch, device, world, rank),
            "ns": spatial_ns(torch, device, world, rank)}
@@ -4123,6 +4289,7 @@ def rank_spatial(torch, device, world, rank):
     else:
         out["sharded_row"] = sharded_wide_row(torch, device, world)
         out["sharded_ns"] = sharded_ns(torch, device, world)
+        out["sharded_families"] = sharded_families(torch, device, world, rank)
     return out
 
 
@@ -4327,8 +4494,71 @@ def phase_dist_spatial(torch, card, train_ms):
                 f"|reward error| {max(s['reward_err'] for s in nss):.3g}, "
                 f"{max(s['band'] for s in nss):.3g} of the bands (u, v 1e-5 / 1e-6, p 1e-4, "
                 f"rewards 1e-5 / 1e-6); {staging} ({card})")
+        if "sharded_families" in outs[0]["spatial"]:
+            log_sharded_families([o["spatial"]["sharded_families"] for o in outs], world,
+                                 where, staging, card)
         log(f"[dist] {where}: the ranks took {seconds:.1f} s from start to join")
     return launches
+
+
+SHARDED_FAMILY_LABELS = {
+    "burgers": "Burgers bench row", "rd_explicit": "explicit reaction-diffusion bench row",
+    "rd_implicit_pcr": "implicit reaction-diffusion bench row through PCR",
+    "rd_implicit_thomas": "implicit reaction-diffusion bench row through Thomas",
+    "rd_implicit_dense": "implicit reaction-diffusion bench row through the dense propagator",
+    "transport": "transport bench row, backstepping on the gathered observation",
+    "neuron": "stock neuron (M=121, K=100 dt-steps a call)",
+    "brain_tumor": "brain tumor, 201 points", "therapy": "TherapyEnv, 201 points, gate on",
+    "traffic": "traffic ARZ, outlet backstepping on the gathered observation",
+}
+
+
+def log_sharded_families(runs, world, where, staging, card):
+    """[spatial]'s lines for :func:`sharded_families`, one a case; raises where
+    a rank's case left its bands or gave a non-finite value."""
+    mib = 2.0 ** 20
+    for name, label in SHARDED_FAMILY_LABELS.items():
+        cases = [r[name] for r in runs]
+        for r, c in enumerate(cases):
+            if not c["finite"] or not c["band"] <= 1.0:
+                raise AssertionError(f"[spatial] make_sharded_env {label}, {where}, rank {r}: {c}")
+        c = cases[0]
+        mesh = f"(env=1, x={world})" if "nx" in c else f"(env={world}, x=1)"
+        width = f", nx={c['nx']}" if "nx" in c else ""
+        log(f"[spatial] make_sharded_env on the {label}{width}, {where} at {mesh}: {NUM_ENVS} "
+            f"envs, {c['steps']} steps, state placed {c['placements']}, envs by rank "
+            f"{[k['envs'] for k in cases]}: {', '.join(f'{k['ms']:.1f}' for k in cases)} ms by "
+            f"rank against the unsharded eager rollout's "
+            f"{', '.join(f'{k['eager_ms']:.1f}' for k in cases)} ms; peak device memory by rank "
+            f"{', '.join(f'{k['peak_bytes'] / mib:.1f}' for k in cases)} MiB against "
+            f"{', '.join(f'{k['eager_peak_bytes'] / mib:.1f}' for k in cases)} MiB "
+            f"({', '.join(f'{k['peak_bytes'] / k['eager_peak_bytes']:.3f}' for k in cases)}x); "
+            f"largest |state error| {max(k['state_err'] for k in cases):.3g} (in {c['worst']}), "
+            f"|reward error| {max(k['reward_err'] for k in cases):.3g}, "
+            f"{max(k['band'] for k in cases):.3g} of the bands (state {STATE_BAND[0]:g}, rewards "
+            f"{REWARD_BAND[0]:g}); {staging} ({card})")
+    inits = [r["therapy_init"] for r in runs]
+    for r, c in enumerate(inits):
+        if not c["band"] <= 1.0:
+            raise AssertionError(f"[spatial] TherapyEnv init_batch, {where}, rank {r}: {c}")
+    log(f"[spatial] make_sharded_env TherapyEnv init_batch (Growth fast-forwarded, "
+        f"{inits[0]['days']} days), {where} at (env={world}, x=1), {NUM_ENVS} envs, one rank "
+        f"at a time, envs by rank {[c['envs'] for c in inits]}: wall "
+        f"{', '.join(f'{c['sharded']['ms']:.1f}' for c in inits)} ms by rank against the "
+        f"unsharded init's {', '.join(f'{c['unsharded']['ms']:.1f}' for c in inits)} ms; device "
+        f"busy {', '.join(f'{c['sharded']['busy_ms']:.3f}' for c in inits)} ms "
+        f"({', '.join(str(c['sharded']['kernels']) for c in inits)} kernels) against "
+        f"{', '.join(f'{c['unsharded']['busy_ms']:.3f}' for c in inits)} ms "
+        f"({', '.join(str(c['unsharded']['kernels']) for c in inits)}), "
+        f"{', '.join(f'{c['sharded']['busy_ms'] / c['unsharded']['busy_ms']:.3f}' for c in inits)}"
+        f"x; peak device memory {', '.join(f'{c['sharded']['peak_bytes'] / mib:.1f}' for c in inits)}"
+        f" MiB against {', '.join(f'{c['unsharded']['peak_bytes'] / mib:.1f}' for c in inits)} "
+        f"MiB ({', '.join(f'{c['sharded']['peak_bytes'] / c['unsharded']['peak_bytes']:.3f}' for c in inits)}"
+        f"x); largest |state error| {max(c['state_err'] for c in inits):.3g}, "
+        f"{max(c['band'] for c in inits):.3g} of the state band ({card})")
+    log(f"[spatial] the make_sharded_env cases of every family, {where}: seconds a case on "
+        f"rank 0, its setup included: "
+        f"{', '.join(f'{k} {v:.1f}' for k, v in runs[0]['seconds'].items())}")
 
 
 def main():

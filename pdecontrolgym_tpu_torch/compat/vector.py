@@ -7,7 +7,8 @@ thousands of envs on the card from one process: each ``step`` runs the env's
 ``step_batch`` (the CUDA kernels on the card), and observations, rewards and
 flags cross to numpy once, in one host read. A spatially sharded env
 (``parallel/spatial.py::make_sharded_env``) hands out DTensors: they are
-gathered whole before that read.
+gathered whole before that read, by the sharded env's own ``whole`` (which
+gloo ranks that share a card stage through the host).
 """
 
 from __future__ import annotations
@@ -66,13 +67,14 @@ class PDEVectorEnv(VectorEnv):
         self.action_space = batch_space(self.single_action_space, num_envs)
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self._step = batch_step(fenv, autoreset=True)
+        self._whole = getattr(fenv, "whole", _whole)
         self._state = None
 
     def reset(self, seed: Optional[int] = None, options: Optional[dict] = None):
         if seed is not None:
             self._generator.manual_seed(seed)
         self._state, obs = self.fenv.init_batch(self.num_envs, self._generator)
-        return _whole(obs).to(torch.float32).cpu().numpy(), {}
+        return self._whole(obs).to(torch.float32).cpu().numpy(), {}
 
     def step(self, actions):
         a = torch.as_tensor(np.asarray(actions, np.float32), device=self.device)
@@ -82,8 +84,8 @@ class PDEVectorEnv(VectorEnv):
         B = self.num_envs
         # the ONE host read: obs | reward | terminated | truncated, per env
         packed = torch.cat([
-            _whole(out.obs).reshape(B, -1).to(torch.float32),
-            *(_whole(x).to(torch.float32)[:, None]
+            self._whole(out.obs).reshape(B, -1).to(torch.float32),
+            *(self._whole(x).to(torch.float32)[:, None]
               for x in (out.reward, out.terminated, out.truncated)),
         ], dim=1).cpu().numpy()
         obs = packed[:, :-3].reshape((B,) + self.single_observation_space.shape)

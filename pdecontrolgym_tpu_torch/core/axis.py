@@ -22,6 +22,11 @@ Vocabulary: the axis splits ONE dimension of length :meth:`Axis.size`
 (``dim``, the last one where a method takes none); "the first rank" holds the
 row's global start and "the last rank" its end. ``left`` and ``right`` count
 points along that dimension.
+
+An axis also knows the rank's place along the mesh's ``env`` axis, which
+splits the BATCH: :meth:`Axis.env_span` is the span of envs an init builds on
+this rank, every env on one rank. It holds no exchange: a step treats its
+envs alone.
 """
 
 from __future__ import annotations
@@ -33,10 +38,18 @@ import torch
 
 
 class Axis:
-    """The one-rank form: the whole row on this rank (see the module)."""
+    """The one-rank form: the whole row on this rank (see the module).
+
+    ``envs`` and ``env``: the ranks along the ``env`` axis and this rank's
+    index among them (one rank, every env, by default)."""
 
     n = 1
     i = 0
+    # whether the rank's exchanges cross host memory (gloo ranks on a card)
+    staged = False
+
+    def __init__(self, envs: int = 1, env: int = 0):
+        self.envs, self.env = envs, env
 
     @property
     def first(self) -> bool:
@@ -61,6 +74,30 @@ class Axis:
         rank's points of a row of ``length`` points, before any tensor of the
         row exists (a sampler builds only those points)."""
         return 0, length
+
+    def env_span(self, num_envs: int) -> tuple:
+        """``(start, stop)``: this rank's envs ``[start, stop)`` of a batch of
+        ``num_envs``, as ``Shard(0)`` lays them over the ``env`` ranks (the
+        ceiling chunk: a last rank may hold fewer or none); ``(0, num_envs)``
+        on one rank. An init draws every env's scalars from the generator,
+        so the stream is the unsharded env's, and builds only these envs."""
+        chunk = -(-num_envs // self.envs)
+        start = min(self.env * chunk, num_envs)
+        return start, min(start + chunk, num_envs)
+
+    def env_slab(self, x, num_envs: int):
+        """This rank's envs of ``x`` (along its first dimension), which holds
+        either every env of the batch (cut to :meth:`env_span`, a copy) or
+        this rank's already (as it is): ``x`` itself on one rank."""
+        if self.envs == 1:
+            return x
+        start, stop = self.env_span(num_envs)
+        if x.shape[0] == num_envs:
+            return torch.as_tensor(x)[start:stop].clone()
+        if x.shape[0] != stop - start:
+            raise ValueError(f"a batch of {x.shape[0]} envs is neither the batch "
+                             f"({num_envs}) nor this rank's envs ({stop - start})")
+        return x
 
     def at_edges(self, left: int, right: int) -> tuple:
         """``(left, right)`` where this rank holds the row's start and end

@@ -39,6 +39,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from pdecontrolgym_tpu_torch.core.axis import axis
 from pdecontrolgym_tpu_torch.core.base import FunctionalEnv, RewardCtx, StepOut
 from pdecontrolgym_tpu_torch.envs.common import _scalar
 from pdecontrolgym_tpu_torch.ops.brain_tumor_interval import (
@@ -198,12 +199,19 @@ class BrainTumorEnv(FunctionalEnv):
     # -- protocol ------------------------------------------------------------
 
     def default_ic(self, num_envs: int, generator=None):
-        """Gaussian seed tumor ``0.8·K·exp(−0.25 x²)`` for every env."""
-        return self._u0.repeat(num_envs, 1)
+        """Gaussian seed tumor ``0.8·K·exp(−0.25 x²)`` for every env (this
+        rank's envs, ``Axis.env_span``, on an axis that splits the batch)."""
+        start, stop = axis().env_span(num_envs)
+        return self._u0.repeat(stop - start, 1)
 
     def init_batch(self, num_envs: int, generator=None, t_benchmark=None):
+        """A fresh batch of ``num_envs``; on an axis that splits the batch
+        (``parallel/spatial.py``), this rank's envs of it (``Axis.env_span``).
+        ``default_ic`` builds only those; a user ``ic_sampler`` may return
+        them or every env, which is cut to them at the whole batch's cost."""
         sampler = self.ic_sampler or self.default_ic
-        return self.init_from(sampler(num_envs, generator), t_benchmark)
+        u0 = axis().env_slab(sampler(num_envs, generator), num_envs)
+        return self.init_from(u0, t_benchmark)
 
     def init_from(self, u0, t_benchmark=None):
         """Build a state from explicit ``(B, nx)`` initial rows."""
@@ -450,6 +458,9 @@ class TherapyEnv(FunctionalEnv):
         return state, out
 
     def init_batch(self, num_envs: int, generator=None, t_benchmark=None):
+        """Fresh envs fast-forwarded through Growth; on an axis that splits
+        the batch (``parallel/spatial.py``), only this rank's envs, each rank
+        for as many days as its own envs need."""
         if t_benchmark is None:
             t_benchmark = self.t_benchmark
         state, _ = self.env.init_batch(num_envs, generator, t_benchmark)

@@ -83,14 +83,15 @@ class BurgersEnv(Boundary1DEnv):
 
     def default_ic(self, num_envs, generator):
         """Smooth random IC: height·sin(πx) with height ~ U(0.5, 2); β = 0;
-        at this rank's points of the row (``core/axis.py``; the whole row on
-        one rank): every rank draws the same heights. ``generator`` must live
-        on the env's device."""
+        for this rank's envs at this rank's points of the row
+        (``core/axis.py``; every env, the whole row on one rank): every rank
+        draws every env's height. ``generator`` must live on the env's
+        device."""
         c = self.config
-        height = 0.5 + 1.5 * torch.rand(
+        height = 0.5 + 1.5 * axis().env_slab(torch.rand(
             (num_envs, 1), generator=generator, dtype=torch.float64,
             device=self.device,
-        )
+        ), num_envs)
         x = unit_grid(self.state_dim, self.device)
         u0 = cast_product(height, torch.sin(math.pi * x), c.dtype)
         beta = torch.zeros(u0.shape, dtype=c.dtype, device=self.device)

@@ -204,9 +204,14 @@ class Boundary1DEnv(FunctionalEnv):
         return 1
 
     def init_batch(self, num_envs: int, generator: torch.Generator):
+        """A fresh batch of ``num_envs``; on an axis that splits the batch
+        (``parallel/spatial.py``), this rank's envs of it (``Axis.env_span``).
+        ``default_ic`` builds only those; a user ``ic_sampler`` may return
+        them or every env, which is cut to them at the whole batch's cost."""
         sampler = self.ic_sampler or self.default_ic
+        ax = axis()
         u0, beta = sampler(num_envs, generator)
-        return self.init_from(u0, beta)
+        return self.init_from(ax.env_slab(u0, num_envs), ax.env_slab(beta, num_envs))
 
     def init_from(self, u0, beta):
         """Build a state from explicit ``(B, state_dim)`` initial rows and plant

@@ -314,21 +314,29 @@ class NavierStokesEnv(FunctionalEnv):
 
     def default_ic(self, num_envs: int, generator: torch.Generator):
         """u, v, p = three independent U(−5, 5) constants an env (the
-        examples' sampler), over this rank's rows of the field
-        (``core/axis.py``; every row on one rank): every rank draws the same
-        constants. ``generator`` must live on the env's device."""
+        examples' sampler), for this rank's envs over this rank's rows of the
+        field (``core/axis.py``; every env, every row on one rank): every
+        rank draws every env's constants. ``generator`` must live on the
+        env's device."""
         c = self.config
-        vals = 10.0 * torch.rand(
+        ax = axis()
+        vals = 10.0 * ax.env_slab(torch.rand(
             (num_envs, 3, 1, 1), generator=generator, dtype=c.dtype, device=self.device
-        ) - 5.0
-        start, stop = axis().span(c.ny)
-        u0, v0, p0 = (vals[:, k].expand(num_envs, stop - start, c.nx).contiguous()
+        ), num_envs) - 5.0
+        start, stop = ax.span(c.ny)
+        u0, v0, p0 = (vals[:, k].expand(vals.shape[0], stop - start, c.nx).contiguous()
                       for k in range(3))
         return u0, v0, p0
 
     def init_batch(self, num_envs: int, generator: torch.Generator):
+        """A fresh batch of ``num_envs``; on an axis that splits the batch
+        (``parallel/spatial.py``), this rank's envs of it (``Axis.env_span``).
+        ``default_ic`` builds only those; a user ``ic_sampler`` may return
+        them or every env, which is cut to them at the whole batch's cost."""
         sampler = self.ic_sampler or self.default_ic
-        return self.init_from(*sampler(num_envs, generator))
+        ax = axis()
+        return self.init_from(*(ax.env_slab(x, num_envs)
+                                for x in sampler(num_envs, generator)))
 
     def init_from(self, u0, v0, p0):
         """Build a fresh state from explicit ``(B, ny, nx)`` fields.

@@ -43,6 +43,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from pdecontrolgym_tpu_torch.core.axis import axis
 from pdecontrolgym_tpu_torch.core.base import FunctionalEnv, RewardCtx, StepOut
 from pdecontrolgym_tpu_torch.envs.common import _scalar
 from pdecontrolgym_tpu_torch.ops.neuron_interval import (
@@ -298,15 +299,20 @@ class NeuronEnv(FunctionalEnv):
         return raw.clamp(1, self.M - 1).to(torch.int32)
 
     def init_batch(self, num_envs: int, generator=None):
+        """``num_envs`` envs at the stock initial state; on an axis that
+        splits the batch (``parallel/spatial.py``), this rank's envs of them
+        (``Axis.env_span``)."""
         c = self.config
+        start, stop = axis().env_span(num_envs)
+        n = stop - start
         u0 = 2.0 * c.cInfty - self.c_eq
         Z0 = torch.tensor([c.cInfty, c.LSubZero - c.LSubS], dtype=c.dtype,
                           device=self.device)
         state = NeuronState(
-            u=u0.repeat(num_envs, 1),
-            Z=Z0.repeat(num_envs, 1),
-            L=self._conversion(Z0[1]).repeat(num_envs),
-            time_index=torch.zeros((num_envs,), dtype=c.dtype, device=self.device),
+            u=u0.repeat(n, 1),
+            Z=Z0.repeat(n, 1),
+            L=self._conversion(Z0[1]).repeat(n),
+            time_index=torch.zeros((n,), dtype=c.dtype, device=self.device),
         )
         return state, self._observe(state.u, state.L, None)
 

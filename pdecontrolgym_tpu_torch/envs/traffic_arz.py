@@ -40,6 +40,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from pdecontrolgym_tpu_torch.core.axis import axis
 from pdecontrolgym_tpu_torch.core.base import FunctionalEnv, RewardCtx, StepOut
 
 _MODES = ("inlet", "outlet", "both", "inlet-train", "outlet-train")
@@ -160,12 +161,17 @@ class TrafficARZEnv(FunctionalEnv):
     def init_batch(self, num_envs: int, generator: Optional[torch.Generator] = None):
         """``num_envs`` fresh episodes. The train modes draw each env's steady
         density from ``(0.115, 0.12, 0.125)`` with ``generator``; without one,
-        and in the other modes, every env starts at the nominal steady state."""
+        and in the other modes, every env starts at the nominal steady state.
+        On an axis that splits the batch (``parallel/spatial.py``), this
+        rank's envs (``Axis.env_span``): every rank draws every env's index."""
         c = self.config
-        rs = torch.full((num_envs,), c.nominal_steady()[0], dtype=c.dtype, device=self.device)
+        ax = axis()
+        start, stop = ax.env_span(num_envs)
+        n = stop - start
+        rs = torch.full((n,), c.nominal_steady()[0], dtype=c.dtype, device=self.device)
         if c.is_train and generator is not None:
-            idx = torch.randint(0, len(_TRAIN_RS), (num_envs,), generator=generator,
-                                device=generator.device).to(self.device)
+            idx = ax.env_slab(torch.randint(0, len(_TRAIN_RS), (num_envs,), generator=generator,
+                                            device=generator.device), num_envs).to(self.device)
             rs = torch.tensor(_TRAIN_RS, dtype=c.dtype, device=self.device)[idx]
         vs = veq(c.v_max, c.ro_max, rs)
         qs = rs * vs
@@ -176,7 +182,7 @@ class TrafficARZEnv(FunctionalEnv):
         y = col(qs) - c.v_max * r + c.v_max / c.ro_max * r**2
         state = TrafficARZState(
             r=r, y=y,
-            time_index=torch.zeros((num_envs,), dtype=c.dtype, device=self.device),
+            time_index=torch.zeros((n,), dtype=c.dtype, device=self.device),
             rs=rs, vs=vs, qs=qs,
         )
         return state, self._observe(state)

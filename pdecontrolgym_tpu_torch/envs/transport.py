@@ -63,17 +63,18 @@ class TransportEnv(Boundary1DEnv):
 
     def default_ic(self, num_envs, generator):
         """A flat IC of height U(1, 10) and the Chebyshev recirculation
-        β(x) = 5·cos(7.35·acos x), as the JAX package's sampler, at this
-        rank's points of the row (``core/axis.py``; the whole row on one
-        rank): every rank draws the same heights. ``generator`` must live on
-        the env's device."""
+        β(x) = 5·cos(7.35·acos x), as the JAX package's sampler, for this
+        rank's envs at this rank's points of the row (``core/axis.py``; every
+        env, the whole row on one rank): every rank draws every env's height.
+        ``generator`` must live on the env's device."""
         c = self.config
-        height = 1.0 + 9.0 * torch.rand(
+        ax = axis()
+        height = 1.0 + 9.0 * ax.env_slab(torch.rand(
             (num_envs, 1), generator=generator, dtype=c.dtype, device=self.device
-        )
+        ), num_envs)
         beta = chebyshev_beta(self.state_dim, 7.35, 5.0, c.dtype, self.device)
-        u0 = height.expand(num_envs, beta.shape[-1]).contiguous()
-        return u0, beta.expand(num_envs, -1).contiguous()
+        u0 = height.expand(height.shape[0], beta.shape[-1]).contiguous()
+        return u0, beta.expand(height.shape[0], -1).contiguous()
 
 
 def chebyshev_beta(nx: int, gamma: float = 7.35, scale: float = 5.0,

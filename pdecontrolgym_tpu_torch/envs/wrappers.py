@@ -12,7 +12,10 @@ Batched-path delegation: ``parallel/rollout.batch_step`` prefers an env's
 attributes would demote every wrapped env to the slower generic path (and
 re-run ``TherapyEnv``'s Growth fast-forward every step), so each wrapper
 forwards the batched protocol when, and only when, the inner env provides
-it, applying its own adaptation on the batched signature.
+it, applying its own adaptation on the batched signature. The forwarded
+``init_batch`` passes the batch size on as it is: inside
+``parallel/spatial.py``'s ``make_sharded_env`` the inner env then hands out
+this rank's envs only, and the maps, batch-first, take them as they come.
 """
 
 from __future__ import annotations

@@ -51,6 +51,18 @@ def env_device(env) -> torch.device:
     raise ValueError(f"{type(env).__name__} and the envs it wraps declare no device")
 
 
+def _any_env(env):
+    """``any_env(flags) -> bool``, whether any env's flag is set: that of
+    ``env`` or of the env it wraps (``env.env``, ...; a sharded env's reads
+    every rank's envs with a collective of its own), else ``flags.any()``."""
+    while env is not None:
+        fn = getattr(env, "any_env", None)
+        if fn is not None:
+            return fn
+        env = getattr(env, "env", None)
+    return lambda flags: bool(flags.any())
+
+
 def batch_step(env, autoreset: bool = True, noise: bool = False):
     """Returns ``step(state, actions, generator) -> (state, StepOut)``.
 
@@ -62,8 +74,10 @@ def batch_step(env, autoreset: bool = True, noise: bool = False):
     When the env, or any env it wraps (``env.env``, ``env.env.env``, ...),
     declares ``autoreset_gate = True`` (an env whose ``init_batch`` is expensive, as
     ``TherapyEnv``'s, which fast-forwards a whole stage), the reset work runs
-    only ``if bool(done.any())``: one host read per step, which waits for the
-    device. Envs that declare nothing keep the ungated path and read nothing.
+    only where an env ended (``done.any()``, or the ``any_env`` of an env
+    that reads the flags of every rank, as ``parallel/spatial.py``'s sharded
+    env): one host read per step, which waits for the device. Envs that
+    declare nothing keep the ungated path and read nothing.
 
     ``noise``: hand ``generator`` to the env's step, so that an env with a
     noise function (:func:`env_noise_fn`) draws its sensing noise from it.
@@ -81,6 +95,7 @@ def batch_step(env, autoreset: bool = True, noise: bool = False):
     while inner is not None and not gate:
         gate = bool(getattr(inner, "autoreset_gate", False))
         inner = getattr(inner, "env", None)
+    any_env = _any_env(env)
 
     if not autoreset:
         return lambda state, actions, generator=None: raw_step(state, actions, generator)
@@ -88,8 +103,9 @@ def batch_step(env, autoreset: bool = True, noise: bool = False):
     def step(state, actions, generator):
         next_state, out = raw_step(state, actions, generator)
         done = out.terminated | out.truncated
-        if gate and not bool(done.any()):
+        if gate and not any_env(done):
             return next_state, out
+        # every env's fresh state; a sharded env builds only this rank's part
         fresh_state, fresh_obs = env.init_batch(done.shape[0], generator)
 
         def sel(a, b):
@@ -180,7 +196,8 @@ def rollout(
             return like.new_empty((0,) + tuple(like.shape), dtype=dtype)
         return torch.stack([getattr(o, name) for o in outs])
 
-    flags = obs.new_empty((num_envs,), dtype=torch.bool)
+    # the shape of the empty stacks of num_steps=0
+    flags = None if outs else obs.new_empty((num_envs,), dtype=torch.bool)
     info = {}
     if outs:
         info = {k: torch.stack([o.info[k] for o in outs])

@@ -88,6 +88,37 @@ def _contiguous_stride(shape) -> tuple:
     return tuple(reversed(stride))
 
 
+def _stages(mesh: DeviceMesh, group, n: int) -> bool:
+    """Whether ``n`` ranks of ``group`` exchange through host memory: gloo
+    ranks on a card, which send no CUDA tensor point to point, and whose
+    DTensor collectives (functional ones) kill the ranks on CUDA tensors."""
+    return n > 1 and mesh.device_type == "cuda" and dist.get_backend(group) == "gloo"
+
+
+def _env_place(mesh: DeviceMesh) -> tuple:
+    """``(ranks, index)``: the ranks of the ``env`` axis of ``mesh`` and this
+    rank's index among them; ``(1, 0)`` on a mesh without one."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if ENV_AXIS not in names:
+        return 1, 0
+    return mesh.size(names.index(ENV_AXIS)), mesh.get_local_rank(ENV_AXIS)
+
+
+def _gather_runs(x, dim: int, sizes, group, staged: bool):
+    """``x``, this rank's run of ``sizes[rank]`` entries along ``dim``,
+    joined with every rank's run of ``group`` in rank order: ONE
+    ``all_gather`` of the runs padded to the longest, through host memory
+    where ``staged``."""
+    pad = list(x.shape)
+    pad[dim] = max(sizes) - x.shape[dim]
+    if pad[dim]:
+        x = torch.cat([x, x.new_zeros(pad)], dim)
+    wire = x.contiguous().cpu() if staged else x.contiguous()
+    parts = [torch.empty_like(wire) for _ in sizes]
+    dist.all_gather(parts, wire, group=group)
+    return torch.cat([p.narrow(dim, 0, s) for p, s in zip(parts, sizes)], dim).to(x.device)
+
+
 # -- the x axis --------------------------------------------------------------------------
 
 
@@ -98,14 +129,13 @@ class _XAxis(Axis):
     with ``torch.distributed`` over the axis's group."""
 
     def __init__(self, mesh: DeviceMesh, length=None):
+        super().__init__(*_env_place(mesh))
         self.group = mesh.get_group(X_AXIS)
         self.n = mesh.size(mesh.mesh_dim_names.index(X_AXIS))
         self.i = mesh.get_local_rank(X_AXIS)
         self.ranks = [dist.get_global_rank(self.group, j) for j in range(self.n)]
         self.mesh = mesh[X_AXIS] if mesh.ndim > 1 else mesh
-        # gloo sends no CUDA tensor point to point: stage those through the host
-        self.staged = (self.n > 1 and mesh.device_type == "cuda"
-                       and dist.get_backend(self.group) == "gloo")
+        self.staged = _stages(mesh, self.group, self.n)
         self.length = None
         if length is not None:
             self.set_length(length)
@@ -292,20 +322,10 @@ class _XAxis(Axis):
 
     def gathers(self, xs, dim=-1, left=0, right=0):
         dim = dim % xs[0].ndim + 1
-        x = torch.stack(xs)
         sizes = list(self.sizes)
         sizes[0] -= left
         sizes[-1] -= right
-        width = max(sizes)
-        pad = list(x.shape)
-        pad[dim] = width - x.shape[dim]
-        if pad[dim]:
-            x = torch.cat([x, x.new_zeros(pad)], dim)
-        wire = x.contiguous().cpu() if self.staged else x.contiguous()
-        parts = [torch.empty_like(wire) for _ in range(self.n)]
-        dist.all_gather(parts, wire, group=self.group)
-        whole = torch.cat([p.narrow(dim, 0, s) for p, s in zip(parts, sizes)], dim)
-        return whole.to(x.device).unbind(0)
+        return _gather_runs(torch.stack(xs), dim, sizes, self.group, self.staged).unbind(0)
 
 
 # -- the public path ----------------------------------------------------------------------
@@ -364,17 +384,21 @@ class SpatialShardedEnv:
     tensors: the env's own eager step, its stencils reaching the neighbouring
     slabs through an :class:`_XAxis` (halos, heads, tails, sums), its
     constants (targets, bases) whole on every rank. A fresh state, the first
-    and each autoreset's, is built the same way (:meth:`init_batch`): no rank
-    holds a whole row of it. The new state comes back
-    as DTensors with the placements it came in with; the ``StepOut`` by the
-    same rule (rewards and flags over ``env``; a full-state 1D observation
-    over ``x`` too; the Navier-Stokes frames gathered over ``x``, where the
-    rule replicates them). ``parallel/rollout.py`` drives the wrapper
-    unchanged; a policy reads the observations as DTensors
-    (``obs.full_tensor()`` for a plain tensor), and plain actions are placed
-    on the mesh by the wrapper. Every rank runs the same program with the
-    same generator seed, as the JAX package's processes do, so a plain tensor
-    handed to the wrapper must hold the same values on every rank.
+    and each autoreset's, is built the same way (:meth:`init_batch`): each
+    rank builds only its own envs along ``env`` and its own slab of their
+    rows along ``x``, never the whole batch or a whole row. The new state
+    comes back as DTensors with the placements it came in with; the
+    ``StepOut`` by the same rule (rewards and flags over ``env``; a
+    full-state 1D observation over ``x`` too; the Navier-Stokes frames
+    gathered over ``x``, where the rule replicates them).
+    ``parallel/rollout.py`` drives the wrapper unchanged, its autoreset gate
+    read through :meth:`any_env`; a policy reads the observations as
+    DTensors (``senv.whole(obs)`` for a plain tensor, which gloo ranks that
+    share a card gather through the host: DTensor's own collectives kill
+    them), and plain actions are placed on the mesh by the wrapper. Every
+    rank runs the same program with the same generator seed, as the JAX
+    package's processes do, so a plain tensor handed to the wrapper must
+    hold the same values on every rank.
 
     Use through the normal rollout API::
 
@@ -391,10 +415,19 @@ class SpatialShardedEnv:
     ``x``, each slab at least 2 points (rows) wide; the families without a
     ``state_dim`` (neuron, brain tumor, traffic) keep ``x`` replicated, as in
     the JAX package, and shard over ``env`` only. Each is held against its
-    unsharded rollout in ``tests/test_torch_dist_sharded_env.py``, and the
-    exchanges are counted in ``tests/test_torch_dist_halo.py``. An env's
-    observation map (``envs/wrappers.py``) runs on each rank's part of the
-    observation as DTensor lays it out.
+    unsharded rollout in ``tests/test_torch_dist_sharded_env.py`` (CPU, 4
+    gloo ranks), what a rank builds of a fresh batch in
+    ``tests/test_torch_dist_init_slab.py`` and
+    ``tests/test_torch_dist_init_envs.py`` (``python -m pytest
+    tests/test_torch_dist_init_envs.py -q``), and the exchanges are counted in
+    ``tests/test_torch_dist_halo.py``. On the card (``chip_smoke.py``'s
+    ``[spatial]``, two gloo ranks sharing it) every family runs under the
+    wrapper at full width: transport (the 65,536-point row), Burgers,
+    explicit and implicit reaction-diffusion (PCR, Thomas, dense) and
+    Navier-Stokes at ``(env=1, x=2)``; transport, neuron, brain tumor,
+    ``TherapyEnv`` and traffic at ``(env=2, x=1)``. An env's observation map
+    (``envs/wrappers.py``) runs on each rank's part of the observation as
+    DTensor lays it out.
     """
 
     def __init__(self, env, mesh: DeviceMesh):
@@ -418,13 +451,17 @@ class SpatialShardedEnv:
             else None
         )
         length = self._grid2d[0] if self._grid2d is not None else self._sdim
-        self._axis = ONE
+        self._env_group = mesh.get_group(ENV_AXIS)
         if length is not None and mesh.size(self._x_dim) > 1:
             self._axis = _XAxis(mesh, length)
             if min(self._axis.sizes) < 2:
                 raise ValueError(
                     f"a row of {length} points over {self._axis.n} x ranks leaves a "
                     f"slab of {min(self._axis.sizes)}: each needs at least 2")
+        else:
+            # the whole row on this rank, this rank's envs of the batch
+            self._axis = Axis(*_env_place(mesh))
+            self._axis.staged = _stages(mesh, self._env_group, self._axis.envs)
 
     def __getattr__(self, name):
         if name == "env":  # not set yet: __init__ raised before it
@@ -460,34 +497,26 @@ class SpatialShardedEnv:
         return _tree_map(self._place, tree)
 
     def init_batch(self, num_envs: int, generator: torch.Generator):
-        """A fresh batch whose row leaves each rank builds as its own slab:
-        the wrapped env's ``init_batch`` runs on the rank's axis, as the step
-        does. Every rank draws every env's scalars from the same generator,
-        so the draws are the unsharded env's, and evaluates the sampler's
-        grid functions at its own points only (``Axis.span``); then keeps its
-        envs along ``env``. A user ``ic_sampler`` runs on the same axis: one
-        that returns this rank's slab is taken as it is, one that returns the
-        whole row is cut to the slab (``Axis.slab``), at the whole row's
-        cost on every rank."""
+        """A fresh batch of which each rank builds only its own part: its
+        envs along ``env`` and its slab of their rows along ``x``. The
+        wrapped env's ``init_batch`` runs on the rank's axis, as the step
+        does: every rank draws every env's scalars from the same generator,
+        so the draws are the unsharded env's, cuts them to its envs
+        (``Axis.env_span``) and evaluates the sampler's grid functions at its
+        own points only (``Axis.span``). A user ``ic_sampler`` runs on the
+        same axis: one that returns this rank's envs and slab is taken as it
+        is, one that returns every env or the whole row is cut to them
+        (``Axis.env_slab``, ``Axis.slab``), at the whole batch's cost on
+        every rank."""
         with using(self._axis), implicit_replication():
             fresh = self.env.init_batch(num_envs, generator)
-        return _tree_map(lambda t: self._lift(t, num_envs, every_env=True), fresh)
+        return _tree_map(lambda t: self._lift(t, num_envs), fresh)
 
-    def _env_rows(self, t):
-        """This rank's envs of ``t``, which holds every env, as ``Shard(0)``
-        lays them out over ``env``."""
-        n = self.mesh.size(self._env_dim)
-        if n == 1:
-            return t
-        chunk = -(-t.shape[0] // n)
-        start = min(self.mesh.get_local_rank(ENV_AXIS) * chunk, t.shape[0])
-        return t.narrow(0, start, max(0, min(chunk, t.shape[0] - start))).clone()
-
-    def _lift(self, t, batch: int, every_env: bool = False):
+    def _lift(self, t, batch: int):
         """A tensor the local step handed out, as a DTensor on the mesh by the
-        per-leaf rule: a plain tensor holds this rank's envs (``every_env``:
-        every env) whole along ``x``; a DTensor is a value of the whole row
-        on the ``x`` mesh (``Axis.row``, or a reduction of one)."""
+        per-leaf rule: a plain tensor holds this rank's envs whole along
+        ``x``; a DTensor is a value of the whole row on the ``x`` mesh
+        (``Axis.row``, or a reduction of one)."""
         shape = torch.Size((batch,) + tuple(t.shape[1:])) if t.ndim else t.shape
         placements = self._placements(shape)
         x = placements[self._x_dim]
@@ -501,8 +530,6 @@ class SpatialShardedEnv:
             local = self._axis.local(t, x.dim)
         else:
             local = t
-        if every_env and t.ndim:
-            local = self._env_rows(local)
         return DTensor.from_local(local, self.mesh, placements, run_check=False,
                                   shape=shape, stride=_contiguous_stride(shape))
 
@@ -516,6 +543,44 @@ class SpatialShardedEnv:
         if self._axis.staged and isinstance(src, Shard) and not isinstance(x, Shard):
             return self._axis.gathers((t.to_local(),), dim=src.dim)[0]
         return t.redistribute(t.device_mesh, [x]).to_local()
+
+    def whole(self, x):
+        """``x``, a DTensor the wrapper handed out (an observation, a state
+        leaf, the rewards), gathered into the plain tensor it stands for, the
+        same on every rank; any other tensor as it is. Ranks that stage
+        through the host gather it with the axes' own all-gathers, one along
+        ``x`` where it is split there and one along ``env``: DTensor's
+        (``full_tensor``), a functional collective, kills gloo ranks on CUDA
+        tensors."""
+        if not isinstance(x, DTensor):
+            return x
+        if not self._axis.staged:
+            return x.full_tensor()
+        ax, local = self._axis, x.to_local()
+        along_x, along_env = x.placements[self._x_dim], x.placements[self._env_dim]
+        if isinstance(along_x, Shard) and ax.n > 1:
+            local = ax.gathers((local,), dim=along_x.dim)[0]
+        if isinstance(along_env, Shard) and ax.envs > 1:
+            batch = x.shape[along_env.dim]
+            sizes = [stop - start for start, stop in
+                     (Axis(ax.envs, j).env_span(batch) for j in range(ax.envs))]
+            local = _gather_runs(local, along_env.dim, sizes, self._env_group, True)
+        return local
+
+    def any_env(self, flags) -> bool:
+        """Whether any env's entry of ``flags`` (the ``(B,)`` flags of a step
+        the wrapper handed out, or a plain tensor that every rank holds) is
+        set: the same answer on every rank, from one ``all_reduce`` along
+        ``env`` of this rank's answer (through host memory where the ranks
+        stage), not DTensor's reduction. ``parallel/rollout.py``'s autoreset
+        gate reads it."""
+        if not isinstance(flags, DTensor):
+            return bool(flags.any())
+        hit = flags.to_local().any().reshape(1).to(torch.int32)
+        if self._axis.envs > 1:
+            hit = hit.cpu() if self._axis.staged else hit
+            dist.all_reduce(hit, op=dist.ReduceOp.MAX, group=self._env_group)
+        return bool(hit)
 
     def _stepped(self, step, state, actions, generator):
         state, actions = self.constrain((state, actions))

@@ -738,12 +738,17 @@ def axis_exchanges(rank, world, length, shifts, seed):
 
 
 class OpShapes(TorchDispatchMode):
-    """The shape of every tensor an operation hands out while entered (of a
-    DTensor, its local tensor's), on this rank."""
+    """The operation's name and the shape of every tensor an operation hands
+    out while entered (of a DTensor, its local tensor's), on this rank:
+    ``ops``, and ``shapes`` alone."""
 
     def __init__(self):
         super().__init__()
-        self.shapes = []
+        self.ops = []
+
+    @property
+    def shapes(self):
+        return [shape for _, shape in self.ops]
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -753,7 +758,7 @@ class OpShapes(TorchDispatchMode):
             if isinstance(t, DTensor):
                 t = t.to_local()
             if isinstance(t, torch.Tensor):
-                self.shapes.append(tuple(t.shape))
+                self.ops.append((func.overloadpacket.__name__, tuple(t.shape)))
         return out
 
 
@@ -882,3 +887,134 @@ def staged_frames(rank, world, spatial_shards, num_envs, seed):
                                    if "functional" in str(k) and "gather" in str(k)),
         }
     return runs
+
+
+# -- initial states along env: what a rank builds of the batch ----------------------------
+
+
+def _ending_env(family):
+    """A small env of ``family`` whose episodes all end with their first
+    action (so that the first step's autoreset replaces every env)."""
+    from pdecontrolgym_tpu_torch.envs.brain_tumor import (
+        BrainTumorConfig,
+        BrainTumorEnv,
+        TherapyEnv,
+    )
+    from pdecontrolgym_tpu_torch.envs.neuron import NeuronConfig, NeuronEnv
+    from pdecontrolgym_tpu_torch.envs.traffic_arz import TrafficARZConfig, TrafficARZEnv
+    from pdecontrolgym_tpu_torch.rewards.brain_tumor import BrainTumorReward
+    from pdecontrolgym_tpu_torch.rewards.traffic import TrafficARZReward
+
+    brain = dict(dt=1.0, X=60.0, dx=1.0, t1_detection_radius=5.0, t1_death_radius=20.0,
+                 total_dosage=30.0, dtype=torch.float32, backend="eager")
+    if family == "neuron":  # every env truncates: its norm passes a bound of 0
+        return NeuronEnv(NeuronConfig(dtype=torch.float32, backend="eager",
+                                      limit_pde_state_size=True, max_state_value=0.0),
+                         device="cpu")
+    if family == "brain_tumor":  # one day
+        return BrainTumorEnv(BrainTumorConfig(T=1.0, **brain), BrainTumorReward(), device="cpu")
+    if family == "therapy":  # Growth ends on day 140: the first therapy day is the last
+        return TherapyEnv(BrainTumorEnv(BrainTumorConfig(T=141.0, **brain), BrainTumorReward(),
+                                        device="cpu"))
+    if family == "traffic":  # the train mode draws each env's density; one step
+        return TrafficARZEnv(TrafficARZConfig(T=0.0625, simulation_type="outlet-train"),
+                             TrafficARZReward(), device="cpu")
+    return _one_action_env(family)
+
+
+def init_envs(rank, world, families, spatial_shards, num_envs, seed):
+    """For each of ``families``, on an ``(env=world / spatial_shards,
+    x=spatial_shards)`` mesh: the name and shape of what every operation
+    hands out on this rank during ``make_sharded_env(env).init_batch`` and
+    during a one-step ``rollout`` whose step ends every env (its autoreset
+    draws a fresh batch); the rank's place along ``env`` and its span of the
+    row; the
+    sharded states' local tensors and placements; the unsharded env's,
+    whole."""
+    from pdecontrolgym_tpu_torch.parallel.rollout import rollout
+    from pdecontrolgym_tpu_torch.parallel.spatial import env_spatial_mesh, make_sharded_env
+
+    mesh = env_spatial_mesh(spatial_shards, cpu(world))
+    out = {}
+    for family in families:
+        env = _ending_env(family)
+        senv = make_sharded_env(env, mesh)
+        adim = getattr(env, "action_dim", 1)
+        value = {"ns": 1.5, "traffic": 1.2, "therapy": 0.5}.get(family, 0.5)
+        plain = torch.full((num_envs, adim), value)
+        # the sharded env's actions placed before the record: the policy's
+        # own tensors are not the env's work
+        placed = senv.constrain(plain)
+
+        def runs(e, record, actions):
+            init, reset = OpShapes(), OpShapes()
+            with init if record else contextlib.nullcontext():
+                first = e.init_batch(num_envs, torch.Generator().manual_seed(seed))
+            with reset if record else contextlib.nullcontext():
+                (state, obs), outs = rollout(e, lambda obs, g: actions, num_envs, 1,
+                                             torch.Generator().manual_seed(seed + 1))
+            return {"init": _leaves(*first), "reset": _leaves(state, obs),
+                    "done": outs.terminated | outs.truncated,
+                    "ops": {"init": init.ops, "reset": reset.ops}}
+
+        sharded, whole = runs(senv, True, placed), runs(env, False, plain)
+        ax = senv._axis
+        x_span = (ax.start, ax.stop) if hasattr(ax, "start") else None
+        out[family] = {
+            "env_rank": (mesh.get_local_rank("env"), mesh.size(0)), "x_span": x_span,
+            "ops": sharded["ops"],
+            "done": bool(whole["done"].all()) and bool(_plain(sharded["done"]).all()),
+            "sharded": {k: {n: (t.to_local(), tuple(t.placements)) for n, t in v.items()}
+                        for k, v in sharded.items() if k in ("init", "reset")},
+            "whole": {k: whole[k] for k in ("init", "reset")},
+        }
+    return out
+
+
+def staged_env_reads(rank, world, spatial_shards, num_envs, seed):
+    """``TherapyEnv`` (its autoreset gate read every step) and the transport
+    row under ``make_sharded_env`` on an ``(env=world / spatial_shards,
+    x=spatial_shards)`` mesh with the axis marked as staging through the
+    host, as on gloo ranks that share a card, and unsharded: two steps of
+    ``rollout`` of one-action episodes under a policy that reads the
+    observation gathered (``whole``); the final state and observation whole,
+    the rewards, the gate's reads through the wrapper, and the functional
+    collectives DTensor made."""
+    import dataclasses
+
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from pdecontrolgym_tpu_torch.parallel.rollout import rollout
+    from pdecontrolgym_tpu_torch.parallel.spatial import env_spatial_mesh, make_sharded_env
+
+    mesh = env_spatial_mesh(spatial_shards, cpu(world))
+    out = {}
+    for family in ("therapy", "transport"):
+        env = _ending_env(family)
+        senv = make_sharded_env(env, mesh)
+        senv._axis.staged = True
+        reads = []
+        any_env = senv.any_env
+        senv.any_env = lambda flags: reads.append(1) or any_env(flags)
+
+        def policy(whole):
+            if family == "therapy":
+                return lambda obs, g: (whole(obs).mean(-1, keepdim=True) / 50.0).clamp(0.0, 1.0)
+            return lambda obs, g: 0.1 * whole(obs)[:, :1]
+
+        runs = {}
+        for name, e, whole in (("sharded", senv, senv.whole), ("unsharded", env, lambda x: x)):
+            with CommDebugMode() as comm:
+                (state, obs), outs = rollout(e, policy(whole), num_envs, 2,
+                                             torch.Generator().manual_seed(seed))
+                state = {f.name: whole(getattr(state, f.name)) for f in dataclasses.fields(state)
+                         if isinstance(getattr(state, f.name), torch.Tensor)}
+                obs, reward = whole(obs), whole(outs.reward)
+            runs[name] = {
+                "state": state, "obs": obs, "reward": reward,
+                "functional": sum(v for k, v in comm.get_comm_counts().items()
+                                  if "functional" in str(k)),
+            }
+        runs["gate_reads"] = len(reads)
+        out[family] = runs
+    return out
