@@ -1,0 +1,19 @@
+"""Device milliseconds an agent action in the port's ``env.finish`` span
+(``envs/common.py::Boundary1DEnv._finish``, the step tail after the
+interval: the flags, the reward, the sensing), over the count of its
+``rollout.action`` spans. Reads session 0 of the port's span record
+(``utils/profiling.py::span_totals``): the measured slice, which records the
+device alone. Silent where the port recorded no such span."""
+
+
+def read(run):
+    try:
+        from pdecontrolgym_tpu_torch.utils.profiling import span_totals
+    except ImportError:
+        return None
+    totals = span_totals(session=0)
+    actions = totals.get("rollout.action", {}).get("count")
+    spent = totals.get("env.finish")
+    if not actions or not spent:
+        return None
+    return spent["device_s"] * 1e3 / actions

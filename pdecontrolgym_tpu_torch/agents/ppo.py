@@ -40,6 +40,7 @@ from pdecontrolgym_tpu_torch.agents.networks import (
 )
 from pdecontrolgym_tpu_torch.parallel import mesh as pmesh
 from pdecontrolgym_tpu_torch.parallel.rollout import batch_step, env_device, env_noise_fn
+from pdecontrolgym_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,21 +224,22 @@ class PPOTrainer:
         """One clip + Adam update of ``runner.net`` on one minibatch; returns
         the minibatch's loss (a tensor). On a mesh the gradients and the loss
         are first averaged over the ranks, in one ``all_reduce``."""
-        net, opt = runner.net, runner.opt
-        for group in opt.param_groups:
-            group["lr"] = self.learning_rate(runner.updates)
-        opt.zero_grad(set_to_none=False)
-        total, _ = self.loss(net, obs, packed)
-        total.backward()
-        grads = [p.grad for p in net.parameters()]
-        loss = total.detach()
-        if self.mesh is not None:
-            *mean_grads, loss = pmesh.pmean(grads + [loss], self.mesh)
-            torch._foreach_copy_(grads, mean_grads)
-        clip_by_global_norm_(grads, self.cfg.max_grad_norm)
-        opt.step()
-        runner.updates += 1
-        return loss
+        with span("ppo.update"):
+            net, opt = runner.net, runner.opt
+            for group in opt.param_groups:
+                group["lr"] = self.learning_rate(runner.updates)
+            opt.zero_grad(set_to_none=False)
+            total, _ = self.loss(net, obs, packed)
+            total.backward()
+            grads = [p.grad for p in net.parameters()]
+            loss = total.detach()
+            if self.mesh is not None:
+                *mean_grads, loss = pmesh.pmean(grads + [loss], self.mesh)
+                torch._foreach_copy_(grads, mean_grads)
+            clip_by_global_norm_(grads, self.cfg.max_grad_norm)
+            opt.step()
+            runner.updates += 1
+            return loss
 
     def learn(self, runner: Runner, batch) -> torch.Tensor:
         """``num_epochs`` passes over ``batch``, each a fresh permutation cut

@@ -38,6 +38,7 @@ from pdecontrolgym_tpu_torch.ops.interval1d import (
     auto_steps_eagerly,
     interval,
 )
+from pdecontrolgym_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -451,43 +452,44 @@ class Boundary1DEnv(FunctionalEnv):
         """Shared step tail. ``trailing[:, -1]`` is the current row's L2 norm,
         ``trailing[:, -1-k]`` the norm k sub-steps earlier; ``aux_trailing`` is
         the same window in the reward's ``ring_ord`` when that is not L2."""
-        c = self.config
-        nt = c.nt
-        ax = axis()
-        cur_norm = trailing[:, -1]
-        terminated = t >= nt - 1
-        if c.limit_pde_state_size:
-            truncated = cur_norm >= c.max_state_value
-        else:
-            truncated = torch.zeros_like(terminated)
-        if c.truncate_on_nonfinite:
-            truncated = truncated | ~torch.isfinite(cur_norm)
+        with span("env.finish"):
+            c = self.config
+            nt = c.nt
+            ax = axis()
+            cur_norm = trailing[:, -1]
+            terminated = t >= nt - 1
+            if c.limit_pde_state_size:
+                truncated = cur_norm >= c.max_state_value
+            else:
+                truncated = torch.zeros_like(terminated)
+            if c.truncate_on_nonfinite:
+                truncated = truncated | ~torch.isfinite(cur_norm)
 
-        # a reward is written for the whole row: it reads this rank's slab
-        # as a value of the row (core/axis.py, Axis.row)
-        ctx = RewardCtx(
-            u=ax.row(u),
-            time_index=t,
-            executed=t - state.time_index,
-            terminated=terminated,
-            truncated=truncated,
-            action=ax.tail(u)[:, 0],
-            norms=trailing,
-            bsum=bsum,
-            ring=self.window,
-            extras={"prev_u": ax.row(prev_u)} if self._needs_prev else None,
-            aux_norms=aux_trailing,
-        )
-        reward = self.reward(ctx)
-        new_state = dataclasses.replace(
-            state, u=u, time_index=t, norm_ring=trailing, bsum=bsum,
-            prev_u=prev_u if self._needs_prev else None, aux_ring=aux_trailing,
-        )
-        out = StepOut(
-            obs=self._observe(new_state, generator),
-            reward=reward,
-            terminated=terminated,
-            truncated=truncated,
-            info={},
-        )
-        return new_state, out
+            # a reward is written for the whole row: it reads this rank's slab
+            # as a value of the row (core/axis.py, Axis.row)
+            ctx = RewardCtx(
+                u=ax.row(u),
+                time_index=t,
+                executed=t - state.time_index,
+                terminated=terminated,
+                truncated=truncated,
+                action=ax.tail(u)[:, 0],
+                norms=trailing,
+                bsum=bsum,
+                ring=self.window,
+                extras={"prev_u": ax.row(prev_u)} if self._needs_prev else None,
+                aux_norms=aux_trailing,
+            )
+            reward = self.reward(ctx)
+            new_state = dataclasses.replace(
+                state, u=u, time_index=t, norm_ring=trailing, bsum=bsum,
+                prev_u=prev_u if self._needs_prev else None, aux_ring=aux_trailing,
+            )
+            out = StepOut(
+                obs=self._observe(new_state, generator),
+                reward=reward,
+                terminated=terminated,
+                truncated=truncated,
+                info={},
+            )
+            return new_state, out

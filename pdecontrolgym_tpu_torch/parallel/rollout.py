@@ -19,6 +19,7 @@ from typing import Callable
 import torch
 
 from pdecontrolgym_tpu_torch.core.base import StepOut
+from pdecontrolgym_tpu_torch.utils.profiling import span
 
 
 def batch_init(env, num_envs: int):
@@ -105,20 +106,21 @@ def batch_step(env, autoreset: bool = True, noise: bool = False):
         done = out.terminated | out.truncated
         if gate and not any_env(done):
             return next_state, out
-        # every env's fresh state; a sharded env builds only this rank's part
-        fresh_state, fresh_obs = env.init_batch(done.shape[0], generator)
+        with span("rollout.autoreset"):
+            # every env's fresh state; a sharded env builds only this rank's part
+            fresh_state, fresh_obs = env.init_batch(done.shape[0], generator)
 
-        def sel(a, b):
-            if a is None:
-                return None
-            d = done.reshape(done.shape + (1,) * (a.ndim - done.ndim))
-            return torch.where(d, a, b)
+            def sel(a, b):
+                if a is None:
+                    return None
+                d = done.reshape(done.shape + (1,) * (a.ndim - done.ndim))
+                return torch.where(d, a, b)
 
-        new_state = dataclasses.replace(next_state, **{
-            f.name: sel(getattr(fresh_state, f.name), getattr(next_state, f.name))
-            for f in dataclasses.fields(next_state)
-        })
-        return new_state, dataclasses.replace(out, obs=sel(fresh_obs, out.obs))
+            new_state = dataclasses.replace(next_state, **{
+                f.name: sel(getattr(fresh_state, f.name), getattr(next_state, f.name))
+                for f in dataclasses.fields(next_state)
+            })
+            return new_state, dataclasses.replace(out, obs=sel(fresh_obs, out.obs))
 
     return step
 
@@ -138,7 +140,8 @@ def _fixed_len_step(env, num_envs: int, length: int):
         state, out = raw(state, actions)
         taken += 1
         if taken % length == 0:
-            state, fresh_obs = env.init_batch(num_envs, generator)
+            with span("rollout.autoreset"):
+                state, fresh_obs = env.init_batch(num_envs, generator)
             out = dataclasses.replace(out, obs=fresh_obs)
         return state, out
 
@@ -186,8 +189,9 @@ def rollout(
         step = batch_step(env, autoreset)
     outs = []
     for _ in range(num_steps):
-        actions = policy_fn(obs, generator)
-        state, out = step(state, actions, generator)
+        with span("rollout.action"):
+            actions = policy_fn(obs, generator)
+            state, out = step(state, actions, generator)
         obs = out.obs
         outs.append(out if keep_obs else dataclasses.replace(out, obs=None))
 
