@@ -3,23 +3,44 @@
 Counterpart of ``pdecontrolgym_tpu/parallel/rollout.py``. ``lax.scan`` over
 time becomes a Python loop; the env batch is the leading tensor dimension.
 Finished envs are re-initialised from the IC sampler by a masked select, so
-the batch never stalls. The reset work runs every step, ungated (the JAX
-package's size gate was tuned to XLA and is not carried over; ROADMAP A0),
-unless the env declares ``autoreset_gate = True``: then it runs only on steps
-where an env actually ended. An env that declares ``fixed_episode_length``
-(Navier-Stokes) is stepped without that work and re-initialised whole at each
-episode boundary.
+the batch never stalls. The reset work is gated by its size, as the JAX
+package gates it behind ``lax.cond(done.any(), ...)`` past 16 KB an env:
+where one action's state and obs over the batch reach
+:data:`GATE_MIN_BYTES` (a conservative cut set from H100 measurements, not
+the JAX package's), the reset runs only on actions where an env ended,
+behind one host read an action after the step; below it the reset runs
+every action and nothing is read. An env may declare ``autoreset_gate =
+True`` (always gated, as ``TherapyEnv``, whose reset fast-forwards a whole
+stage) or ``False`` (never gated). An env that declares
+``fixed_episode_length`` (Navier-Stokes) is stepped without that work and
+re-initialised whole at each episode boundary.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import torch
 
 from pdecontrolgym_tpu_torch.core.base import StepOut
 from pdecontrolgym_tpu_torch.utils.profiling import span
+
+
+#: Bytes of one action's state and obs over the whole batch
+#: (:func:`reset_bytes`) from which :func:`batch_step` gates the reset of an
+#: env that declares no ``autoreset_gate``. A conservative cut, not a
+#: measured crossover: on an H100 (``PERF.md`` §6) whether the gate pays
+#: depends less on the bytes than on what the caller launches after the read
+#: (~0.3 ms behind a backstepping controller, ~1.3 ms a step in the PPO
+#: trainer), so 1 GiB lies between the largest batch measured to lose gated
+#: (PPO's 131,072 transport envs, 201.5 MiB) and the smallest reset costly
+#: enough to win behind every caller measured (524,288 reaction-diffusion
+#: envs, 1.38 GiB, ~2.2 ms of reset an action). It leaves measured wins
+#: ungated: reaction-diffusion batches of 44-176 MiB, and host-paced
+#: transport batches of 16,384 envs or fewer.
+GATE_MIN_BYTES = 1 << 30
 
 
 def batch_init(env, num_envs: int):
@@ -64,6 +85,27 @@ def _any_env(env):
     return lambda flags: bool(flags.any())
 
 
+def _declared_gate(env):
+    """The ``autoreset_gate`` that ``env``, or the first env it wraps
+    (``env.env``, ``env.env.env``, ...) to declare one, declares: True,
+    False, or None where none does."""
+    while env is not None:
+        gate = getattr(env, "autoreset_gate", None)
+        if gate is not None:
+            return bool(gate)
+        env = getattr(env, "env", None)
+    return None
+
+
+def reset_bytes(state, obs) -> int:
+    """Bytes of one action's state and obs over the whole batch: every tensor
+    field of ``state``, and ``obs``, by their whole shapes (a sharded env's
+    DTensors give the whole batch's, so every rank counts the same)."""
+    leaves = [getattr(state, f.name) for f in dataclasses.fields(state)] + [obs]
+    return sum(math.prod(t.shape) * t.dtype.itemsize
+               for t in leaves if isinstance(t, torch.Tensor))
+
+
 def batch_step(env, autoreset: bool = True, noise: bool = False):
     """Returns ``step(state, actions, generator) -> (state, StepOut)``.
 
@@ -72,13 +114,29 @@ def batch_step(env, autoreset: bool = True, noise: bool = False):
     fresh ones drawn with ``generator``; the returned ``StepOut`` reports the
     finishing transition but carries the fresh obs.
 
-    When the env, or any env it wraps (``env.env``, ``env.env.env``, ...),
-    declares ``autoreset_gate = True`` (an env whose ``init_batch`` is expensive, as
-    ``TherapyEnv``'s, which fast-forwards a whole stage), the reset work runs
-    only where an env ended (``done.any()``, or the ``any_env`` of an env
-    that reads the flags of every rank, as ``parallel/spatial.py``'s sharded
-    env): one host read per step, which waits for the device. Envs that
-    declare nothing keep the ungated path and read nothing.
+    The reset work (``env.init_batch`` and the ``where`` over every state
+    field and the obs) is gated or not by what the env, or the first env it
+    wraps (``env.env``, ``env.env.env``, ...) to declare one, declares as
+    ``autoreset_gate``:
+
+    - ``True``: gated (an env whose ``init_batch`` is expensive, as
+      ``TherapyEnv``'s, which fast-forwards a whole stage);
+    - ``False``: never gated;
+    - nothing (None): gated where one action's state and obs over the batch
+      (:func:`reset_bytes`) reach :data:`GATE_MIN_BYTES`, decided once for
+      each batch size from the whole shapes, so that every rank of a sharded
+      env takes the same branch.
+
+    A gated reset runs only on actions where an env ended (``done.any()``,
+    or the ``any_env`` of an env that reads the flags of every rank, as
+    ``parallel/spatial.py``'s sharded env, whose ranks all enter it): one
+    host read an action, after the step, which waits for the device.
+
+    The fresh rows, flags, rewards and obs are those of the ungated step,
+    bit for bit, but a sampler that draws from ``generator`` (the envs'
+    ``default_ic``) draws only on the actions where an env ended, so after
+    the first action the generator's stream differs from the ungated
+    step's. An ungated step reads nothing and draws every action.
 
     ``noise``: hand ``generator`` to the env's step, so that an env with a
     noise function (:func:`env_noise_fn`) draws its sensing noise from it.
@@ -92,19 +150,24 @@ def batch_step(env, autoreset: bool = True, noise: bool = False):
         raw_step = step_fn
     else:
         raw_step = lambda state, actions, generator=None: step_fn(state, actions)  # noqa: E731
-    gate, inner = False, env
-    while inner is not None and not gate:
-        gate = bool(getattr(inner, "autoreset_gate", False))
-        inner = getattr(inner, "env", None)
+    declared = _declared_gate(env)
+    by_batch = {}  # batch size -> whether the size gates
     any_env = _any_env(env)
 
     if not autoreset:
         return lambda state, actions, generator=None: raw_step(state, actions, generator)
 
+    def gated(next_state, obs, batch):
+        if declared is not None:
+            return declared
+        if batch not in by_batch:
+            by_batch[batch] = reset_bytes(next_state, obs) >= GATE_MIN_BYTES
+        return by_batch[batch]
+
     def step(state, actions, generator):
         next_state, out = raw_step(state, actions, generator)
         done = out.terminated | out.truncated
-        if gate and not any_env(done):
+        if gated(next_state, out.obs, done.shape[0]) and not any_env(done):
             return next_state, out
         with span("rollout.autoreset"):
             # every env's fresh state; a sharded env builds only this rank's part

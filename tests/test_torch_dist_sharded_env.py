@@ -96,3 +96,35 @@ def test_vector_adapter_over_a_sharded_env(tmp_path):
         assert s[0].shape == (8, u[0].shape[1]) and s[-3].shape == (8,)
         for a, b in zip(s, u):
             np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("spatial_shards", [1, 2])
+def test_gated_sharded_rollout_matches_unsharded(spatial_shards, tmp_path):
+    """The reset gated by size under ``make_sharded_env`` on 2 ranks, split
+    along ``env`` (each rank's envs end on actions of their own) or along
+    ``x``: every rank counts the whole batch's bytes, reads ``any_env``'s
+    collective on every action and resets on the same actions as the
+    unsharded gated rollout, and none hangs."""
+    steps = 30
+    outs = run_ranks("gated_sharded_rollouts", 2, tmp_path, spatial_shards, steps,
+                     join="rank", timeout=240.0)
+    whole_bytes = {out["bytes"] for out in outs}
+    assert len(whole_bytes) == 1
+    for out in outs:
+        s, u = out["sharded"], out["unsharded"]
+        for flag in ("terminated", "truncated"):
+            assert (s[flag] == u[flag]).all(), flag
+        ended = (u["terminated"] | u["truncated"]).any(dim=1)
+        assert bool(u["truncated"].any()) and 0 < int(ended.sum()) < steps
+        assert s["reads"] == steps
+        assert s["init_batch"] == u["init_batch"] == 1 + int(ended.sum())
+        for name in u["state"]:
+            np.testing.assert_allclose(s["state"][name].numpy(), u["state"][name].numpy(),
+                                       rtol=1e-5, atol=1e-5, err_msg=name)
+        np.testing.assert_allclose(s["obs"].numpy(), u["obs"].numpy(), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(s["reward"].numpy(), u["reward"].numpy(),
+                                   rtol=1e-4, atol=1e-4)
+    if spatial_shards == 1:  # on some actions only one rank's envs ended
+        halves = [(outs[0]["unsharded"]["terminated"] | outs[0]["unsharded"]["truncated"])
+                  [:, r * 4:(r + 1) * 4].any(dim=1) for r in range(2)]
+        assert bool((halves[0] ^ halves[1]).any())

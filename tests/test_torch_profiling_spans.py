@@ -10,6 +10,7 @@ Each reader of ``benchmark/metrics/`` divides the right totals of session 0.
 """
 
 import dataclasses
+import importlib
 import importlib.util
 import itertools
 import json
@@ -329,6 +330,7 @@ READERS = {
     "host_ms_per_action.rollout": 0.002 * 1e3 / 4,
     "update_device_ms.train": 0.128 * 1e3 / 16,
     "update_host_ms.train": 0.032 * 1e3 / 16,
+    "reset_share.rollout": 100.0,
 }
 
 
@@ -359,6 +361,46 @@ def test_reader_is_silent_without_spans(name):
         with span("something.else"):
             pass
     assert _reader(name).read({}) is None
+
+
+def _counts(actions, resets):
+    totals = {}
+    if actions is not None:
+        totals["rollout.action"] = dict(KNOWN["rollout.action"], count=actions)
+    if resets is not None:
+        totals["rollout.autoreset"] = dict(KNOWN["rollout.autoreset"], count=resets)
+    return totals
+
+
+@pytest.mark.parametrize("actions, resets, share", [
+    (4, 4, 100.0), (4, 1, 25.0), (199, 0, 0.0), (4, None, 0.0), (None, 3, None),
+    (0, 0, None)])
+def test_reset_share_counts_the_actions_whose_reset_ran(actions, resets, share,
+                                                        monkeypatch):
+    """``reset_share.rollout``: the autoreset spans' count over the actions',
+    in %; 0.0 where actions were counted and no reset ran; None where no
+    action was."""
+    monkeypatch.setattr(profiling, "span_totals",
+                        lambda session=0: _counts(actions, resets))
+    got = _reader("reset_share.rollout").read({})
+    assert got == share if share is None else got == pytest.approx(share, rel=1e-12)
+
+
+def test_reset_share_of_a_gated_rollout(monkeypatch):
+    """A rollout whose reset is gated by size reads the share of its actions
+    on which an env ended: one episode boundary in 25 actions."""
+    rollout_module = importlib.import_module("pdecontrolgym_tpu_torch.parallel.rollout")
+    monkeypatch.setattr(rollout_module, "GATE_MIN_BYTES", 0)
+    with _cpu_profile():
+        _, out = _rollout(25)
+    ended = int((out.terminated | out.truncated).any(dim=1).sum())
+    assert ended == 2  # actions 10 and 20
+    assert _reader("reset_share.rollout").read({}) == pytest.approx(100.0 * ended / 25)
+    monkeypatch.setattr(rollout_module, "GATE_MIN_BYTES", 1 << 60)
+    clear_spans()
+    with _cpu_profile():
+        _rollout(25)
+    assert _reader("reset_share.rollout").read({}) == 100.0
 
 
 # -- the spans' imports ---------------------------------------------------------

@@ -31,8 +31,10 @@ so that autoreset swaps in a fresh env) run against the JAX rollout too.
 """
 
 import dataclasses
+import importlib
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -55,6 +57,7 @@ from pdecontrolgym_tpu.rewards.tuned import TunedReward1D as JaxTunedReward1D
 
 from pdecontrolgym_tpu_torch.agents.backstepping import transport_kernel
 from pdecontrolgym_tpu_torch.envs.brain_tumor import TherapyEnv
+from pdecontrolgym_tpu_torch.envs.burgers import BurgersConfig, BurgersEnv
 from pdecontrolgym_tpu_torch.envs.common import Boundary1DConfig
 from pdecontrolgym_tpu_torch.agents.backstepping import parabolic_control, parabolic_kernel
 from pdecontrolgym_tpu_torch.envs.reaction_diffusion import (
@@ -64,10 +67,13 @@ from pdecontrolgym_tpu_torch.envs.reaction_diffusion import (
 from pdecontrolgym_tpu_torch.envs.navier_stokes import NavierStokesConfig, NavierStokesEnv
 from pdecontrolgym_tpu_torch.envs.transport import TransportEnv
 from pdecontrolgym_tpu_torch.ops import interval1d
-from pdecontrolgym_tpu_torch.parallel.rollout import batch_step, rollout
+from pdecontrolgym_tpu_torch.envs.wrappers import TransformObsEnv
+from pdecontrolgym_tpu_torch.parallel.rollout import batch_step, reset_bytes, rollout
 from pdecontrolgym_tpu_torch.rewards.ns import NSReward
 from pdecontrolgym_tpu_torch.rewards.tuned import TunedReward1D
+from pdecontrolgym_tpu_torch.utils.profiling import clear_spans, span, span_totals
 
+from torch_gate import TRUNC_B, count_init_batch, truncating_env
 from torch_parity import (
     OBS_TOL,
     REWARD_TOL,
@@ -79,6 +85,9 @@ from torch_parity import (
 )
 
 B, NX, STEPS, U0 = 16, 128, 25, 3.0
+
+# the module (the package's ``parallel.rollout`` is the function of that name)
+rollout_module = importlib.import_module("pdecontrolgym_tpu_torch.parallel.rollout")
 
 
 def _envs():
@@ -108,7 +117,22 @@ def _gain():
 
 
 def test_rollout_matches_jax_across_an_episode_boundary():
+    _transport_rollout_matches_jax()
+
+
+def test_gated_rollout_matches_jax_across_an_episode_boundary(monkeypatch):
+    """The same rollout with the reset gated by size (``GATE_MIN_BYTES`` at
+    0): the boundary action still resets the whole batch."""
+    monkeypatch.setattr(rollout_module, "GATE_MIN_BYTES", 0)
+    calls = _transport_rollout_matches_jax()
+    assert len(calls) == 2  # the first init and the boundary's reset
+
+
+def _transport_rollout_matches_jax():
+    """Checks the port's transport rollout against the JAX package's;
+    returns the port env's ``init_batch`` calls."""
     jenv, penv = _envs()
+    calls = count_init_batch(penv)
     dx, theta, scales = _gain()
     jgain = jnp.asarray(scales) * jax_transport_kernel(jnp.asarray(theta), dx)[None]
     pgain = torch.from_numpy(scales) * transport_kernel(torch.from_numpy(theta), dx)[None]
@@ -132,6 +156,7 @@ def test_rollout_matches_jax_across_an_episode_boundary():
     # the step that ended the episode carries the fresh obs
     np.testing.assert_array_equal(pouts.obs[19].numpy(), np.full((B, NX), U0, np.float32))
     assert interval1d.LAUNCHES == 0  # CPU tensors: the plain version
+    return calls
 
 
 def test_batch_step_resets_only_finished_envs():
@@ -196,7 +221,21 @@ def test_implicit_reaction_diffusion_rollout_matches_jax():
 
 
 def test_explicit_reaction_diffusion_backstepping_rollout_matches_jax():
+    _explicit_rd_rollout_matches_jax()
+
+
+def test_gated_explicit_reaction_diffusion_rollout_matches_jax(monkeypatch):
+    """The same rollout with the reset gated by size (``GATE_MIN_BYTES`` at 0)."""
+    monkeypatch.setattr(rollout_module, "GATE_MIN_BYTES", 0)
+    calls = _explicit_rd_rollout_matches_jax()
+    assert len(calls) == 2  # the first init and the boundary's reset
+
+
+def _explicit_rd_rollout_matches_jax():
+    """Checks the port's explicit RD rollout under backstepping against the
+    JAX package's; returns the port env's ``init_batch`` calls."""
     jenv, penv, n = _rd_envs("xla", T=0.004, dt=5e-5, control_sample_rate=5e-4)
+    calls = count_init_batch(penv)
     dx = 1.0 / 64
     theta = 50 * np.cos(8 * np.arccos(np.linspace(dx, 1.0, n)))
     krow = parabolic_kernel(torch.from_numpy(theta), dx).float()
@@ -208,6 +247,7 @@ def test_explicit_reaction_diffusion_backstepping_rollout_matches_jax():
     (_, _), pouts = rollout(penv, lambda o, g: pscales * parabolic_control(krow, o, dx),
                             8, 10, torch.Generator().manual_seed(0))
     _assert_rollouts_match(jouts, pouts, end=7, obs_tol=OBS_TOL)  # 8 actions an episode
+    return calls
 
 
 def test_rollout_of_zero_steps_returns_the_initial_state_and_empty_stacks():
@@ -306,11 +346,7 @@ def test_rollout_can_leave_the_obs_out_of_the_stack():
     assert bool(state.time_index.eq(25).all()) and bool(outs.terminated[18:].all())
 
 
-def _count_init_batch(env):
-    calls = []
-    inner = env.init_batch
-    env.init_batch = lambda *a, **kw: (calls.append(1), inner(*a, **kw))[1]
-    return calls
+_count_init_batch = count_init_batch
 
 
 def test_autoreset_gate_runs_the_reset_work_only_when_an_env_ended():
@@ -507,3 +543,131 @@ def test_autoreset_gate_is_found_through_a_chain_of_wrappers():
         state, out = step(state, torch.tensor([0.05, 0.3, 1.0]), gen)
         ended += int((out.terminated | out.truncated).any())
     assert ended >= 1 and len(calls) == 1 + ended
+
+
+# -- the autoreset's size gate ---------------------------------------------------
+
+def _gated_rollout(family, monkeypatch, gate_min_bytes, declared=None, steps=45):
+    env, policy, _ = truncating_env(family)
+    if declared is not None:
+        env.autoreset_gate = declared
+    monkeypatch.setattr(rollout_module, "GATE_MIN_BYTES", gate_min_bytes)
+    calls = _count_init_batch(env)
+    result = rollout(env, policy, TRUNC_B, steps, torch.Generator().manual_seed(0))
+    return result, calls
+
+
+@pytest.mark.parametrize("family", ["transport", "reaction_diffusion"])
+def test_gated_and_ungated_rollouts_are_equal_to_the_bit(family, monkeypatch):
+    """The size rule gates this batch (``GATE_MIN_BYTES`` at 0) and an explicit
+    ``autoreset_gate = False`` does not: the obs, rewards, flags and final state
+    and obs are the same bits, across truncations on different actions and
+    the episode boundary. The gated rollout builds fresh rows only on the
+    actions where an env ended."""
+    steps = 45 if family == "transport" else 20
+    ((g_state, g_obs), g_out), g_calls = _gated_rollout(family, monkeypatch, 0, steps=steps)
+    ((u_state, u_obs), u_out), u_calls = _gated_rollout(
+        family, monkeypatch, 0, declared=False, steps=steps)
+    ended = (g_out.terminated | g_out.truncated).any(dim=1)
+    assert bool(g_out.truncated.any()) and bool(ended.any()) and not bool(ended.all())
+    assert len({tuple(g_out.truncated[:, b].nonzero().flatten().tolist())
+                for b in range(TRUNC_B)}) > 2  # the envs truncate on different actions
+    assert len(u_calls) == 1 + steps
+    assert len(g_calls) == 1 + int(ended.sum())
+    for name in ("obs", "reward", "terminated", "truncated"):
+        assert torch.equal(getattr(g_out, name), getattr(u_out, name)), name
+    assert torch.equal(g_obs, u_obs)
+    for f in dataclasses.fields(g_state):
+        a, b = getattr(g_state, f.name), getattr(u_state, f.name)
+        assert (a is None and b is None) or torch.equal(a, b), f.name
+
+
+def test_init_batch_runs_once_per_action_on_which_an_env_ended(monkeypatch):
+    """Gated by size, ``init_batch`` and the ``rollout.autoreset`` span run on
+    exactly the actions where an env ended; the envs that ended are fresh."""
+    env, policy, _ = truncating_env("transport")
+    monkeypatch.setattr(rollout_module, "GATE_MIN_BYTES", 0)
+    gen = torch.Generator().manual_seed(0)
+    state, obs = env.init_batch(TRUNC_B, gen)
+    calls = _count_init_batch(env)
+    step = batch_step(env)
+    ended_actions = 0
+    clear_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        for _ in range(45):
+            with span("rollout.action"):
+                state, out = step(state, policy(obs, gen), gen)
+            obs = out.obs
+            done = out.terminated | out.truncated
+            ended_actions += int(done.any())
+            assert len(calls) == ended_actions
+            assert bool(state.time_index[done].eq(0).all())
+            assert bool(state.time_index[~done].gt(0).all())
+    assert 0 < ended_actions < 45
+    totals = span_totals()
+    clear_spans()
+    assert totals["rollout.action"]["count"] == 45
+    assert totals["rollout.autoreset"]["count"] == ended_actions
+
+
+@pytest.mark.parametrize("below", [False, True])
+def test_the_size_rule_gates_at_and_above_gate_min_bytes(below, monkeypatch):
+    """An env that declares no gate is gated where one action's state and obs
+    reach ``GATE_MIN_BYTES`` (at the threshold and one byte above it), and
+    not where they fall one byte short of it."""
+    probe, _, _ = truncating_env("transport")
+    state, obs = probe.init_batch(TRUNC_B, torch.Generator().manual_seed(0))
+    size = reset_bytes(state, obs)
+    per_env = 2 * 4 * probe.state_dim + 4 * probe.obs_dim + 4 * (1 + 1 + probe.window)
+    assert size == TRUNC_B * per_env  # u, beta, obs; time_index, bsum, the ring
+    thresholds = (size + 1,) if below else (size, size - 1)
+    for at in thresholds:
+        env, _, _ = truncating_env("transport")
+        monkeypatch.setattr(rollout_module, "GATE_MIN_BYTES", at)
+        gen = torch.Generator().manual_seed(0)
+        state, _ = env.init_batch(TRUNC_B, gen)
+        calls = _count_init_batch(env)
+        _, out = batch_step(env)(state, torch.zeros(TRUNC_B), gen)
+        assert not bool((out.terminated | out.truncated).any())
+        assert len(calls) == (1 if below else 0), at
+
+
+@pytest.mark.parametrize("declared", [False, True])
+def test_a_declared_gate_overrides_the_size_rule(declared, monkeypatch):
+    """``autoreset_gate = False`` keeps the reset on every action however large
+    the batch, ``True`` gates it however small; a wrapper forwards either."""
+    monkeypatch.setattr(rollout_module, "GATE_MIN_BYTES", 1 << 60 if declared else 0)
+    env, _, _ = truncating_env("transport")
+    env.autoreset_gate = declared
+    wrapped = TransformObsEnv(env, lambda o: o)
+    assert wrapped.autoreset_gate is declared
+    for e in (env, wrapped):
+        gen = torch.Generator().manual_seed(0)
+        state, _ = e.init_batch(TRUNC_B, gen)
+        calls = _count_init_batch(e)
+        step = batch_step(e)
+        for _ in range(3):
+            state, out = step(state, torch.zeros(TRUNC_B), gen)
+            assert not bool((out.terminated | out.truncated).any())
+        assert len(calls) == (0 if declared else 3), type(e).__name__
+
+
+def _stock_envs():
+    """The families' stock 1D configurations, each with its default IC."""
+    return {
+        "transport": TransportEnv(Boundary1DConfig(), TunedReward1D(1000, -1e3, 3e2),
+                                  device="cpu"),
+        "reaction_diffusion": ReactionDiffusionEnv(ReactionDiffusionConfig(),
+                                                   TunedReward1D(1000, -1e3, 3e2),
+                                                   device="cpu"),
+        "burgers": BurgersEnv(BurgersConfig(), TunedReward1D(1000, -1e3, 3e2), device="cpu"),
+    }
+
+
+@pytest.mark.parametrize("family", ["transport", "reaction_diffusion", "burgers"])
+def test_a_stock_batch_of_4096_envs_stays_ungated(family):
+    """At the stock 4,096 envs one action's state and obs stay below
+    ``GATE_MIN_BYTES``, so the reset runs every action and nothing is read."""
+    env = _stock_envs()[family]
+    state, obs = env.init_batch(4096, torch.Generator().manual_seed(0))
+    assert reset_bytes(state, obs) < rollout_module.GATE_MIN_BYTES

@@ -1018,3 +1018,49 @@ def staged_env_reads(rank, world, spatial_shards, num_envs, seed):
         runs["gate_reads"] = len(reads)
         out[family] = runs
     return out
+
+
+# -- the autoreset's size gate under make_sharded_env -------------------------------------
+
+
+def gated_sharded_rollouts(rank, world, spatial_shards, steps):
+    """Transport envs that truncate on different actions (``tests/torch_gate.py``)
+    with the reset gated by size (``GATE_MIN_BYTES`` at 0), under
+    ``make_sharded_env`` on an ``(env=world / spatial_shards,
+    x=spatial_shards)`` mesh and unsharded: the flags, rewards, final state
+    and obs whole, and, of the sharded run, this rank's reads of
+    ``any_env`` and calls of ``init_batch``."""
+    import dataclasses
+    import importlib
+
+    from torch_gate import TRUNC_B, count_init_batch, truncating_env
+
+    from pdecontrolgym_tpu_torch.parallel.rollout import reset_bytes, rollout
+    from pdecontrolgym_tpu_torch.parallel.spatial import env_spatial_mesh, make_sharded_env
+
+    importlib.import_module("pdecontrolgym_tpu_torch.parallel.rollout").GATE_MIN_BYTES = 0
+    mesh = env_spatial_mesh(spatial_shards, cpu(world))
+    out = {}
+    for name in ("sharded", "unsharded"):
+        env, policy, _ = truncating_env("transport", backend="eager")
+        e = make_sharded_env(env, mesh) if name == "sharded" else env
+        calls, reads = count_init_batch(e), []
+        if name == "sharded":
+            any_env = e.any_env
+            e.any_env = lambda flags: reads.append(1) or any_env(flags)
+            whole = e.whole
+            state, obs = e.init_batch(TRUNC_B, torch.Generator().manual_seed(0))
+            out["bytes"] = reset_bytes(state, obs)
+            calls.clear()
+        else:
+            whole = lambda x: x  # noqa: E731
+        (state, obs), outs = rollout(e, lambda o, g: policy(whole(o), g), TRUNC_B, steps,
+                                     torch.Generator().manual_seed(0))
+        out[name] = {
+            "state": {f.name: whole(getattr(state, f.name)) for f in dataclasses.fields(state)
+                      if isinstance(getattr(state, f.name), torch.Tensor)},
+            "obs": whole(obs), "reward": whole(outs.reward),
+            "terminated": whole(outs.terminated), "truncated": whole(outs.truncated),
+            "reads": len(reads), "init_batch": len(calls),
+        }
+    return out
