@@ -60,6 +60,7 @@ from pdecontrolgym_tpu_torch.ops.poisson2d import (
     matpow_pressure_setup,
 )
 from pdecontrolgym_tpu_torch.rewards.ns import NSReward
+from pdecontrolgym_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -457,7 +458,13 @@ class NavierStokesEnv(FunctionalEnv):
     def step_batch(self, state: NavierStokesState, actions, generator=None):
         """Batched step: the fused projection step when the config is eligible
         (see ``step_backend``), else the eager projection; with
-        ``lockstep_targets`` one shared ``U_ref[t]`` row for the batch."""
+        ``lockstep_targets`` one shared ``U_ref[t]`` row for the batch.
+
+        Spans (``utils/profiling.py::span``, recorded only under a profiler):
+        ``ns.step`` around the projection step (the ``ns_step`` call on the
+        fused paths, ``_projection`` on the eager one), ``ns.finish`` around
+        the rest (the flags, the frames view, the target rows, the reward and
+        the lockstep ``where``)."""
         c = self.config
         actions = self._actions(state, actions)
         ts = state.time_index + 1
@@ -465,38 +472,41 @@ class NavierStokesEnv(FunctionalEnv):
         # itself would wait for the device on every step
         first = self._target_rows(ts[:1])
         track = None
-        if self._fused_spec is None:
-            u, v, p = self._projection(state.u, state.v, state.p, actions)
-        elif self._fused_track:
-            u, v, p, tsum = ns_step(
-                self._fused_spec, state.u, state.v, actions,
-                self._uref.index_select(0, first)[0],
-                self._vref.index_select(0, first)[0],
-            )
-            track = tsum[:, 0]
-        else:
-            u, v, p = ns_step(self._fused_spec, state.u, state.v, actions)
-        terminated = ts >= c.nt - 1
-        ax = axis()
-        frames = ax.row(stack_frames(u, v), dim=1)
-
-        if c.lockstep_targets:
-            arow = self.action_ref.index_select(0, first)
-            if track is not None:
-                # NSReward's formula from the step's per-env tracking sums
-                act_term = torch.square(actions - arow).sum(dim=-1)
-                reward = (-0.5 * track / (c.nx * c.ny)
-                          - 0.5 * self.reward.gamma * act_term)
-            else:
-                reward = self._reward(
-                    frames, ts, terminated, actions,
-                    ax.row(ax.local(self.U_ref.index_select(0, first)[0], dim=0), dim=0),
-                    arow,
+        with span("ns.step"):
+            if self._fused_spec is None:
+                u, v, p = self._projection(state.u, state.v, state.p, actions)
+            elif self._fused_track:
+                u, v, p, tsum = ns_step(
+                    self._fused_spec, state.u, state.v, actions,
+                    self._uref.index_select(0, first)[0],
+                    self._vref.index_select(0, first)[0],
                 )
-            # fail loud on a hand-built mixed-time batch instead of rewarding
-            # every env against env 0's target row
-            reward = torch.where((ts == ts[0]).all(), reward,
-                                 torch.full_like(reward, float("nan")))
-        else:
-            reward = self._gathered_reward(frames, ts, terminated, actions)
-        return self._out(u, v, p, ts, frames, terminated, reward)
+                track = tsum[:, 0]
+            else:
+                u, v, p = ns_step(self._fused_spec, state.u, state.v, actions)
+        with span("ns.finish"):
+            terminated = ts >= c.nt - 1
+            ax = axis()
+            frames = ax.row(stack_frames(u, v), dim=1)
+
+            if c.lockstep_targets:
+                arow = self.action_ref.index_select(0, first)
+                if track is not None:
+                    # NSReward's formula from the step's per-env tracking sums
+                    act_term = torch.square(actions - arow).sum(dim=-1)
+                    reward = (-0.5 * track / (c.nx * c.ny)
+                              - 0.5 * self.reward.gamma * act_term)
+                else:
+                    reward = self._reward(
+                        frames, ts, terminated, actions,
+                        ax.row(ax.local(self.U_ref.index_select(0, first)[0], dim=0),
+                               dim=0),
+                        arow,
+                    )
+                # fail loud on a hand-built mixed-time batch instead of rewarding
+                # every env against env 0's target row
+                reward = torch.where((ts == ts[0]).all(), reward,
+                                     torch.full_like(reward, float("nan")))
+            else:
+                reward = self._gathered_reward(frames, ts, terminated, actions)
+            return self._out(u, v, p, ts, frames, terminated, reward)

@@ -8,7 +8,8 @@ format.
 
 Spans. The port marks its layer boundaries with :func:`span`
 (``rollout.action`` and ``rollout.autoreset`` in ``parallel/rollout.py``,
-``env.finish`` in ``envs/common.py``, ``ppo.update`` in ``agents/ppo.py``).
+``env.finish`` in ``envs/common.py``, ``ns.step`` and ``ns.finish`` in
+``envs/navier_stokes.py``, ``ppo.update`` in ``agents/ppo.py``).
 A span records only while a ``torch.profiler`` records, whoever started it
 (:func:`trace`, or a caller's own ``torch.profiler.profile``); otherwise it
 is one shared object, at the cost of one flag read and a count of the spans
